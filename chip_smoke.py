@@ -2,23 +2,36 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero):
+Phases (each prints its lines; any failure exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build of the hand-written kernels from feabas_tpu_torch/csrc;
+  2. build of the hand-written kernels from feabas_tpu_torch/csrc, one
+     nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, at the
-     stitch path's shapes, with both times from CUDA events;
+     stitch and align paths' shapes, with both times from CUDA events:
+     the DoG (sigma 2.5 and 3.5) and blur, and the mesh raster on a
+     2048^2 cell-binned block of a deformed section mesh with its own
+     source crop, four 512^2 flat-table blocks on one resident source,
+     and a tie of two identical rows, which the first must win;
   4. the stitch slice: a synthetic 2x3 grid of 3000x4000 uint8 tiles
      (10% overlap, 3 px stage jitter, made on the card from a seed) goes
      through ``feabas_tpu_torch.scripts.stitch_main`` matching,
      optimization and rendering; matches, placements and the render are
-     checked against the ground truth, and the kernels' launch counts
-     show the path went through them.
-The line before last is nvidia-smi's card line; the last line is one
-JSON object {"ok": true, "device": {...}}. Exits non-zero without a CUDA
+     checked against the ground truth;
+  5. the align slice: 8 sections of 8192x8192 uint8 at 4 nm (a seeded
+     texture moved by a cumulative N(0, 24 px) drift and a smooth warp,
+     made on the card) go through ``feabas_tpu_torch.scripts.align_main``
+     meshing, matching (working mip 2), optimization and rendering; the
+     matches are checked against the analytic truth, the window against
+     the stacked solve, the render against section 0.
+Each slice resets the kernels' launch counts just before it and reads
+them just after, and fails if a kernel of its path never launched. The
+line before last is nvidia-smi's card line; the last line is one JSON
+object {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device.
 """
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -34,6 +47,13 @@ OVERLAP_Y, OVERLAP_X = 300, 400       # 10% of the tile
 JITTER = 3.0
 MARGIN = 50
 ATOL = 1e-3                           # f32 blur sums, as test_pallas.py
+# kernel -> (source under feabas_tpu_torch/csrc, the TPU code it replaces)
+KERNELS = {
+    'dog_filter': ('dog_filter', 'feabas_tpu/ops/pallas_kernels.py:59'),
+    'gaussian_blur': ('dog_filter', 'feabas_tpu/ops/pallas_kernels.py:25'),
+    'mesh_raster': ('mesh_raster', 'feabas_tpu/ops/render.py:160'),
+}
+KERNEL_SOURCES = sorted({src for src, _ in KERNELS.values()})
 
 
 def log(msg):
@@ -73,16 +93,20 @@ def check_kernels(dev):
         x = torch.rand(shape, generator=g, device=dev) * 255
         return x.to(torch.uint8) if dtype == torch.uint8 else x
 
-    # match blocks: 8 pairs x 128 blocks of 128^2 (f32, after the warp),
-    # and 512^2 uint8 blocks, sigma 2.5
-    for shape, dtype in (((1024, 128, 128), torch.float32),
-                         ((16, 512, 512), torch.uint8)):
+    # stitch match blocks: 8 pairs x 128 blocks of 128^2 (f32, after the
+    # warp) and 512^2 uint8 blocks, sigma 2.5; section match blocks of the
+    # align path (working mip 2): 96^2 and 24^2 f32 blocks, sigma 3.5
+    for shape, dtype, sigma in (((1024, 128, 128), torch.float32, 2.5),
+                                ((16, 512, 512), torch.uint8, 2.5),
+                                ((512, 96, 96), torch.float32, 3.5),
+                                ((8192, 24, 24), torch.float32, 3.5)):
         x = rand_stack(shape, dtype)
-        err = float((dog.dog_filter(x, 2.5) - dog.dog_filter_plain(x, 2.5))
+        err = float((dog.dog_filter(x, sigma) - dog.dog_filter_plain(x, sigma))
                     .abs().max())
-        ms = cuda_time(lambda: dog.dog_filter(x, 2.5))
-        pms = cuda_time(lambda: dog.dog_filter_plain(x, 2.5))
-        rows.append(('dog_filter', shape, str(dtype), err, ms, pms))
+        ms = cuda_time(lambda: dog.dog_filter(x, sigma))
+        pms = cuda_time(lambda: dog.dog_filter_plain(x, sigma))
+        rows.append(('dog_filter', shape, f'{dtype} sigma {sigma}', err, ms,
+                     pms))
     # the in-program coarse seed's masked pooled band (1, h, w): the
     # masked DoG runs the DoG kernel and the blur kernel
     band = rand_stack((1, 1664, 384), torch.float32)
@@ -111,25 +135,138 @@ def check_kernels(dev):
     return rows
 
 
-def make_grid(dev):
-    """World texture on the card (seeded), cut into a 2x3 grid with
-    jittered true positions. Returns (world, tiles, true_bboxes,
-    stage_bboxes) as host arrays."""
+def _section_mesh(size, mesh_size, amp, period):
+    """Equilateral section mesh over (0, 0, size, size) whose MOVING gear
+    carries the smooth warp (amp px, period px) of the phase-5 stack."""
+    import numpy as np
+    from feabas_tpu.mesh import Mesh
+    m = Mesh.from_bbox((0, 0, size, size), cartesian=False,
+                       mesh_size=mesh_size, resolution=4)
+    v = m.vertices_w_offset('INITIAL')
+    d = np.stack([amp * np.sin(2 * np.pi * v[:, 1] / period),
+                  amp * np.cos(2 * np.pi * v[:, 0] / period)], -1)
+    c = (v + d).mean(axis=0, keepdims=True)
+    m.set_vertices(v + d - c, 'MOVING', offset=c)
+    return m
+
+
+def check_raster(dev, texture):
+    """Phase 3, mesh raster: the kernel against its plain version on (a) a
+    2048^2 block with a cell-binned table from a deformed section mesh
+    (mesh_size 600 on an 8192^2 section) and its own source crop, (b) four
+    512^2 flat-table blocks against one resident source, (c) two identical
+    triangles with equal weights, where the first row must win."""
     import numpy as np
     import torch
+    from feabas_tpu.dal import StreamLoader
+    from feabas_tpu_torch.ops import render
+    from feabas_tpu_torch.renderer import MeshRenderer
+    img = texture[:8192, :8192]
+    mesh = _section_mesh(8192, 600, 8.0, 2048.0)
+    loader = StreamLoader(img)
+    eng = MeshRenderer.from_mesh(mesh, device=dev)._get_device_engine()
+    rows = []
+
+    def block_sel(x0, y0, x1, y1):
+        tb = eng._tb
+        return np.nonzero((tb[:, 0] < x1) & (tb[:, 2] > x0) & (tb[:, 1] < y1)
+                          & (tb[:, 3] > y0) & np.isfinite(eng._w))[0]
+
+    def compare(name, shape, args, geodesic=False, iters=20):
+        src, tabs, cands, h, w = args
+        got, cov = render.raster_blocks(src, tabs, cands, 0.0, h, w,
+                                        geodesic, 'u8')
+        want, pcov = render.raster_blocks_plain(src, tabs, cands, 0.0, h, w,
+                                                geodesic, 'u8')
+        diff = (got[0].to(torch.int32) - want[0].to(torch.int32)).abs()
+        err, frac = float(diff.max()), float((diff > 0).float().mean())
+        if not (err <= 1 and frac <= 1e-4 and torch.equal(cov, pcov)
+                and bool(cov.all())):
+            raise RuntimeError(f'mesh_raster {name}: max diff {err}, '
+                               f'{frac:.2e} of pixels differ, coverage '
+                               f'{cov.tolist()} vs {pcov.tolist()}')
+        ms = cuda_time(lambda: render.raster_blocks(src, tabs, cands, 0.0, h,
+                                                    w, geodesic, 'u8'), iters)
+        pms = cuda_time(lambda: render.raster_blocks_plain(
+            src, tabs, cands, 0.0, h, w, geodesic, 'u8'), max(iters // 4, 2),
+            warmup=1)
+        rows.append(('mesh_raster', shape, name, err, ms, pms))
+        return got
+
+    # (a) 2048^2 block, cells, per-block source crop
+    x0, y0 = 3072, 3072
+    sel = block_sel(x0, y0, x0 + 2048, y0 + 2048)
+    ps = eng._Psrc[sel].reshape(-1, 2)
+    sx0, sy0 = (int(np.floor(v)) - 2 for v in ps.min(axis=0))
+    sw, sh = (render._align_up(int(np.ceil(v)) + 2 - o, render._SRC_ALIGN,
+                               render._SRC_ALIGN)
+              for v, o in zip(ps.max(axis=0), (sx0, sy0)))
+    crop = img[sy0:sy0 + sh, sx0:sx0 + sw]
+    tab = eng._table_for_block(sel, (x0, y0), (sx0, sy0), eng._w)
+    cand = eng._cells_for_block(sel, (x0, y0), 2048, 2048)
+    compare('2048^2 cells, own crop', (1, 2048, 2048),
+            (torch.from_numpy(np.ascontiguousarray(crop))[None].to(dev),
+             torch.from_numpy(tab)[None].to(dev),
+             torch.from_numpy(cand)[None].to(dev), 2048, 2048))
+    # (b) 4 x 512^2 flat tables, one resident source
+    resident, origin = eng._resident_source(loader, 0)
+    tabs = []
+    for k in range(4):
+        bx, by = 1024 + 512 * (k % 2), 5120 + 512 * (k // 2)
+        tabs.append(eng._table_for_block(block_sel(bx, by, bx + 512, by + 512),
+                                         (bx, by), origin, eng._w))
+    Tp = max(t.shape[0] for t in tabs)
+    tt = np.zeros((4, Tp, 14), np.float32)
+    tt[:, :, 2], tt[:, :, 12], tt[:, :, 13] = -2.0, -np.inf, -1.0
+    for k, t in enumerate(tabs):
+        tt[k, :t.shape[0]] = t
+    compare('4 x 512^2 flat, resident source', (4, 512, 512),
+            (resident, torch.from_numpy(tt).to(dev), None, 512, 512))
+    # (c) two identical always-inside rows with equal weight and different
+    # affines: the first must win every pixel
+    A = np.eye(2)
+    first = eng._table_affine(A, np.array([10.0, 10.0]), (0, 0), (0, 0))
+    tie = first.copy()
+    tie[1] = eng._table_affine(A, np.array([20.0, 5.0]), (0, 0), (0, 0))[0]
+    src = torch.from_numpy(np.ascontiguousarray(img[:1024, :1024])).to(dev)
+    got = compare('tie, 512^2', (1, 512, 512),
+                  (src, torch.from_numpy(tie)[None].to(dev), None, 512, 512))
+    alone, _ = render.raster_blocks(src, torch.from_numpy(first)[None].to(dev),
+                                    None, 0.0, 512, 512, False, 'u8')
+    if not torch.equal(got[0], alone[0]):
+        raise RuntimeError('mesh_raster tie: the first row did not win')
+    torch.cuda.synchronize()
+    for name, shape, what, err, ms, pms in rows:
+        log(f'[kernel] {name} {shape} {what}: max_abs_err={err:.0f} LSB '
+            f'kernel_ms={ms:.4f} plain_ms={pms:.4f}')
+    return rows
+
+
+def make_texture(dev, H, W, seed=SEED, blur=2.0):
+    """Band-limited uint8 texture (H, W) on the card: seeded normal noise,
+    Gaussian blur (sigma ``blur`` px), mean 128, std 40."""
+    import torch
     import torch.nn.functional as F
-    H = 2 * MARGIN + ROWS * TILE_H - (ROWS - 1) * OVERLAP_Y
-    W = 2 * MARGIN + COLS * TILE_W - (COLS - 1) * OVERLAP_X
-    g = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.Generator(device=dev).manual_seed(seed)
     noise = torch.randn((1, 1, H, W), generator=g, device=dev)
-    r = 8
-    k = torch.exp(-0.5 * (torch.arange(-r, r + 1, device=dev) / 2.0) ** 2)
+    r = int(4 * blur)
+    k = torch.exp(-0.5 * (torch.arange(-r, r + 1, device=dev) / blur) ** 2)
     k = k / k.sum()
     img = F.conv2d(F.pad(noise, (r, r, r, r), mode='reflect'),
                    k.reshape(1, 1, 1, -1))
     img = F.conv2d(img, k.reshape(1, 1, -1, 1))[0, 0]
     img = img / img.std() * 40.0 + 128.0
-    world = torch.clamp(img, 0, 255).to(torch.uint8).cpu().numpy()
+    return torch.clamp(img, 0, 255).to(torch.uint8)
+
+
+def make_grid(dev):
+    """World texture on the card (seeded), cut into a 2x3 grid with
+    jittered true positions. Returns (world, tiles, true_bboxes,
+    stage_bboxes) as host arrays."""
+    import numpy as np
+    H = 2 * MARGIN + ROWS * TILE_H - (ROWS - 1) * OVERLAP_Y
+    W = 2 * MARGIN + COLS * TILE_W - (COLS - 1) * OVERLAP_X
+    world = make_texture(dev, H, W).cpu().numpy()
     rng = np.random.default_rng(SEED)
     tiles, true_bb, stage_bb = [], [], []
     for rr in range(ROWS):
@@ -283,6 +420,234 @@ def run_slice(dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 5: the serial-section stack
+STACK_S = 8
+SECTION = 8192                        # px per side at 4 nm
+SECTION_MARGIN = 256
+SECTION_TILE = 4096
+DRIFT_STD = 24.0                      # px per section step
+# smooth warp of z * 2 px, period 2048 px: the default window solve
+# (stiffness_lambda 1, trace-balanced) leaves ~60% of a 2.5%-strain warp
+# per section step unresolved, in the JAX package as in the port, so at
+# z * 8 px sections 3-7 no longer overlay section 0
+WARP_AMP, WARP_PERIOD = 2.0, 2048.0
+ALIGN_SCALE = 4                       # working mip 2: 16 nm px
+
+
+def _section_disp(z, drift, x, y, xp):
+    """Displacement d_z at mip0 pixel (x, y) of section z: its cumulative
+    drift plus z times the smooth warp (x, y arrays of module xp)."""
+    w = 2 * math.pi / WARP_PERIOD
+    return (drift[z][0] + z * WARP_AMP * xp.sin(w * y),
+            drift[z][1] + z * WARP_AMP * xp.cos(w * x))
+
+
+def make_stack(dev):
+    """STACK_S sections on the card: section z at mip0 pixel p shows the
+    seeded base texture at p + margin + d_z(p). Returns (sections as host
+    uint8 arrays, drift (S, 2))."""
+    import numpy as np
+    import torch
+    from feabas_tpu_torch.ops.warp import bilinear_sample
+    rng = np.random.default_rng(SEED)
+    steps = rng.normal(0, DRIFT_STD, (STACK_S, 2))
+    steps[0] = 0.0
+    drift = np.cumsum(steps, axis=0)
+    reach = np.abs(drift).max() + (STACK_S - 1) * WARP_AMP
+    if not reach < SECTION_MARGIN - 2:
+        raise RuntimeError(f'drift reach {reach} px exceeds the margin')
+    n = SECTION + 2 * SECTION_MARGIN
+    # sigma 16 px at mip0: 4 px at the working resolution, where the
+    # section matcher's DoG (sigma 3.5) looks
+    base = make_texture(dev, n, n, seed=SEED + 1,
+                        blur=4.0 * ALIGN_SCALE).to(torch.float32)
+    gy, gx = torch.meshgrid(
+        torch.arange(SECTION, dtype=torch.float32, device=dev),
+        torch.arange(SECTION, dtype=torch.float32, device=dev), indexing='ij')
+    sections = []
+    for z in range(STACK_S):
+        dx, dy = _section_disp(z, drift, gx, gy, torch)
+        img = bilinear_sample(base, gx + SECTION_MARGIN + dx,
+                              gy + SECTION_MARGIN + dy)
+        sections.append(torch.round(img).clamp(0, 255).to(torch.uint8)
+                        .cpu().numpy())
+    return sections, drift
+
+
+def setup_align_workdir(root, sections):
+    """Config dir + work dir holding the stack as stitched sections (2x2
+    tiles of 4096^2 each, uncompressed PNG) and the alignment overrides;
+    points the config system at it."""
+    import cv2
+    from concurrent.futures import ThreadPoolExecutor
+    cfg = os.path.join(root, 'configs')
+    shutil.copytree(os.path.join(REPO, 'configs'), cfg)
+    wd = os.path.join(root, 'work_dir')
+    _save_yaml(os.path.join(cfg, 'general_configs.yaml'), {
+        'working_directory': wd, 'parallel_framework': 'serial',
+        'full_resolution': 4, 'section_thickness': 30,
+        'logfile_level': 'NONE', 'archive_level': 'NONE',
+        'console_level': 'WARNING', 'device': {'render': 'auto'}})
+    names = [f's{z:04d}' for z in range(len(sections))]
+    jobs = []
+    for name, img in zip(names, sections):
+        d = os.path.join(wd, 'stitched_sections', 'mip0', name)
+        os.makedirs(d)
+        lines = ['{ROOT_DIR}\t' + d, '{RESOLUTION}\t4']
+        for r in range(0, SECTION, SECTION_TILE):
+            for c in range(0, SECTION, SECTION_TILE):
+                fn = f'{name}_tr{r // SECTION_TILE + 1}-tc{c // SECTION_TILE + 1}.png'
+                jobs.append((os.path.join(d, fn),
+                             img[r:r + SECTION_TILE, c:c + SECTION_TILE]))
+                lines.append(f'{fn}\t{c}\t{r}\t{c + SECTION_TILE}\t'
+                             f'{r + SECTION_TILE}')
+        with open(os.path.join(d, 'metadata.txt'), 'w') as f:
+            f.write('\n'.join(lines) + '\n')
+
+    def write(job):
+        if not cv2.imwrite(job[0], job[1], [cv2.IMWRITE_PNG_COMPRESSION, 0]):
+            raise OSError(f'could not write {job[0]}')
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+    _save_yaml(os.path.join(wd, 'configs', 'alignment_configs.yaml'), {
+        'matching': {'working_mip_level': 2,
+                     'loader_config': {'apply_CLAHE': False}},
+        'rendering': {'remap_interp': 'LINEAR', 'device_render': True,
+                      'loader_config': {'apply_CLAHE': False}}})
+    os.environ['FEABAS_TPU_CONFIG_DIR'] = cfg
+    from feabas_tpu import config
+    config.clear_config_caches()
+    return wd, names
+
+
+def _match_truth_error(match, z0, z1, drift):
+    """|xy0 - truth| (working px) of matches between sections z0 and z1: the
+    content at mip0 p1 of z1 sits where p0 + d_z0(p0) = p1 + d_z1(p1)."""
+    import numpy as np
+    p1 = match.xy1 * ALIGN_SCALE + (ALIGN_SCALE - 1) / 2
+    dx1, dy1 = _section_disp(z1, drift, p1[:, 0], p1[:, 1], np)
+    target = p1 + np.stack([dx1, dy1], -1)
+    p0 = target.copy()
+    for _ in range(8):
+        dx0, dy0 = _section_disp(z0, drift, p0[:, 0], p0[:, 1], np)
+        p0 = target - np.stack([dx0, dy0], -1)
+    xy0 = (p0 - (ALIGN_SCALE - 1) / 2) / ALIGN_SCALE
+    return np.linalg.norm(match.xy0 - xy0, axis=-1)
+
+
+def run_align(dev):
+    """Phase 5: the serial-section stack at full size through the align
+    CLI (meshing, matching, optimization, rendering)."""
+    import numpy as np
+    import torch
+    from feabas_tpu_torch import aligner
+    from feabas_tpu_torch import device as device_mod
+    from feabas_tpu_torch.ops import render
+    from feabas_tpu_torch.scripts import align_main
+
+    t0 = time.perf_counter()
+    sections, drift = make_stack(dev)
+    root = tempfile.mkdtemp(prefix='feabas_chip_align_')
+    # observe, without changing them, the window solves and the raster
+    # batches of the run
+    stacked, raster_blocks, device_blocks = [], [0], [0]
+    solve, raster, engine_render = (aligner.Stack._sharded_window_solve,
+                                    render.raster_blocks,
+                                    render.DeviceRenderEngine.render_blocks)
+
+    def solve_spy(self, *a, **k):
+        stacked.append(solve(self, *a, **k) and self.last_window_sharded)
+        return stacked[-1]
+
+    def raster_spy(src, tables, *a, **k):
+        raster_blocks[0] += tables.shape[0]
+        return raster(src, tables, *a, **k)
+
+    def render_spy(self, *a, **k):
+        out = engine_render(self, *a, **k)
+        device_blocks[0] += sum(r is not None for r in out)
+        return out
+
+    aligner.Stack._sharded_window_solve = solve_spy
+    render.raster_blocks = raster_spy
+    render.DeviceRenderEngine.render_blocks = render_spy
+    try:
+        wd, names = setup_align_workdir(root, sections)
+        log(f'[align] {STACK_S} sections of {SECTION}x{SECTION} uint8, drift '
+            f'reach {np.abs(drift).max():.1f} px, set-up '
+            f'{time.perf_counter() - t0:.2f} s')
+        torch.cuda.reset_peak_memory_stats()
+        device_mod.reset_launch_counts()
+        stage_s = {}
+        for mode in ('meshing', 'matching', 'optimization', 'rendering'):
+            t = time.perf_counter()
+            align_main.main(['--mode', mode])
+            torch.cuda.synchronize()
+            stage_s[mode] = time.perf_counter() - t
+        launches = device_mod.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        log('[align] stage seconds ' + json.dumps(
+            {k: round(v, 3) for k, v in stage_s.items()})
+            + f'; max_memory_allocated {peak} B; launches {launches}')
+        errs, counts = [], []
+        for z in range(1, STACK_S):
+            m = aligner.read_matches_from_h5(os.path.join(
+                wd, 'align', 'matches', aligner.match_name(names[z - 1],
+                                                          names[z])))
+            counts.append(m.xy0.shape[0])
+            errs.append(float(np.median(_match_truth_error(m, z - 1, z,
+                                                           drift))))
+        worst = max(errs)
+        if min(counts) < 50:
+            raise RuntimeError(f'matches per pair {counts}: fewer than 50')
+        if not worst < 1.0:
+            raise RuntimeError(f'median match error {worst} px >= 1')
+        if not (stacked and all(stacked)):
+            raise RuntimeError(f'window solves {stacked}: not all stacked')
+        for n in names:
+            if not os.path.exists(os.path.join(wd, 'align', 'tform', n + '.h5')):
+                raise RuntimeError(f'no tform for {n}')
+        if not os.path.exists(os.path.join(wd, 'align', 'residues.csv')):
+            raise RuntimeError('no residues.csv')
+        # the rendered sections overlay section 0 on an interior window
+        from feabas_tpu.dal import StaticImageLoader
+        with open(os.path.join(wd, 'align', 'tform', 'canvas.json')) as f:
+            canvas = json.load(f)['mip0']
+        cx, cy = (canvas[0] + canvas[2]) // 2, (canvas[1] + canvas[3]) // 2
+        win = (cx - 1024, cy - 1024, cx + 1024, cy + 1024)
+        out = os.path.join(wd, 'aligned_stack', 'mip0')
+        rendered = [StaticImageLoader.from_coordinate_file(os.path.join(
+            out, f'{z:05d}_{n}', 'metadata.txt')).crop(win).astype(np.float64)
+            for z, n in enumerate(names)]
+        ccs = []
+        for img in rendered[1:]:
+            ok = (rendered[0] > 0) & (img > 0)
+            ccs.append(float(np.corrcoef(rendered[0][ok], img[ok])[0, 1]))
+        if not min(ccs) > 0.85:
+            raise RuntimeError(f'rendered overlay cc {ccs}, median match '
+                               f'errors {errs}')
+        for name in ('dog_filter', 'mesh_raster'):
+            if launches[name] <= 0:
+                raise RuntimeError(f'{name} was not launched by the align path')
+        if raster_blocks[0] < device_blocks[0] or device_blocks[0] == 0:
+            raise RuntimeError(f'{raster_blocks[0]} blocks rasterized by the '
+                               f'kernel for {device_blocks[0]} device blocks')
+        if any(m == 'jax' or m.startswith('jax.') for m in sys.modules):
+            raise RuntimeError('jax was imported')
+        log(f'[align] {len(counts)} pairs matched ({min(counts)}-{max(counts)} '
+            f'matches), worst median match error {worst:.4f} px, '
+            f'{len(stacked)} stacked window solve(s), {device_blocks[0]} '
+            f'device blocks in {launches["mesh_raster"]} raster launches, '
+            f'overlay cc {min(ccs):.5f}-{max(ccs):.5f}')
+        return launches, stage_s
+    finally:
+        aligner.Stack._sharded_window_solve = solve
+        render.raster_blocks = raster
+        render.DeviceRenderEngine.render_blocks = engine_render
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -295,26 +660,30 @@ def main():
     card = card_line()
     log(f'[card] {card}; torch {torch.__version__}; CUDA {torch.version.cuda}; '
         f'{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}')
+    from concurrent.futures import ThreadPoolExecutor
     t = time.perf_counter()
-    lib = build.build('dog_filter')
-    log(f'[build] {os.path.relpath(lib, REPO)} in {time.perf_counter() - t:.2f} s')
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = list(pool.map(build.build, KERNEL_SOURCES))
+    log(f'[build] {", ".join(os.path.relpath(l, REPO) for l in libs)} in '
+        f'{time.perf_counter() - t:.2f} s')
     rows = check_kernels(dev)
-    launches, _ = run_slice(dev)
+    rows += check_raster(dev, make_texture(dev, 8192, 8192).cpu().numpy())
+    by_path = {'stitch': run_slice(dev)[0], 'align': run_align(dev)[0]}
     by_name = {}
-    for name, shape, dtype, err, ms, pms in rows:
-        if name in ('dog_filter', 'gaussian_blur'):
-            prev = by_name.get(name)
-            by_name[name] = {'err': max(err, prev['err']) if prev else err,
-                             'ms': ms if prev is None else prev['ms'],
-                             'plain_ms': pms if prev is None else prev['plain_ms']}
-    replaces = {'dog_filter': 'feabas_tpu/ops/pallas_kernels.py:59',
-                'gaussian_blur': 'feabas_tpu/ops/pallas_kernels.py:25'}
+    for name, _shape, _what, err, ms, pms in rows:
+        prev = by_name.get(name)
+        by_name[name] = {'err': max(err, prev['err']) if prev else err,
+                         'ms': ms if prev is None else prev['ms'],
+                         'plain_ms': pms if prev is None else prev['plain_ms']}
     log(json.dumps({'kernels': [
         {'name': n, 'route': 'cuda',
-         'source': 'feabas_tpu_torch/csrc/dog_filter.cu',
-         'replaces': replaces[n], 'launches': int(launches[n]),
+         'source': f'feabas_tpu_torch/csrc/{src}.cu', 'replaces': replaces,
+         'launches': sum(int(c[n]) for c in by_path.values()),
+         'launches_by_path': {p: int(c[n]) for p, c in by_path.items()},
          'max_abs_err': by_name[n]['err'], 'ms': by_name[n]['ms'],
-         'plain_ms': by_name[n]['plain_ms']} for n in ('dog_filter', 'gaussian_blur')]}))
+         'plain_ms': by_name[n]['plain_ms']}
+        for n, (src, replaces) in KERNELS.items()]}))
     log(card)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

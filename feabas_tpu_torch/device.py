@@ -23,7 +23,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 DEVICE_ENV = 'FEABAS_TORCH_DEVICE'
 
-_LAUNCHES = {'dog_filter': 0, 'gaussian_blur': 0}
+_LAUNCHES = {'dog_filter': 0, 'gaussian_blur': 0, 'mesh_raster': 0}
 
 
 def get_device(name=None):

@@ -1,12 +1,14 @@
-"""Tile-pair template matching through deforming meshes (counterpart of
-the stitch-path parts of ``feabas_tpu/matcher.py``).
+"""Template matching through deforming meshes (counterpart of
+``feabas_tpu/matcher.py``).
 
 `stitching_matcher` seeds a placement (the stage prior with the
 in-program coarse seed, or the host global translation), then runs the
 coarse-to-fine block schedule: the fused one-program schedule
 (``ops.match_loop``) when it applies, else the classic per-round loop
-(device warp + xcorr, host SLM relaxation). `match_pairs_batched` runs
-same-shape pairs as one batched fused program.
+(device warp or rendered blocks + xcorr, host SLM relaxation).
+`match_pairs_batched` runs same-shape pairs as one batched fused program;
+`section_matcher` matches two sections of a serial stack, piece by piece
+when a section is cut into disconnected parts.
 
 All device work happens on ``device`` (``device.get_device``); errors of
 the device, a kernel or a shape propagate. Only the algorithmic
@@ -127,12 +129,184 @@ def distributor_cartesian_bbox(bbox, spacing, block_size,
     return np.stack([gx.ravel(), gy.ravel()], axis=-1)
 
 
-def _check_distributor(kwargs):
+def _coverage_grids(mesh0, mesh1, bbox, cell, gear=const.MESH_GEAR_MOVING):
+    """Coarse occupancy grids of both meshes over bbox (cell px per
+    sample): (inside0, inside1, tid0, tid1, xs, ys) -- boolean grids, the
+    covering triangle per cell (-1 outside) and the cell-centre world
+    coordinates."""
+    x0, y0, x1, y1 = bbox
+    xs = np.arange(x0 + cell / 2, x1, cell)
+    ys = np.arange(y0 + cell / 2, y1, cell)
+    gx, gy = np.meshgrid(xs, ys)
+    pts = np.stack([gx.ravel(), gy.ravel()], -1)
+    tid0 = mesh0.tri_finder(pts, gear=gear).reshape(gy.shape)
+    tid1 = mesh1.tri_finder(pts, gear=gear).reshape(gy.shape)
+    return tid0 >= 0, tid1 >= 0, tid0, tid1, xs, ys
+
+
+def _refine_material_masks(mesh, tid_grid):
+    """{area_constraint: bool grid} of the materials that ask for denser
+    blocks (area_constraint in (0, 1), or named 'refine*') on the coarse
+    occupancy grid."""
+    out = {}
+    inside = tid_grid >= 0
+    if not inside.any():
+        return out
+    mat_of_cell = np.full(tid_grid.shape, -1, np.int32)
+    mat_of_cell[inside] = mesh.material_ids[tid_grid[inside]]
+    for name, mat in mesh.material_table:
+        af = float(getattr(mat, 'area_constraint', 1.0))
+        if not ('refine' in str(name) or (0 < af < 1)):
+            continue
+        if not (0 < af < 1):
+            af = 0.5
+        sel = mat_of_cell == mat.uid
+        if sel.any():
+            grid = out.setdefault(af, np.zeros(tid_grid.shape, bool))
+            grid |= sel
+    return out
+
+
+def _grid_points_in_mask(mask, spacing_cells, xs, ys, triangular=False):
+    """Sample points every ``spacing_cells`` grid cells whose cell lies in
+    ``mask``, anchored at the mask centroid (hex-packed rows when
+    ``triangular``); world coordinates (N, 2)."""
+    ii, jj = np.nonzero(mask)
+    if ii.size == 0:
+        return np.zeros((0, 2))
+    ci, cj = ii.mean(), jj.mean()
+    step = max(spacing_cells, 1.0)
+    if triangular:
+        dy = step * np.sqrt(3) / 2
+        rows = np.concatenate([np.arange(ci, -dy, -dy)[::-1],
+                               np.arange(ci + dy, mask.shape[0], dy)])
+        pts = []
+        for k, r in enumerate(rows):
+            off = (step / 2) if (k % 2) else 0.0
+            cols = np.concatenate([np.arange(cj + off, -step, -step)[::-1],
+                                   np.arange(cj + off + step, mask.shape[1],
+                                             step)])
+            pts.append(np.stack([np.full(cols.shape, r), cols], -1))
+        rc = np.concatenate(pts) if pts else np.zeros((0, 2))
+    else:
+        rr = np.concatenate([np.arange(ci, -step, -step)[::-1],
+                             np.arange(ci + step, mask.shape[0], step)])
+        cc = np.concatenate([np.arange(cj, -step, -step)[::-1],
+                             np.arange(cj + step, mask.shape[1], step)])
+        gr, gc = np.meshgrid(rr, cc, indexing='ij')
+        rc = np.stack([gr.ravel(), gc.ravel()], -1)
+    ri = np.clip(np.round(rc[:, 0]).astype(int), 0, mask.shape[0] - 1)
+    ci_ = np.clip(np.round(rc[:, 1]).astype(int), 0, mask.shape[1] - 1)
+    rc = rc[mask[ri, ci_]]
+    return np.stack([np.interp(rc[:, 1], np.arange(xs.size), xs),
+                     np.interp(rc[:, 0], np.arange(ys.size), ys)], -1)
+
+
+def distribute_matching_blocks(mesh0, mesh1, spacing,
+                               distributor='cartesian_region', **kwargs):
+    """Region/material-aware block centres: blocks only where both meshes
+    have coverage, ``min_boundary_distance`` eroded from the true region
+    boundary, materials below the render-weight / stiffness thresholds
+    excluded, and materials flagged for refinement given denser, smaller
+    blocks. 'cartesian_region' puts them on a grid, 'intersect_triangulation'
+    hex-packs them. Returns (centres (N, 2), size_factor (N,)); a block's
+    side is ``spacing * shrink_factor * size_factor``."""
+    gear = kwargs.get('gear', const.MESH_GEAR_MOVING)
+    min_boundary_distance = kwargs.get('min_boundary_distance', 0)
+    refine_box_exp = kwargs.get('refine_box_exp', 0.5)
+    refine_mode = kwargs.get('refine_mode', 2)
+    render_weight_threshold = kwargs.get('render_weight_threshold', 0)
+    stiffness_multiplier_threshold = kwargs.get(
+        'stiffness_multiplier_threshold', 0)
+    triangular = (str(distributor).lower() == 'intersect_triangulation')
+    ovl, valid = common.intersect_bbox(mesh0.bbox(gear=gear),
+                                       mesh1.bbox(gear=gear))
+    if not valid:
+        return np.zeros((0, 2)), np.zeros(0)
+    cell = max(min(spacing / 4.0, (ovl[2] - ovl[0]) / 8.0,
+                   (ovl[3] - ovl[1]) / 8.0), 1.0)
+    in0, in1, tid0, tid1, xs, ys = _coverage_grids(mesh0, mesh1, ovl, cell,
+                                                   gear=gear)
+    inter = in0 & in1
+    if render_weight_threshold > 0 or stiffness_multiplier_threshold > 0:
+        for msh, tg, ins in ((mesh0, tid0, in0), (mesh1, tid1, in1)):
+            bad_uids = set()
+            for uid, mat in msh.material_table.uid_to_material().items():
+                rw = mat.render_weight if mat.render else 0.0
+                if render_weight_threshold > 0 and rw < render_weight_threshold:
+                    bad_uids.add(int(uid))
+                if (stiffness_multiplier_threshold > 0
+                        and mat.stiffness_multiplier
+                        < stiffness_multiplier_threshold):
+                    bad_uids.add(int(uid))
+            if not bad_uids:
+                continue
+            mat_cell = np.full(tg.shape, -9, np.int32)
+            mat_cell[ins] = msh.material_ids[tg[ins]]
+            inter &= ~np.isin(mat_cell, list(bad_uids))
+    if not inter.any():
+        return np.zeros((0, 2)), np.zeros(0)
+    eroded = inter
+    if min_boundary_distance > 0:
+        from scipy.ndimage import distance_transform_edt
+        d = distance_transform_edt(inter) * cell
+        eroded = d >= min_boundary_distance
+        # keep at least half the region: relax the erosion when it eats more
+        if eroded.sum() < 0.5 * inter.sum():
+            eroded = d >= min_boundary_distance * 0.3
+        if not eroded.any():
+            eroded = inter
+    layers = {}
+    if refine_mode != 0:
+        for msh, tg in ((mesh0, tid0), (mesh1, tid1)):
+            for af, grid in _refine_material_masks(msh, tg).items():
+                acc = layers.setdefault(af, np.zeros(inter.shape, bool))
+                acc |= grid
+    centers, factors = [], []
+    covered = np.zeros(inter.shape, bool)
+    for af in sorted(layers):
+        mask = layers[af] & eroded & (~covered)
+        pts = _grid_points_in_mask(mask, af * spacing / cell, xs, ys,
+                                   triangular=triangular)
+        if pts.shape[0]:
+            centers.append(pts)
+            factors.append(np.full(pts.shape[0], af ** refine_box_exp))
+        covered |= layers[af] & inter
+    base = eroded if refine_mode != 1 else (eroded & covered)
+    base_mask = base & (~covered) if refine_mode == 2 else base
+    if refine_mode != 1 or not layers:
+        pts = _grid_points_in_mask(base_mask if layers else eroded,
+                                   spacing / cell, xs, ys,
+                                   triangular=triangular)
+        if pts.shape[0]:
+            centers.append(pts)
+            factors.append(np.ones(pts.shape[0]))
+    if not centers:
+        return np.zeros((0, 2)), np.zeros(0)
+    return np.concatenate(centers), np.concatenate(factors)
+
+
+def _block_centers(mesh0, mesh1, spacing, shrink_factor,
+                   min_boundary_distance, kwargs):
+    """Block centres and size factors of one round, from the configured
+    distributor; None when the meshes do not overlap."""
     distributor = str(kwargs.get('distributor', 'cartesian_bbox')).lower()
-    if distributor != 'cartesian_bbox':
-        raise NotImplementedError(
-            f'distributor {distributor!r}: feabas_tpu.matcher.'
-            'distribute_matching_blocks is not ported yet')
+    if distributor in ('cartesian_region', 'intersect_triangulation'):
+        return distribute_matching_blocks(
+            mesh0, mesh1, spacing, distributor=distributor,
+            min_boundary_distance=min_boundary_distance,
+            shrink_factor=shrink_factor,
+            render_weight_threshold=kwargs.get('render_weight_threshold', 0),
+            stiffness_multiplier_threshold=kwargs.get(
+                'stiffness_multiplier_threshold', 0))
+    ovl, valid = common.intersect_bbox(mesh0.bbox(gear=const.MESH_GEAR_MOVING),
+                                       mesh1.bbox(gear=const.MESH_GEAR_MOVING))
+    if not valid:
+        return None
+    centers = distributor_cartesian_bbox(
+        ovl, spacing, spacing * shrink_factor,
+        min_boundary_distance=min_boundary_distance)
+    return centers, np.ones(centers.shape[0])
 
 
 _BLOCK_SIZES = np.array([16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512])
@@ -182,7 +356,6 @@ def _fused_prep(mesh0, mesh1, loader0, loader1, spacings, **kwargs):
     off1 = np.asarray(loader1._offset, np.float64)
     spacings = np.asarray(sorted(np.atleast_1d(spacings).astype(np.float64),
                                  reverse=True))
-    _check_distributor(kwargs)
     rounds = []
     meta = []
     valid_rounds = []
@@ -190,9 +363,13 @@ def _fused_prep(mesh0, mesh1, loader0, loader1, spacings, **kwargs):
     has_last = False
     for i, spacing in enumerate(spacings):
         last = i == len(spacings) - 1
-        centers = distributor_cartesian_bbox(
-            ovl, spacing, spacing * shrink_factor,
-            min_boundary_distance=min_boundary_distance)
+        centers, size_factors = _block_centers(
+            mesh0, mesh1, spacing, shrink_factor, min_boundary_distance,
+            kwargs)
+        if centers.shape[0] and not np.allclose(size_factors, 1.0):
+            # refine-material blocks of several sizes: one block shape per
+            # round is the fused program's premise
+            return None
         if centers.shape[0] == 0 or (centers.shape[0] < min_num_blocks
                                      and not last):
             continue
@@ -372,14 +549,39 @@ def _fused_execute_batch(preps, device=None, dtype=torch.float32):
     return packed.cpu().numpy().astype(np.float64)
 
 
+def _render_blocks(renderer, centers, block_size):
+    """Render equal-size blocks centred at world points through the
+    renderer in one ``crop_multiple`` pass. Returns (stack (N, h, w)
+    float32, kept indices)."""
+    h = w = int(round(block_size))
+    bboxes = []
+    for cx, cy in centers:
+        x0 = int(round(cx - w / 2))
+        y0 = int(round(cy - h / 2))
+        bboxes.append((x0, y0, x0 + w, y0 + h))
+    blocks = renderer.crop_multiple(bboxes, return_empty=True)
+    out, kept = [], []
+    for i, blk in enumerate(blocks):
+        if blk is None:
+            continue
+        out.append(np.asarray(blk, dtype=np.float32))
+        kept.append(i)
+    if not out:
+        return np.zeros((0, h, w), np.float32), np.zeros(0, np.int64)
+    return np.stack(out), np.asarray(kept, np.int64)
+
+
 def iterative_xcorr_matcher_w_mesh(mesh0, mesh1, loader0, loader1, spacings,
                                    device=None, dtype=torch.float32,
                                    **kwargs):
     """Coarse-to-fine mesh-deforming block matcher. mesh0 is locked; mesh1
-    deforms. Both meshes' MOVING gears hold the current placement; the
-    loaders are in-memory ``StreamLoader``s whose images go to the device
-    once. Returns a ``common.Match`` in INITIAL-gear (source image)
-    coordinates, or None."""
+    deforms. Both meshes' MOVING gears hold the current placement. With
+    in-memory ``StreamLoader`` sources the images go to the device once
+    and blocks are warped there (the fused schedule when it applies);
+    other loaders render blocks through the port's ``MeshRenderer``.
+    Returns a ``common.Match`` in INITIAL-gear (source image) coordinates,
+    or None."""
+    from feabas_tpu_torch.renderer import MeshRenderer
     sigma = kwargs.get('sigma', 2.5)
     conf_mode = kwargs.get('conf_mode', const.FFT_CONF_MIRROR)
     conf_thresh = kwargs.get('conf_thresh', 0.3)
@@ -392,22 +594,13 @@ def iterative_xcorr_matcher_w_mesh(mesh0, mesh1, loader0, loader1, spacings,
     stiffness_lambda = kwargs.get('stiffness_lambda', -0.35)
     compute_strain = kwargs.get('compute_strain', True)
     min_num_blocks = kwargs.get('min_num_blocks', 2)
+    geodesic_mask = kwargs.get('geodesic_mask', False)
     allow_dwell = int(kwargs.get('allow_dwell', 0))
     max_spacing_skip = int(kwargs.get('max_spacing_skip', 0))
     min_block_size_multiplier = float(kwargs.get('min_block_size_multiplier', 4.0))
     link_weight_decay = float(kwargs.get('link_weight_decay', 0.0))
     sp_last = _parse_subpixel(kwargs)
     env_norm = 'peak' if kwargs.get('envelope_normalize', True) else False
-    if kwargs.get('geodesic_mask', False):
-        raise NotImplementedError(
-            'geodesic masks need feabas_tpu.renderer.MeshRenderer blocks, '
-            'which the port does not route yet')
-    if not (isinstance(loader0, StreamLoader) and isinstance(loader1, StreamLoader)):
-        raise NotImplementedError(
-            'the port matches in-memory StreamLoader sources only; '
-            'host-rendered blocks (feabas_tpu.matcher._render_blocks) are '
-            'not ported yet')
-    _check_distributor(kwargs)
     dev = device_mod.get_device(device)
 
     mesh0.locked = True
@@ -415,13 +608,17 @@ def iterative_xcorr_matcher_w_mesh(mesh0, mesh1, loader0, loader1, spacings,
     spacings = np.asarray(sorted(np.atleast_1d(spacings).astype(np.float64),
                                  reverse=True))
     link = None
+    use_device = (kwargs.get('device_render', True)
+                  and isinstance(loader0, StreamLoader)
+                  and isinstance(loader1, StreamLoader))
 
-    # dominant stitching case -> the whole fine schedule as one device
-    # program; the classic loop takes what it does not cover
-    if (kwargs.get('fused_rounds', True)
+    # dominant case -> the whole fine schedule as one device program; the
+    # classic loop takes what it does not cover
+    if (use_device and kwargs.get('fused_rounds', True)
             and allow_dwell == 0 and max_spacing_skip == 0
             and link_weight_decay <= 0 and residue_mode == 'huber'
-            and conf_mode == const.FFT_CONF_MIRROR and pad):
+            and conf_mode == const.FFT_CONF_MIRROR and pad
+            and not geodesic_mask):
         prep = _fused_prep(mesh0, mesh1, loader0, loader1, spacings, **kwargs)
         if kwargs.get('fused_prep_only', False):
             return prep
@@ -437,10 +634,13 @@ def iterative_xcorr_matcher_w_mesh(mesh0, mesh1, loader0, loader1, spacings,
         # host-coarse path instead
         return None
 
-    src0 = torch.as_tensor(np.asarray(loader0.preprocess(loader0._img)), device=dev)
-    src1 = torch.as_tensor(np.asarray(loader1.preprocess(loader1._img)), device=dev)
-    src_off0 = np.asarray(loader0._offset, np.float64)
-    src_off1 = np.asarray(loader1._offset, np.float64)
+    if use_device:
+        src0 = torch.as_tensor(np.asarray(loader0.preprocess(loader0._img)),
+                               device=dev)
+        src1 = torch.as_tensor(np.asarray(loader1.preprocess(loader1._img)),
+                               device=dev)
+        src_off0 = np.asarray(loader0._offset, np.float64)
+        src_off1 = np.asarray(loader1._offset, np.float64)
 
     def _vimg(src, key):
         m = torch.zeros(src.shape[:2], dtype=torch.float32, device=dev)
@@ -457,54 +657,84 @@ def iterative_xcorr_matcher_w_mesh(mesh0, mesh1, loader0, loader1, spacings,
             return s
         return torch.cat([s, s[:1].expand((nb - n_real,) + tuple(s.shape[1:]))])
 
-    def _match_round(centers, spacing, subpixel):
-        """Warp both meshes' blocks at the centres and xcorr; returns
-        (xy0, xy1, conf, disp_max) among accepted matches or None."""
-        bs = _quantize_block(max(spacing * shrink_factor, 16.0))
-        stack0, kept0 = warp_ops.mesh_blocks_device(
-            mesh0, src0, centers, bs, src_offset=src_off0)
-        stack1, kept1 = warp_ops.mesh_blocks_device(
-            mesh1, src1, centers, bs, src_offset=src_off1)
-        bmask0 = bmask1 = None
-        if env_norm and subpixel and bs >= 64:
-            # valid-content masks warped through the same affines for the
-            # final round's envelope-normalized peak
-            bmask0, _ = warp_ops.mesh_blocks_device(
-                mesh0, _vimg(src0, 'src_valid0'), centers, bs,
-                src_offset=src_off0)
-            bmask1, _ = warp_ops.mesh_blocks_device(
-                mesh1, _vimg(src1, 'src_valid1'), centers, bs,
-                src_offset=src_off1)
-        keep = np.intersect1d(kept0, kept1)
-        if keep.size == 0:
+    def _match_round(centers, size_factors, spacing, subpixel):
+        """Render or warp both meshes' blocks at the centres and xcorr;
+        returns (xy0, xy1, conf, disp_max) among accepted matches or None."""
+        out_xy0, out_xy1, out_conf, disp_max = [], [], [], 0.0
+        # group by quantized block size so shapes are shared
+        sizes = np.maximum(spacing * shrink_factor * size_factors, 16.0)
+        qsizes = np.asarray([_quantize_block(s) if use_device
+                             else max(int(round(s)), 16) for s in sizes])
+        for bs in np.unique(qsizes):
+            sel = qsizes == bs
+            ctr = centers[sel]
+            bs = int(bs)
+            bmask0 = bmask1 = None
+            if use_device:
+                stack0, kept0 = warp_ops.mesh_blocks_device(
+                    mesh0, src0, ctr, bs, src_offset=src_off0)
+                stack1, kept1 = warp_ops.mesh_blocks_device(
+                    mesh1, src1, ctr, bs, src_offset=src_off1)
+                if env_norm and subpixel and bs >= 64:
+                    # valid-content masks warped through the same affines
+                    # for the final round's envelope-normalized peak
+                    bmask0, _ = warp_ops.mesh_blocks_device(
+                        mesh0, _vimg(src0, 'src_valid0'), ctr, bs,
+                        src_offset=src_off0)
+                    bmask1, _ = warp_ops.mesh_blocks_device(
+                        mesh1, _vimg(src1, 'src_valid1'), ctr, bs,
+                        src_offset=src_off1)
+            else:
+                # nearly-affine blocks skip rasterization (0.1 px tolerance)
+                render0 = MeshRenderer.from_mesh(
+                    mesh0, image_loader=loader0, geodesic_mask=geodesic_mask,
+                    affine_approx_tol=kwargs.get('affine_approx_tol', 0.1),
+                    device=dev)
+                render1 = MeshRenderer.from_mesh(
+                    mesh1, image_loader=loader1, geodesic_mask=geodesic_mask,
+                    affine_approx_tol=kwargs.get('affine_approx_tol', 0.1),
+                    device=dev)
+                stack0, kept0 = _render_blocks(render0, ctr, bs)
+                stack1, kept1 = _render_blocks(render1, ctr, bs)
+                stack0 = torch.as_tensor(stack0, device=dev)
+                stack1 = torch.as_tensor(stack1, device=dev)
+            keep = np.intersect1d(kept0, kept1)
+            if keep.size == 0:
+                continue
+            sel0 = torch.as_tensor(np.searchsorted(kept0, keep), device=dev)
+            sel1 = torch.as_tensor(np.searchsorted(kept1, keep), device=dev)
+            n_real = int(keep.size)
+            nb = _pad_pow2(n_real) if use_device else n_real
+            s0 = _pad_rows(stack0[sel0], nb)
+            s1 = _pad_rows(stack1[sel1], nb)
+            if bmask0 is not None:
+                bmask0 = _pad_rows(bmask0[sel0], nb)
+                bmask1 = _pad_rows(bmask1[sel1], nb)
+            parts = []
+            for b0 in range(0, nb, batch_size):
+                parts.append(xcorr_fft(
+                    s0[b0:b0 + batch_size], s1[b0:b0 + batch_size],
+                    conf_mode=conf_mode, sigma=sigma, pad=pad,
+                    subpixel=subpixel,
+                    mask0=None if bmask0 is None else bmask0[b0:b0 + batch_size],
+                    mask1=None if bmask1 is None else bmask1[b0:b0 + batch_size],
+                    normalize=env_norm if bmask0 is not None else False,
+                    return_device=True))
+            out = torch.cat(parts, dim=1).cpu().numpy().astype(np.float64)
+            dx, dy, conf = out[0, :n_real], out[1, :n_real], out[2, :n_real]
+            ok = conf >= conf_thresh
+            if not ok.any():
+                continue
+            # mesh1's world point c shows the content at c - d in mesh0's
+            xy1 = ctr[keep][ok]
+            out_xy0.append(xy1 - np.stack([dx[ok], dy[ok]], axis=-1))
+            out_xy1.append(xy1)
+            out_conf.append(conf[ok])
+            disp_max = max(disp_max, float(np.hypot(dx[ok], dy[ok]).max()))
+        if not out_xy0:
             return None
-        sel0 = torch.as_tensor(np.searchsorted(kept0, keep), device=dev)
-        sel1 = torch.as_tensor(np.searchsorted(kept1, keep), device=dev)
-        n_real = int(keep.size)
-        nb = _pad_pow2(n_real)
-        s0 = _pad_rows(stack0[sel0], nb)
-        s1 = _pad_rows(stack1[sel1], nb)
-        if bmask0 is not None:
-            bmask0 = _pad_rows(bmask0[sel0], nb)
-            bmask1 = _pad_rows(bmask1[sel1], nb)
-        parts = []
-        for b0 in range(0, nb, batch_size):
-            parts.append(xcorr_fft(
-                s0[b0:b0 + batch_size], s1[b0:b0 + batch_size],
-                conf_mode=conf_mode, sigma=sigma, pad=pad, subpixel=subpixel,
-                mask0=None if bmask0 is None else bmask0[b0:b0 + batch_size],
-                mask1=None if bmask1 is None else bmask1[b0:b0 + batch_size],
-                normalize=env_norm if bmask0 is not None else False,
-                return_device=True))
-        out = torch.cat(parts, dim=1).cpu().numpy().astype(np.float64)
-        dx, dy, conf = out[0, :n_real], out[1, :n_real], out[2, :n_real]
-        ok = conf >= conf_thresh
-        if not ok.any():
-            return None
-        # mesh1's world point c shows the content at c - d in mesh0's world
-        xy1 = centers[keep][ok]
-        xy0 = xy1 - np.stack([dx[ok], dy[ok]], axis=-1)
-        return xy0, xy1, conf[ok], float(np.hypot(dx[ok], dy[ok]).max())
+        return (np.concatenate(out_xy0), np.concatenate(out_xy1),
+                np.concatenate(out_conf), disp_max)
 
     sp_idx = 0
     dwelled = 0
@@ -519,14 +749,11 @@ def iterative_xcorr_matcher_w_mesh(mesh0, mesh1, loader0, loader1, spacings,
             else float(spacings[sp_idx])
         spacing_override = None
         last_round = (sp_idx == len(spacings) - 1)
-        bbox0 = mesh0.bbox(gear=const.MESH_GEAR_MOVING)
-        bbox1 = mesh1.bbox(gear=const.MESH_GEAR_MOVING)
-        ovl, valid = common.intersect_bbox(bbox0, bbox1)
-        if not valid:
+        blocks = _block_centers(mesh0, mesh1, spacing, shrink_factor,
+                                min_boundary_distance, kwargs)
+        if blocks is None:
             return None
-        centers = distributor_cartesian_bbox(
-            ovl, spacing, spacing * shrink_factor,
-            min_boundary_distance=min_boundary_distance)
+        centers, size_factors = blocks
         if centers.shape[0] < min_num_blocks and not last_round:
             sp_idx += 1
             continue
@@ -534,7 +761,7 @@ def iterative_xcorr_matcher_w_mesh(mesh0, mesh1, loader0, loader1, spacings,
             if not initialized:
                 return None
             break
-        result = _match_round(centers, spacing,
+        result = _match_round(centers, size_factors, spacing,
                               subpixel=sp_last if last_round else False)
         if result is None:
             if not initialized:
@@ -782,3 +1009,42 @@ def match_pairs_batched(jobs, max_batch=MAX_BATCH, device=None,
         results[idx] = stitching_matcher(
             img0, img1, **{**kw, 'device': dev, 'dtype': dtype})
     return results
+
+
+def section_matcher(mesh0, mesh1, loader0, loader1, **kwargs):
+    """Match two roughly aligned sections through their meshes. Sections
+    cut into disconnected pieces split into connected components, and each
+    overlapping component pair is matched on its own, so one piece's drift
+    cannot spoil another's relaxation."""
+    spacings = kwargs.pop('spacings', [400, 100])
+    split = kwargs.pop('split_disconnected', True)
+    if split and (mesh0.num_connected > 1 or mesh1.num_connected > 1):
+        parts0 = mesh0.divide_disconnected_mesh() \
+            if mesh0.num_connected > 1 else [mesh0]
+        parts1 = mesh1.divide_disconnected_mesh() \
+            if mesh1.num_connected > 1 else [mesh1]
+        xy0s, xy1s, ws, strains, wsum = [], [], [], [], 0.0
+        for p0 in parts0:
+            b0 = p0.bbox(gear=const.MESH_GEAR_MOVING)
+            for p1 in parts1:
+                _, valid = common.intersect_bbox(
+                    b0, p1.bbox(gear=const.MESH_GEAR_MOVING))
+                if not valid:
+                    continue
+                m = iterative_xcorr_matcher_w_mesh(
+                    p0.copy(), p1.copy(), loader0, loader1, spacings,
+                    **kwargs)
+                if m is None or m.xy0.shape[0] == 0:
+                    continue
+                xy0s.append(m.xy0)
+                xy1s.append(m.xy1)
+                ws.append(m.weight)
+                strains.append(m.strain * float(np.sum(m.weight)))
+                wsum += float(np.sum(m.weight))
+        if not xy0s:
+            return None
+        strain = (sum(strains) / wsum) if wsum > 0 else config.DEFAULT_AVG_DEFORM
+        return common.Match(np.concatenate(xy0s), np.concatenate(xy1s),
+                            np.concatenate(ws), strain)
+    return iterative_xcorr_matcher_w_mesh(mesh0, mesh1, loader0, loader1,
+                                          spacings, **kwargs)

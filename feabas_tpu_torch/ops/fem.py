@@ -1,5 +1,6 @@
-"""Matrix-free finite-element operators and PCG (counterpart of the parts
-of ``feabas_tpu/ops/fem.py`` the stitch path reaches).
+"""Matrix-free finite-element operators and PCG (counterpart of
+``feabas_tpu/ops/fem.py``: the ENG elements, the scatter, incidence-gather
+and lattice-stencil matvecs, crosslinks and CG).
 
     A x = lambda_s K(x) + C^T W C x
 
@@ -75,6 +76,254 @@ def stiffness_matvec(x, Ke, tris):
 
 def stiffness_diag(Ke, tris, nv):
     return scatter_uv(torch.diagonal(Ke, dim1=1, dim2=2), tris, nv)
+
+
+# -------------------------- incidence gather -------------------------- #
+
+def build_incidence(tris, nv, max_degree=None):
+    """Vertex -> element-corner incidence table (host, once per topology):
+    ``inc[v, d]`` indexes the flattened (NT*3) per-corner contribution
+    array, ``mask[v, d]`` zeroes padding. The FEM transpose then gathers
+    instead of scatter-adding. Returns (inc int32 (NV, D), mask float32
+    (NV, D))."""
+    tris = np.asarray(tris)
+    flat_v = tris.ravel()                    # corner k of element t -> vertex
+    order = np.argsort(flat_v, kind='stable')
+    sorted_v = flat_v[order]
+    counts = np.bincount(flat_v, minlength=nv)
+    D = int(max_degree or (counts.max() if counts.size else 1))
+    inc = np.zeros((nv, D), np.int32)
+    mask = np.zeros((nv, D), np.float32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos_in_group = np.arange(flat_v.size) - starts[sorted_v]
+    keep = pos_in_group < D
+    inc[sorted_v[keep], pos_in_group[keep]] = order[keep].astype(np.int32)
+    mask[sorted_v[keep], pos_in_group[keep]] = 1.0
+    return inc, mask
+
+
+def gather_scatter_uv(y_e, inc, mask):
+    """(NT, 6) element contributions -> (NV, 2) by incidence gather."""
+    g = y_e.reshape(-1, 2)[inc]              # (NV, D, 2)
+    return (g * mask[..., None]).sum(dim=1)
+
+
+def stiffness_matvec_gather(x, Ke, tris, inc, mask):
+    """K @ x with the incidence gather in place of the scatter-add."""
+    y = torch.einsum('nij,nj->ni', Ke, gather_uv(x, tris))
+    return gather_scatter_uv(y, inc, mask)
+
+
+# --------------------------- lattice stencil --------------------------- #
+# Lattice meshes (cartesian grids with alternating diagonals, equilateral
+# row-staggered grids) admit a 9-point stencil on the vertex lattice: per
+# vertex one 2x2 block per {-1,0,1}^2 neighbour offset, so the matvec is 9
+# shifted multiply-adds with no gather or scatter. The stencil functions
+# below take any leading batch axes (a stack of sections).
+
+def lattice_embedding(verts, tris, min_occupancy=0.5):
+    """Integer lattice embedding of a mesh (host, once per topology).
+
+    Returns (cell_of (NV,) int64 row-major cell ids, (ny, nx)) such that
+    every triangle's vertex-pair offsets lie in {-1,0,1}^2 and no two
+    vertices share a cell, or None when the mesh is not a lattice.
+    Validation is combinatorial, so a stencil built on a returned
+    embedding is exact. Tries a linear two-vector basis, a staggered row
+    layout, row-rank columns and a BFS over the edge graph.
+    """
+    verts = np.asarray(verts, np.float64)
+    tris = np.asarray(tris)
+    nv = verts.shape[0]
+    if nv < 16 or tris.shape[0] < 8:
+        return None
+
+    def validate(pos):
+        pos = pos - pos.min(axis=0)
+        ny = int(pos[:, 1].max()) + 1
+        nx = int(pos[:, 0].max()) + 1
+        if ny < 2 or nx < 2 or nv < min_occupancy * ny * nx:
+            return None
+        off = pos[tris] - pos[tris[:, :1]]
+        d01 = pos[tris[:, 1]] - pos[tris[:, 0]]
+        d12 = pos[tris[:, 2]] - pos[tris[:, 1]]
+        if max(np.abs(d01).max(), np.abs(d12).max(),
+               np.abs(off).max()) > 1:
+            return None
+        cells = pos[:, 1] * nx + pos[:, 0]
+        if np.unique(cells).size != nv:
+            return None
+        return cells.astype(np.int64), (ny, nx)
+
+    # edge vectors, sign-normalized, clustered at 1/4-px resolution
+    e = np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]], tris[:, [2, 0]]])
+    d = verts[e[:, 1]] - verts[e[:, 0]]
+    flip = (d[:, 1] < 0) | ((d[:, 1] == 0) & (d[:, 0] < 0))
+    d = np.where(flip[:, None], -d, d)
+    key = np.round(d * 4).astype(np.int64)
+    uniq, counts = np.unique(key, axis=0, return_counts=True)
+    cand = uniq[np.argsort(-counts)][:6] / 4.0
+    ref = verts[0]
+
+    def bases():
+        for a in range(len(cand)):
+            for b in range(a + 1, len(cand)):
+                E = np.stack([cand[a], cand[b]], axis=1)
+                scale = np.linalg.norm(cand[a]) * np.linalg.norm(cand[b])
+                if abs(np.linalg.det(E)) >= 0.1 * max(scale, 1e-12):
+                    yield E
+
+    # 1) linear basis: vertices at ref + E @ (i, j)
+    for E in bases():
+        q = np.linalg.solve(E, (verts - ref).T).T
+        p = np.round(q)
+        if np.abs(q - p).max() > 0.25:
+            continue
+        out = validate(p.astype(np.int64))
+        if out is not None:
+            return out
+    # 2) staggered rows: pitch a along x, row height h, odd rows +a/2
+    horiz = cand[(np.abs(cand[:, 1]) < 0.25) & (np.abs(cand[:, 0]) > 0.25)]
+    diag = cand[np.abs(cand[:, 1]) > 0.25]
+    if len(horiz) and len(diag):
+        a = abs(horiz[0, 0])
+        h = abs(diag[0, 1])
+        row_f = (verts[:, 1] - ref[1]) / h
+        row = np.round(row_f)
+        if np.abs(row_f - row).max() <= 0.25:
+            for parity in (0, 1):
+                col_f = (verts[:, 0] - ref[0]
+                         - ((row.astype(np.int64) + parity) % 2) * a / 2) / a
+                col = np.round(col_f)
+                if np.abs(col_f - col).max() > 0.25:
+                    continue
+                out = validate(np.stack([col, row], -1).astype(np.int64))
+                if out is not None:
+                    return out
+    # 2b) row-rank: y-rows, columns by within-row x-rank (rows left-aligned)
+    ys = np.sort(np.unique(verts[:, 1]))
+    gaps = np.diff(ys)
+    if gaps.size:
+        h_est = np.median(gaps[gaps > gaps.max() * 0.5]) \
+            if (gaps > gaps.max() * 0.5).any() else gaps.max()
+        row_edges = np.nonzero(gaps > 0.4 * h_est)[0]
+        row_of_y = np.zeros(ys.size, np.int64)
+        row_of_y[row_edges + 1] = 1
+        row_of_y = np.cumsum(row_of_y)
+        row = row_of_y[np.searchsorted(ys, verts[:, 1])]
+        order = np.lexsort((verts[:, 0], row))
+        col = np.zeros(nv, np.int64)
+        r_sorted = row[order]
+        starts = np.searchsorted(r_sorted, np.arange(r_sorted.max() + 2))
+        col[order] = np.arange(nv) - starts[r_sorted]
+        out = validate(np.stack([col, row], -1))
+        if out is not None:
+            return out
+    # 3) BFS propagation of rounded per-edge basis offsets (lattices whose
+    # boundary rows conform to the ROI ring)
+    for E in bases():
+        out = _bfs_lattice(verts, tris, E, validate)
+        if out is not None:
+            return out
+    return None
+
+
+def _bfs_lattice(verts, tris, E, validate):
+    """Integer lattice coords by propagating rounded per-edge basis offsets
+    over a BFS spanning tree of the triangle edge graph; ``validate``
+    decides."""
+    import collections
+    nv = verts.shape[0]
+    e = np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]], tris[:, [2, 0]]])
+    e = np.concatenate([e, e[:, ::-1]])
+    d = verts[e[:, 1]] - verts[e[:, 0]]
+    q = np.linalg.solve(E, d.T).T
+    off = np.round(q).astype(np.int64)
+    if np.abs(q - off).max() > 0.45 or np.abs(off).max() > 1:
+        return None
+    order = np.argsort(e[:, 0], kind='stable')
+    starts = np.searchsorted(e[order, 0], np.arange(nv + 1))
+    pos = np.zeros((nv, 2), np.int64)
+    seen = np.zeros(nv, bool)
+    seen[0] = True
+    dq = collections.deque([0])
+    n_seen = 1
+    while dq:
+        u = dq.popleft()
+        for k in order[starts[u]:starts[u + 1]]:
+            v = e[k, 1]
+            if not seen[v]:
+                seen[v] = True
+                n_seen += 1
+                pos[v] = pos[u] + off[k]
+                dq.append(v)
+    if n_seen != nv:
+        return None                      # disconnected mesh
+    return validate(pos)
+
+
+def stencil_targets(tris, nx, nv):
+    """(T, 3, 3) flat assembly targets ``plane * nv + cell`` of the 9-plane
+    stencil from lattice-packed (row-major cell id) triangles; numpy or
+    torch."""
+    cx = tris % nx
+    cy = tris // nx
+    ox = cx[:, None, :] - cx[:, :, None]
+    oy = cy[:, None, :] - cy[:, :, None]
+    plane = (oy + 1) * 3 + (ox + 1)
+    return plane * nv + tris[:, :, None]
+
+
+def build_stencil_assembly(tris, nx, nv):
+    """Host gather table of the stencil assembly (once per topology): for
+    each (plane, vertex) destination, the rows of the flattened (T*9 + 1)-row
+    element-block array that contribute (row t*9 + i*3 + j = element t's
+    (i, j) 2x2 block; pad entries point at the trailing zero row).
+    Returns (9*nv, D) int32."""
+    tris = np.asarray(tris)
+    T = tris.shape[0]
+    tgt = np.asarray(stencil_targets(tris, nx, nv)).reshape(-1)
+    order = np.argsort(tgt, kind='stable')
+    st = tgt[order]
+    counts = np.bincount(st, minlength=9 * nv)
+    D = max(int(counts.max()), 1)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rows = np.full((9 * nv, D), T * 9, np.int32)
+    rows[st, np.arange(T * 9) - starts[st]] = order
+    return rows
+
+
+def stencil_assemble_gather(Ke, rows):
+    """(..., T, 6, 6) element stiffness -> (..., 9*nv, 2, 2) coefficient
+    planes by the ``build_stencil_assembly`` gather (plane k couples each
+    vertex to its neighbour at offset (k%3-1, k//3-1))."""
+    lead = Ke.shape[:-3]
+    T = Ke.shape[-3]
+    Kb = Ke.reshape(*lead, T, 3, 2, 3, 2).transpose(-3, -2)
+    Kb = Kb.reshape(*lead, T * 9, 2, 2)
+    Kb = torch.cat([Kb, Kb.new_zeros(*lead, 1, 2, 2)], dim=-3)
+    return Kb[..., rows.long(), :, :].sum(dim=-3)
+
+
+def stiffness_matvec_stencil(x, C, ny, nx):
+    """K @ x as 9 shifted multiply-adds on the (ny, nx) vertex lattice;
+    x (..., nv, 2), C (..., 9*nv, 2, 2). Off-grid neighbours carry zero
+    coefficients, so zero padding is exact."""
+    lead = x.shape[:-2]
+    xp = torch.nn.functional.pad(x.reshape(*lead, ny, nx, 2),
+                                 (0, 0, 1, 1, 1, 1))
+    Cg = C.reshape(*lead, 9, ny, nx, 2, 2)
+    out = torch.zeros(*lead, ny, nx, 2, dtype=x.dtype, device=x.device)
+    for k in range(9):
+        oy, ox = k // 3 - 1, k % 3 - 1
+        xs = xp[..., 1 + oy:1 + oy + ny, 1 + ox:1 + ox + nx, :]
+        out = out + (Cg[..., k, :, :, :, :] * xs[..., None, :]).sum(-1)
+    return out.reshape(*lead, ny * nx, 2)
+
+
+def stencil_diag(C, nv):
+    """Jacobi diagonal (..., nv, 2) from the stencil's self-plane."""
+    C4 = C.reshape(*C.shape[:-3], 9, nv, 2, 2)[..., 4, :, :, :]
+    return torch.stack([C4[..., 0, 0], C4[..., 1, 1]], dim=-1)
 
 
 # ------------------------------ crosslinks ------------------------------ #

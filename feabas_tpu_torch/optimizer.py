@@ -8,9 +8,9 @@ translation least squares (host) and the fused linear-ENG elastic solve
 explicit: ``SLM(meshes, dtype=torch.float32, device=...)``.
 
 Not ported yet (they raise ``NotImplementedError`` naming the JAX
-function): the general non-fused ``optimize_linear`` path, Newton-Raphson
-and the grouped affine cascade. The stitch path's default config reaches
-none of them.
+function): the general non-fused ``optimize_linear`` path and
+Newton-Raphson. The stitch and align paths' default configs reach
+neither.
 """
 
 import numpy as np
@@ -264,10 +264,64 @@ class Link:
     def residues(self, gear=const.MESH_GEAR_MOVING):
         return np.linalg.norm(self.dxy(gear=gear), axis=-1)
 
+    def spacing(self):
+        """Median nearest-neighbour spacing of the match points (INITIAL
+        coords); scales the residue-smoothing kernel."""
+        xy0 = self.xy0(gear=const.MESH_GEAR_INITIAL)
+        if xy0.shape[0] < 2:
+            return 1.0
+        from scipy.spatial import cKDTree
+        d, _ = cKDTree(xy0).query(xy0, k=2)
+        return float(np.median(d[:, 1])) or 1.0
+
+    def smooth_matrix(self, sigma=None):
+        """Gaussian neighbourhood-weight sparse matrix over the match points
+        (pairs within 2.5 sigma, sigma default 3x the spacing); cached per
+        sigma. None when no pair is that close."""
+        if sigma is None:
+            sigma = 3.0 * self.spacing()
+        cache = getattr(self, '_dis_smooth_matrix', None)
+        if cache is None:
+            cache = self._dis_smooth_matrix = {}
+        if sigma not in cache:
+            from scipy.spatial import cKDTree
+            xy0 = self.xy0(gear=const.MESH_GEAR_INITIAL)
+            n = xy0.shape[0]
+            pairs = cKDTree(xy0).query_pairs(2.5 * sigma,
+                                             output_type='ndarray')
+            if pairs.size == 0:
+                cache[sigma] = None
+            else:
+                w = np.exp(-np.sum((xy0[pairs[:, 0]] - xy0[pairs[:, 1]]) ** 2,
+                                   axis=-1) / sigma ** 2)
+                m = sparse.csr_matrix((w, (pairs[:, 0], pairs[:, 1])),
+                                      shape=(n, n))
+                cache[sigma] = m + m.T
+        return cache[sigma]
+
+    def dxy_smoothen(self, gear=const.MESH_GEAR_MOVING, sigma=None):
+        """Weight-averaged residual vectors over each match's neighbourhood:
+        the locally coherent part of the residue field (NaN where a match
+        has no weighted neighbour)."""
+        dxy = self.dxy(gear=gear)
+        mtx = self.smooth_matrix(sigma=sigma)
+        if mtx is None:
+            return np.zeros_like(dxy)
+        wt = self.weight()
+        wv = mtx.dot(wt)
+        out = np.full_like(dxy, np.nan)
+        ok = wv > 0
+        out[ok, 0] = mtx.dot(dxy[:, 0] * wt)[ok] / wv[ok]
+        out[ok, 1] = mtx.dot(dxy[:, 1] * wt)[ok] / wv[ok]
+        return out
+
     def adjust_weight_from_residue(self, gear=const.MESH_GEAR_MOVING,
                                    residue_len=0, residue_mode=None):
         """Robust reweighting: 'huber' damps by residue_len/|r|;
-        'threshold' zeroes matches beyond residue_len. Returns (changed,
+        'threshold' zeroes matches beyond residue_len; 'huber_smooth'
+        measures each residue against the locally smoothed residue field
+        (``dxy_smoothen``), so a coherent offset cluster keeps its weight
+        while incoherent outliers are damped. Returns (changed,
         fraction_kept)."""
         if residue_mode is None or residue_len <= 0 or self.num_matches == 0:
             return False, 1.0
@@ -276,10 +330,14 @@ class Link:
             new_w = np.clip(residue_len / np.clip(r, 1e-9, None), None, 1.0)
         elif residue_mode == 'threshold':
             new_w = (r <= residue_len).astype(np.float64)
+        elif residue_mode == 'huber_smooth':
+            dev = self.dxy(gear=gear) - np.nan_to_num(
+                self.dxy_smoothen(gear=gear))
+            r_dev = np.linalg.norm(dev, axis=-1)
+            new_w = np.clip(residue_len / np.clip(r_dev, 1e-9, None),
+                            None, 1.0)
         else:
-            raise NotImplementedError(
-                f'residue mode {residue_mode!r}: see feabas_tpu.optimizer.'
-                'Link.adjust_weight_from_residue')
+            raise ValueError(f'unknown residue mode {residue_mode}')
         changed = not np.allclose(new_w, self.residue_weight)
         self.residue_weight = new_w
         kept = float((self.weight() > 0).mean()) if new_w.size else 1.0
@@ -291,6 +349,43 @@ class Link:
         idx0 = m0.triangles[self._tid0] + offset0
         idx1 = m1.triangles[self._tid1] + offset1
         return idx0, self._bary0, idx1, self._bary1, self.weight()
+
+
+def distribute_link(mesh0_list, mesh1_list, xy0, xy1, weight=None,
+                    gear=const.MESH_GEAR_INITIAL, exclusive=True, **kwargs):
+    """Distribute one link's matches over split meshes: each match goes to
+    the component pair that contains its two endpoints. Returns a list of
+    Links."""
+    xy0 = np.asarray(xy0, np.float64).reshape(-1, 2)
+    xy1 = np.asarray(xy1, np.float64).reshape(-1, 2)
+    n = xy0.shape[0]
+    weight = np.ones(n) if weight is None else np.asarray(weight).ravel()
+    remaining = np.arange(n)
+    out = []
+    for m0 in mesh0_list:
+        if remaining.size == 0:
+            break
+        tid0 = m0.tri_finder(xy0[remaining], gear=gear)
+        in0 = tid0 >= 0
+        if not in0.any():
+            continue
+        cand0 = remaining[in0]
+        for m1 in mesh1_list:
+            if cand0.size == 0:
+                break
+            tid1 = m1.tri_finder(xy1[cand0], gear=gear)
+            take = cand0[tid1 >= 0]
+            if take.size == 0:
+                continue
+            link = Link.from_coordinates(m0, m1, xy0[take], xy1[take],
+                                         weight=weight[take],
+                                         gear=(gear, gear), **kwargs)
+            if link.num_matches > 0:
+                out.append(link)
+            if exclusive:
+                cand0 = np.setdiff1d(cand0, take)
+                remaining = np.setdiff1d(remaining, take)
+    return out
 
 
 class SLM:
@@ -334,6 +429,65 @@ class SLM:
         return [l for l in self.links if (not l.disabled) and l.num_matches > 0
                 and np.any(l.weight() > 0)]
 
+    def divide_disconnected_submeshes(self, prune_links=True):
+        """Split every disconnected mesh into its components and
+        redistribute its links onto them (``distribute_link``). Component
+        uids extend the parent's with a 1e-3 step; components remember
+        their parent for ``sync_component_positions``. Returns the number
+        of meshes split."""
+        replaced = {}
+        new_meshes = []
+        for m in self.meshes:
+            if m.num_connected <= 1:
+                new_meshes.append(m)
+                continue
+            comps = m.divide_disconnected_mesh()
+            for k, c in enumerate(comps):
+                c.uid = float(m.uid) + (k + 1) * 1e-3
+                c.locked = m.locked
+                c.soft_factor = m.soft_factor
+            replaced[m.uid] = comps
+            new_meshes.extend(comps)
+        if not replaced:
+            return 0
+        self.meshes = new_meshes
+        new_links = []
+        for l in self.links:
+            u0, u1 = l.uids
+            if u0 not in replaced and u1 not in replaced:
+                new_links.append(l)
+                continue
+            l0 = replaced.get(u0) or [self.mesh_by_uid(u0)]
+            l1 = replaced.get(u1) or [self.mesh_by_uid(u1)]
+            new_links.extend(distribute_link(
+                l0, l1, l.xy0(gear=const.MESH_GEAR_INITIAL),
+                l.xy1(gear=const.MESH_GEAR_INITIAL), weight=l.weight()))
+        self.links = [l for l in new_links
+                      if (not prune_links) or l.num_matches > 0]
+        return len(replaced)
+
+    def sync_component_positions(self, gear=const.MESH_GEAR_MOVING):
+        """Write split-component positions back into their parent meshes
+        (inverse of ``divide_disconnected_submeshes``)."""
+        parents = {}
+        for m in self.meshes:
+            parent = getattr(m, '_parent_mesh', None)
+            idx = getattr(m, '_parent_vertex_indices', None)
+            if parent is None or idx is None:
+                continue
+            if id(parent) not in parents:
+                if not parent.vertices_initialized(gear):
+                    parent.set_vertices(parent.vertices(const.MESH_GEAR_FIXED),
+                                        gear,
+                                        offset=parent.offset(const.MESH_GEAR_FIXED))
+                parents[id(parent)] = (parent,
+                                       parent.vertices_w_offset(gear).copy())
+            parents[id(parent)][1][idx] = m.vertices_w_offset(gear)
+        for parent, mv in parents.values():
+            center = mv.mean(axis=0, keepdims=True)
+            parent.set_vertices(mv - center, gear, offset=center)
+        return len(parents)
+
     def match_residues(self, gear=const.MESH_GEAR_MOVING, quantile=None):
         rr = [l.residues(gear=gear) for l in self.active_links()]
         if not rr:
@@ -356,6 +510,26 @@ class SLM:
         g = sparse.coo_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
         _, labels = csgraph.connected_components(g, directed=False)
         return labels
+
+    def flag_outcasts(self):
+        """Flag meshes with no link path to an anchor: with any mesh locked,
+        components holding no locked (and not previously outcast) mesh are
+        outcasts; a fully free system keeps its largest component. Sets
+        ``mesh.is_outcast`` and returns the boolean array."""
+        labels = self.mesh_connectivity()
+        lock_flags = np.asarray([m.locked for m in self.meshes], dtype=bool)
+        prior = np.asarray([m.is_outcast for m in self.meshes], dtype=bool)
+        if lock_flags.any():
+            anchored_labels = labels[lock_flags & ~prior]
+            outcasts = ~np.isin(labels, anchored_labels)
+        elif labels.max() == 0:
+            outcasts = np.zeros(self.num_meshes, dtype=bool)
+        else:
+            u, cnt = np.unique(labels, return_counts=True)
+            outcasts = labels != u[np.argmax(cnt)]
+        for m, flg in zip(self.meshes, outcasts):
+            m.is_outcast = bool(flg)
+        return outcasts
 
     # ------------------------- translation solve ------------------------- #
 
@@ -437,10 +611,139 @@ class SLM:
             worst.disable()
             self.optimize_translation(**kwargs)
 
+    # ------------------------- affine cascade ------------------------- #
+
     def optimize_affine_cascade(self, **kwargs):
-        raise NotImplementedError(
-            'affine cascade: feabas_tpu.optimizer.SLM.optimize_affine_cascade '
-            'is not ported yet')
+        """Greedy per-mesh (or, with ``groupings``, per-group) affine
+        placement: settled meshes (locked first, else the best-connected)
+        anchor their neighbours, which are fitted by weighted affine on the
+        link points and settle in turn. A fit whose singular values leave
+        ``svd_clip`` falls back to its rigid part. Returns the max
+        residue at the target gear."""
+        groupings = kwargs.pop('groupings', None)
+        if groupings is not None:
+            return self._optimize_affine_grouped(np.asarray(groupings),
+                                                 **kwargs)
+        target_gear = kwargs.get('target_gear', const.MESH_GEAR_MOVING)
+        start_gear = kwargs.get('start_gear', const.MESH_GEAR_FIXED)
+        svd_clip = kwargs.get('svd_clip', (0.5, 2.0))
+        uid2idx = {m.uid: i for i, m in enumerate(self.meshes)}
+        n = self.num_meshes
+        settled = self.lock_flags.copy()
+        for m in self.meshes:
+            if not m.vertices_initialized(target_gear):
+                m.set_vertices(m.vertices(start_gear), target_gear,
+                               offset=m.offset(start_gear))
+        links = self.active_links()
+        if not settled.any() and n > 0:
+            # seed: the mesh with the most matches
+            counts = np.zeros(n)
+            for l in links:
+                counts[uid2idx[l.uids[0]]] += l.num_matches
+                counts[uid2idx[l.uids[1]]] += l.num_matches
+            settled[int(np.argmax(counts))] = True
+        while not settled.all():
+            # the unsettled mesh with the most match weight to settled ones
+            score = np.zeros(n)
+            pair_pts = {i: ([], [], []) for i in range(n)}
+            for l in links:
+                i0, i1 = uid2idx[l.uids[0]], uid2idx[l.uids[1]]
+                if settled[i0] == settled[i1]:
+                    continue
+                if settled[i0]:
+                    src = i1
+                    p_src = l.xy1(gear=start_gear)
+                    p_dst = l.xy0(gear=target_gear)
+                else:
+                    src = i0
+                    p_src = l.xy0(gear=start_gear)
+                    p_dst = l.xy1(gear=target_gear)
+                w = l.weight()
+                score[src] += w.sum()
+                pair_pts[src][0].append(p_dst)
+                pair_pts[src][1].append(p_src)
+                pair_pts[src][2].append(w)
+            score[settled] = -1
+            nxt = int(np.argmax(score))
+            if score[nxt] <= 0:
+                # disconnected remainder keeps its start positions
+                settled[:] = True
+                break
+            T = self._fit_clipped(np.concatenate(pair_pts[nxt][0]),
+                                  np.concatenate(pair_pts[nxt][1]),
+                                  np.concatenate(pair_pts[nxt][2]), svd_clip)
+            self.meshes[nxt].apply_affine(T, gear=(start_gear, target_gear))
+            settled[nxt] = True
+        r = self.match_residues(gear=target_gear)
+        return float(r.max()) if r.size else 0.0
+
+    @staticmethod
+    def _fit_clipped(p_dst, p_src, w, svd_clip):
+        """Weighted affine p_src -> p_dst, or its rigid part when the
+        singular values leave ``svd_clip``."""
+        from feabas_tpu import spatial as sp
+        T, T_rigid = sp.fit_affine(p_dst, p_src, weights=w, return_rigid=True)
+        s = np.linalg.svd(T[:2, :2], compute_uv=False)
+        if svd_clip is not None and (s.min() < svd_clip[0]
+                                     or s.max() > svd_clip[1]):
+            return T_rigid
+        return T
+
+    def _optimize_affine_grouped(self, groupings, **kwargs):
+        """Greedy affine cascade over mesh groups: links crossing group
+        boundaries drive one weighted affine per group."""
+        target_gear = kwargs.get('target_gear', const.MESH_GEAR_MOVING)
+        start_gear = kwargs.get('start_gear', const.MESH_GEAR_FIXED)
+        svd_clip = kwargs.get('svd_clip', (0.5, 2.0))
+        uid2idx = {m.uid: i for i, m in enumerate(self.meshes)}
+        for m in self.meshes:
+            if not m.vertices_initialized(target_gear):
+                m.set_vertices(m.vertices(start_gear), target_gear,
+                               offset=m.offset(start_gear))
+        groups = np.unique(groupings)
+        gsettled = {g: bool(np.any(self.lock_flags[groupings == g]))
+                    for g in groups}
+        links = self.active_links()
+        if not any(gsettled.values()):
+            counts = {g: 0 for g in groups}
+            for l in links:
+                counts[groupings[uid2idx[l.uids[0]]]] += l.num_matches
+                counts[groupings[uid2idx[l.uids[1]]]] += l.num_matches
+            gsettled[max(counts, key=counts.get)] = True
+        while not all(gsettled.values()):
+            score = {g: 0.0 for g in groups if not gsettled[g]}
+            pts = {g: ([], [], []) for g in groups if not gsettled[g]}
+            for l in links:
+                g0 = groupings[uid2idx[l.uids[0]]]
+                g1 = groupings[uid2idx[l.uids[1]]]
+                if gsettled.get(g0) == gsettled.get(g1):
+                    continue
+                if gsettled[g0]:
+                    src, p_dst, p_src = (g1, l.xy0(gear=target_gear),
+                                         l.xy1(gear=start_gear))
+                else:
+                    src, p_dst, p_src = (g0, l.xy1(gear=target_gear),
+                                         l.xy0(gear=start_gear))
+                w = l.weight()
+                score[src] += w.sum()
+                pts[src][0].append(p_dst)
+                pts[src][1].append(p_src)
+                pts[src][2].append(w)
+            if not score or max(score.values()) <= 0:
+                for g in score:
+                    gsettled[g] = True
+                break
+            nxt = max(score, key=score.get)
+            T = self._fit_clipped(np.concatenate(pts[nxt][0]),
+                                  np.concatenate(pts[nxt][1]),
+                                  np.concatenate(pts[nxt][2]), svd_clip)
+            for i in np.nonzero(groupings == nxt)[0]:
+                if not self.meshes[i].locked:
+                    self.meshes[i].apply_affine(T, gear=(start_gear,
+                                                         target_gear))
+            gsettled[nxt] = True
+        r = self.match_residues(gear=target_gear)
+        return float(r.max()) if r.size else 0.0
 
     # ------------------------- elastic solve (device) ------------------------- #
 
@@ -692,3 +995,19 @@ def relax_mesh(mesh, free_vertices=None, dtype=torch.float32, device=None,
     center = newpos.mean(axis=0, keepdims=True)
     mesh.set_vertices(newpos - center, target_gear, offset=center)
     return mesh
+
+
+def relax_mesh_most_deformed(mesh, deform_quantile=0.75, iqr_factor=1.5,
+                             **kwargs):
+    """Relax the vertices of triangles whose deformation is an IQR outlier.
+    Returns (mesh, relaxed?)."""
+    d = mesh.svds_to_deform(gear1=const.MESH_GEAR_MOVING)
+    q1, q3 = np.quantile(d, [0.25, 0.75])
+    thresh = q3 + iqr_factor * (q3 - q1)
+    bad_tris = d > max(thresh, 1e-3)
+    if not bad_tris.any():
+        return mesh, False
+    free = np.zeros(mesh.num_vertices, bool)
+    free[np.unique(mesh.triangles[bad_tris])] = True
+    relax_mesh(mesh, free_vertices=free, **kwargs)
+    return mesh, True

@@ -2,11 +2,13 @@
 
 The system has no weights. What its device programs take are host numpy
 trees: the fused-match prep dict and its per-round tables
-(``matcher._fused_prep``), the SLM system arrays (``optimizer``), and the
-montage tables (``ops.montage_render``). ``to_tensors`` turns any such
-tree into tensors on one device; ``cast_floats`` pins the float width
-first, so a test can hand the JAX package and the port the same f32
-inputs.
+(``matcher._fused_prep``), the SLM system arrays (``optimizer``), the
+montage tables (``ops.montage_render``), the stacked window system
+(``parallel.window.build_stack_system`` / ``slm_window_to_stack``) and the
+render tables and cell candidates (``ops.render.DeviceRenderEngine``).
+``to_tensors`` turns any such tree into tensors on one device;
+``cast_floats`` pins the float width first, so a test can hand the JAX
+package and the port the same inputs.
 """
 
 import numpy as np
@@ -65,3 +67,32 @@ def stack_preps(preps):
                       for k in p0['coarse']}
                      if p0['coarse'] is not None else None)
     return out
+
+
+# window-system keys stack_solve takes (the rest is host bookkeeping)
+WINDOW_KEYS = ('verts0', 'u', 'tris', 'multiplier', 'poisson', 'links',
+               'r_rest', 'free', 'linc', 'sten')
+
+
+def window_system_to_device(system, device, float_dtype=torch.float32):
+    """The solve arrays of a stacked window system (including the optional
+    ``linc`` link transpose and ``sten`` stencil assembly table) as
+    tensors on ``device``; host-only keys stay behind."""
+    return to_tensors({k: system[k] for k in WINDOW_KEYS
+                       if system.get(k) is not None}, device, float_dtype)
+
+
+def render_batch_to_device(src, tables, cands, device):
+    """One raster batch on ``device``: the source (uint8 or float32 as
+    given, other dtypes widened to float32; None passes through), the
+    (B, Tp, 14) float32 tables and the (B, NC, K) int32 cell candidates
+    (or None), as ``ops.render.raster_blocks`` takes them."""
+    if src is not None:
+        src = np.ascontiguousarray(src)
+        if src.dtype not in (np.uint8, np.float32):
+            src = src.astype(np.float32)
+        src = torch.from_numpy(src).to(device)
+    return (src,
+            torch.from_numpy(np.asarray(tables, np.float32)).to(device),
+            None if cands is None
+            else torch.from_numpy(np.asarray(cands, np.int32)).to(device))

@@ -7,6 +7,10 @@ import torch
 
 import jax.numpy as jnp
 
+# the port first: on a host without h5py its HDF5 stand-in must be in
+# place before the JAX package's host modules import storage
+import feabas_tpu_torch  # noqa: F401
+
 from feabas_tpu import matcher as jmatcher
 from feabas_tpu.ops import match_loop as jloop
 from feabas_tpu.utils.synthetic import texture
