@@ -6,12 +6,17 @@ Phases (each prints its lines; any failure exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the hand-written kernels from feabas_tpu_torch/csrc, one
      nvcc per source, all started together;
-  3. each kernel against its plain PyTorch version on the card, at the
-     stitch and align paths' shapes, with both times from CUDA events:
-     the DoG (sigma 2.5 and 3.5) and blur, and the mesh raster on a
-     2048^2 cell-binned block of a deformed section mesh with its own
-     source crop, four 512^2 flat-table blocks on one resident source,
-     and a tie of two identical rows, which the first must win;
+  3. each kernel against its plain PyTorch version on the card, at every
+     shape the stitch and align paths below launch it with, with both
+     times from CUDA events and each kernel's bound (the larger of its
+     FLOP over 67 TFLOP/s and its bytes over 3.35 TB/s) and share of it:
+     the DoG (sigma 1.25, 2.5 and 3.5, whole planes and halo tiles) and
+     blur (the pooled bands' mask term, the 4096^2 low band), the edges of
+     both code paths of the DoG kernel (a 1x1 plane, 3x700, 24x24 at sigma
+     3.5, 129x130 tiles, the mask term's largest radius), and the mesh
+     raster on a 2048^2 cell-binned block of a deformed section mesh with
+     its own source crop, four 512^2 flat-table blocks on one resident
+     source, and a tie of two identical rows, which the first must win;
   4. the stitch slice: a synthetic 2x3 grid of 3000x4000 uint8 tiles
      (10% overlap, 3 px stage jitter, made on the card from a seed) goes
      through ``feabas_tpu_torch.scripts.stitch_main`` matching,
@@ -24,10 +29,12 @@ Phases (each prints its lines; any failure exits non-zero):
      matches are checked against the analytic truth, the window against
      the stacked solve, the render against section 0.
 Each slice resets the kernels' launch counts just before it and reads
-them just after, and fails if a kernel of its path never launched. The
-line before last is nvidia-smi's card line; the last line is one JSON
-object {"ok": true, "device": {...}}. Exits non-zero without a CUDA
-device.
+them just after (in total and by shape), and fails if a kernel of its
+path never launched. Then one JSON line lists each kernel with its
+launches, its worst error, and the times and bound of the checked shape
+the paths launched most, then all its phase-3 checks; the line before
+last is nvidia-smi's card line; the last line is one JSON object
+{"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 
 import json
@@ -47,6 +54,8 @@ OVERLAP_Y, OVERLAP_X = 300, 400       # 10% of the tile
 JITTER = 3.0
 MARGIN = 50
 ATOL = 1e-3                           # f32 blur sums, as test_pallas.py
+PEAK_FLOPS = 67e12                    # H100 SXM f32 outside the tensor cores
+PEAK_BYTES = 3.35e12                  # H100 SXM HBM3
 # kernel -> (source under feabas_tpu_torch/csrc, the TPU code it replaces)
 KERNELS = {
     'dog_filter': ('dog_filter', 'feabas_tpu/ops/pallas_kernels.py:59'),
@@ -67,10 +76,14 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time(fn, iters=20, warmup=3):
+def cuda_time(fn, iters=20, warm_s=0.1):
+    """Mean ms per call of ``iters`` calls (CUDA events), after ``warm_s``
+    seconds of calls, which bring an idle card's clock back up."""
     import torch
-    for _ in range(warmup):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warm_s:
         fn()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -81,8 +94,43 @@ def cuda_time(fn, iters=20, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
+def bound(flop, nbytes):
+    """(seconds, 'operations' | 'bytes'): the least time the card needs for
+    ``flop`` f32 operations and ``nbytes`` of HBM traffic."""
+    t_ops, t_bytes = flop / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def dog_bound(shape, in_bytes, sigma, is_dog):
+    """The DoG (4 passes) or blur (2 passes): one FMA (2 FLOP) per tap and
+    pass, plus the DoG's subtraction; each input byte read once, one f32
+    written per pixel."""
+    from feabas_tpu_torch.ops.dog import gaussian_kernel1d
+    px = math.prod(shape)
+    taps = gaussian_kernel1d(sigma).size
+    flop = px * ((4 if is_dog else 2) * taps * 2 + (1 if is_dog else 0))
+    return bound(flop, px * (in_bytes + 4))
+
+
+def kernel_row(name, shape, what, err, ms, pms, bnd):
+    return {'name': name, 'shape': list(shape), 'what': what,
+            'max_abs_err': err, 'ms': ms, 'plain_ms': pms,
+            'bound_us': bnd[0] * 1e6, 'bound_by': bnd[1]}
+
+
+def log_rows(rows, err_unit=''):
+    for r in rows:
+        log(f'[kernel] {r["name"]} {tuple(r["shape"])} {r["what"]}: '
+            f'max_abs_err={r["max_abs_err"]:.3e}{err_unit} '
+            f'kernel_ms={r["ms"]:.4f} plain_ms={r["plain_ms"]:.4f} '
+            f'bound_us={r["bound_us"]:.4g} ({r["bound_by"]}) '
+            f'share={r["bound_us"] / 1e3 / r["ms"]:.1%}')
+
+
 def check_kernels(dev):
-    """Phase 3: kernel vs plain version at the stitch path's shapes."""
+    """Phase 3: the DoG/blur kernel against its plain version at the
+    stitch and align paths' shapes and at the edges of its two code paths
+    (whole planes, halo tiles)."""
     import torch
     from feabas_tpu_torch.ops import dog
     from feabas_tpu_torch.ops.filters import masked_dog_filter
@@ -93,45 +141,76 @@ def check_kernels(dev):
         x = torch.rand(shape, generator=g, device=dev) * 255
         return x.to(torch.uint8) if dtype == torch.uint8 else x
 
-    # stitch match blocks: 8 pairs x 128 blocks of 128^2 (f32, after the
-    # warp) and 512^2 uint8 blocks, sigma 2.5; section match blocks of the
-    # align path (working mip 2): 96^2 and 24^2 f32 blocks, sigma 3.5
-    for shape, dtype, sigma in (((1024, 128, 128), torch.float32, 2.5),
-                                ((16, 512, 512), torch.uint8, 2.5),
-                                ((512, 96, 96), torch.float32, 3.5),
-                                ((8192, 24, 24), torch.float32, 3.5)):
+    def check(shape, dtype, sigma, is_dog, what='', iters=20):
         x = rand_stack(shape, dtype)
-        err = float((dog.dog_filter(x, sigma) - dog.dog_filter_plain(x, sigma))
-                    .abs().max())
-        ms = cuda_time(lambda: dog.dog_filter(x, sigma))
-        pms = cuda_time(lambda: dog.dog_filter_plain(x, sigma))
-        rows.append(('dog_filter', shape, f'{dtype} sigma {sigma}', err, ms,
-                     pms))
+        kernel = dog.dog_filter if is_dog else dog.gaussian_blur
+        plain = dog.dog_filter_plain if is_dog else dog.gaussian_blur_plain
+        err = float((kernel(x, sigma) - plain(x, sigma)).abs().max())
+        ms = cuda_time(lambda: kernel(x, sigma), iters)
+        pms = cuda_time(lambda: plain(x, sigma), iters)
+        name = 'dog_filter' if is_dog else 'gaussian_blur'
+        label = f'{str(dtype).replace("torch.", "")} sigma {sigma:.3g}' + what
+        rows.append(kernel_row(name, shape, label, err, ms, pms,
+                               dog_bound(shape, x.element_size(), sigma,
+                                         is_dog)))
+
+    # the stacks the stitch and align runs below launch (launches_by_shape).
+    # Stitch: match blocks of 128^2, 96^2, 64^2 and 192^2 (f32 after the
+    # warp, sigma 2.5), and the in-program coarse seed's pooled bands, one
+    # pair per call (sigma 2.5 / pool 2: the DoG at 1.25, the mask term's
+    # blur at 1.25 * sqrt 2), which are most of its launches; the PYRAMID
+    # low band's blur of 1, 2 and 4 padded 4096^2 tiles at sigma 4. Align
+    # (working mip 2, sigma 3.5): 96^2 and 24^2 blocks and the whole
+    # 2048^2 region.
+    for shape in ((384, 128, 128), (64, 128, 128), (2048, 96, 96),
+                  (1536, 64, 64), (256, 64, 64)):
+        check(shape, torch.float32, 2.5, True)
+    check((512, 192, 192), torch.float32, 2.5, True, ', tiles')
+    for shape in ((1, 224, 2016), (1, 1504, 256), (1, 224, 256)):
+        check(shape, torch.float32, 1.25, True, ', pooled band')
+        check(shape, torch.float32, 1.25 * 2 ** 0.5, False, ', pooled band')
+    for n in (1, 2, 4):
+        check((n, 4096, 4096), torch.float32, 4.0, False, ', tiles', iters=5)
+    check((512, 96, 96), torch.float32, 3.5, True)
+    check((8192, 24, 24), torch.float32, 3.5, True, ', halo > plane')
+    check((1, 2048, 2048), torch.float32, 3.5, True, ', tiles')
+    # reference stacks kept from earlier runs: 8 pairs x 128 blocks of
+    # 128^2, 512^2 uint8 blocks, and the low band of all 6 tiles at once
+    check((1024, 128, 128), torch.float32, 2.5, True)
+    check((16, 512, 512), torch.uint8, 2.5, True, ', tiles')
+    check((6, 4096, 4096), torch.float32, 4.0, False, ', tiles', iters=5)
+    # edges of both code paths: one pixel, a 3-row strip, a whole plane
+    # of more rows than a block has threads, a packed stack of 24^2
+    # planes, tiles that do not divide 129x130, and the mask term's
+    # largest radius (sigma 3.5 * sqrt 2: r = 20)
+    check((1, 1, 1), torch.float32, 2.5, True, ', 1x1')
+    check((1, 3, 700), torch.uint8, 2.5, True, ', 3x700')
+    check((1, 4000, 3), torch.float32, 2.5, True, ', 4000x3')
+    check((4, 24, 24), torch.float32, 3.5, True, ', 24x24')
+    check((2, 129, 130), torch.float32, 2.5, True, ', tiles 129x130')
+    check((2, 129, 130), torch.float32, 3.5 * 2 ** 0.5, False,
+          ', tiles 129x130')
     # the in-program coarse seed's masked pooled band (1, h, w): the
-    # masked DoG runs the DoG kernel and the blur kernel
+    # masked DoG runs the DoG kernel and the blur kernel; held against the
+    # CPU, timed alone (its plain time is the CPU's, not recorded)
     band = rand_stack((1, 1664, 384), torch.float32)
     mask = torch.zeros((1, 1664, 384), device=dev)
     mask[:, :1600, :350] = 1.0
     got = masked_dog_filter(band, 1.25, mask=mask)
     want = masked_dog_filter(band.cpu(), 1.25, mask=mask.cpu())
     err = float((got.cpu() - want).abs().max())
-    rows.append(('masked_dog_filter', (1, 1664, 384), 'torch.float32', err,
-                 cuda_time(lambda: masked_dog_filter(band, 1.25, mask=mask)),
-                 float('nan')))
-    # PYRAMID low band: blur of whole padded tiles, sigma 4
-    tiles = rand_stack((6, 4096, 4096), torch.float32)
-    err = float((dog.gaussian_blur(tiles, 4.0)
-                 - dog.gaussian_blur_plain(tiles, 4.0)).abs().max())
-    ms = cuda_time(lambda: dog.gaussian_blur(tiles, 4.0), iters=5)
-    pms = cuda_time(lambda: dog.gaussian_blur_plain(tiles, 4.0), iters=5)
-    rows.append(('gaussian_blur', (6, 4096, 4096), 'torch.float32', err, ms,
-                 pms))
+    ms = cuda_time(lambda: masked_dog_filter(band, 1.25, mask=mask))
+    bd, bb = dog_bound((1, 1664, 384), 4, 1.25, True)
+    bm, _ = dog_bound((1, 1664, 384), 4, 1.25 * 2 ** 0.5, False)
+    rows.append(kernel_row('masked_dog_filter', (1, 1664, 384),
+                           'float32 sigma 1.25, DoG + blur', err, ms,
+                           float('nan'), (bd + bm, bb)))
     torch.cuda.synchronize()
-    for name, shape, dtype, err, ms, pms in rows:
-        log(f'[kernel] {name} {shape} {dtype}: max_abs_err={err:.3e} '
-            f'kernel_ms={ms:.4f} plain_ms={pms:.4f}')
-        if not err <= ATOL:
-            raise RuntimeError(f'{name} {shape}: max_abs_err {err} > {ATOL}')
+    log_rows(rows)
+    for r in rows:
+        if not r['max_abs_err'] <= ATOL:
+            raise RuntimeError(f'{r["name"]} {r["shape"]}: max_abs_err '
+                               f'{r["max_abs_err"]} > {ATOL}')
     return rows
 
 
@@ -139,7 +218,7 @@ def _section_mesh(size, mesh_size, amp, period):
     """Equilateral section mesh over (0, 0, size, size) whose MOVING gear
     carries the smooth warp (amp px, period px) of the phase-5 stack."""
     import numpy as np
-    from feabas_tpu.mesh import Mesh
+    from feabas_tpu_torch.mesh import Mesh
     m = Mesh.from_bbox((0, 0, size, size), cartesian=False,
                        mesh_size=mesh_size, resolution=4)
     v = m.vertices_w_offset('INITIAL')
@@ -150,6 +229,24 @@ def _section_mesh(size, mesh_size, amp, period):
     return m
 
 
+# FLOP one output pixel of the raster needs: the coverage test of its
+# covering triangle (two affine evaluations of fma + mul + add, their sum,
+# three comparisons and the weight's: 13), its source coordinate (two
+# affines: 8) rounded to 1/32 px (6), the bounds test (4), the bilinear
+# corner and weights (10) and blend (11), the clamped u8 store (3)
+RASTER_FLOP_PER_PX = 13 + 8 + 6 + 4 + 10 + 11 + 3
+
+
+def raster_bound(src, tabs, h, w):
+    """Bound of one raster batch, from what the function needs: bytes of the
+    u8 output, one source pixel per output pixel (at most the source given)
+    and the triangle tables, each read once; RASTER_FLOP_PER_PX for each
+    output pixel (one covering triangle tested)."""
+    px = tabs.shape[0] * h * w
+    nbytes = px + min(src.numel(), px) * src.element_size() + tabs.numel() * 4
+    return bound(RASTER_FLOP_PER_PX * px, nbytes)
+
+
 def check_raster(dev, texture):
     """Phase 3, mesh raster: the kernel against its plain version on (a) a
     2048^2 block with a cell-binned table from a deformed section mesh
@@ -158,7 +255,7 @@ def check_raster(dev, texture):
     triangles with equal weights, where the first row must win."""
     import numpy as np
     import torch
-    from feabas_tpu.dal import StreamLoader
+    from feabas_tpu_torch.dal import StreamLoader
     from feabas_tpu_torch.ops import render
     from feabas_tpu_torch.renderer import MeshRenderer
     img = texture[:8192, :8192]
@@ -188,9 +285,9 @@ def check_raster(dev, texture):
         ms = cuda_time(lambda: render.raster_blocks(src, tabs, cands, 0.0, h,
                                                     w, geodesic, 'u8'), iters)
         pms = cuda_time(lambda: render.raster_blocks_plain(
-            src, tabs, cands, 0.0, h, w, geodesic, 'u8'), max(iters // 4, 2),
-            warmup=1)
-        rows.append(('mesh_raster', shape, name, err, ms, pms))
+            src, tabs, cands, 0.0, h, w, geodesic, 'u8'), max(iters // 4, 2))
+        rows.append(kernel_row('mesh_raster', shape, name, err, ms, pms,
+                               raster_bound(src, tabs, h, w)))
         return got
 
     # (a) 2048^2 block, cells, per-block source crop
@@ -236,9 +333,7 @@ def check_raster(dev, texture):
     if not torch.equal(got[0], alone[0]):
         raise RuntimeError('mesh_raster tie: the first row did not win')
     torch.cuda.synchronize()
-    for name, shape, what, err, ms, pms in rows:
-        log(f'[kernel] {name} {shape} {what}: max_abs_err={err:.0f} LSB '
-            f'kernel_ms={ms:.4f} plain_ms={pms:.4f}')
+    log_rows(rows, ' LSB')
     return rows
 
 
@@ -366,6 +461,7 @@ def run_slice(dev):
             torch.cuda.synchronize()
             stage_s[mode] = time.perf_counter() - t
         launches = device_mod.launch_counts()
+        by_shape = device_mod.launch_counts_by_shape()
         peak = torch.cuda.max_memory_allocated()
         log('[slice] stage seconds ' + json.dumps(
             {k: round(v, 3) for k, v in stage_s.items()})
@@ -415,7 +511,7 @@ def run_slice(dev):
         log(f'[slice] {len(st.matches)} matches (all overlaps), worst median '
             f'match error {worst:.4f} px, worst placement error {place:.4f} '
             f'px, render cc {cc:.5f}')
-        return launches, stage_s
+        return launches, by_shape, stage_s
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -516,7 +612,7 @@ def setup_align_workdir(root, sections):
         'rendering': {'remap_interp': 'LINEAR', 'device_render': True,
                       'loader_config': {'apply_CLAHE': False}}})
     os.environ['FEABAS_TPU_CONFIG_DIR'] = cfg
-    from feabas_tpu import config
+    from feabas_tpu_torch import config
     config.clear_config_caches()
     return wd, names
 
@@ -586,6 +682,7 @@ def run_align(dev):
             torch.cuda.synchronize()
             stage_s[mode] = time.perf_counter() - t
         launches = device_mod.launch_counts()
+        by_shape = device_mod.launch_counts_by_shape()
         peak = torch.cuda.max_memory_allocated()
         log('[align] stage seconds ' + json.dumps(
             {k: round(v, 3) for k, v in stage_s.items()})
@@ -611,7 +708,7 @@ def run_align(dev):
         if not os.path.exists(os.path.join(wd, 'align', 'residues.csv')):
             raise RuntimeError('no residues.csv')
         # the rendered sections overlay section 0 on an interior window
-        from feabas_tpu.dal import StaticImageLoader
+        from feabas_tpu_torch.dal import StaticImageLoader
         with open(os.path.join(wd, 'align', 'tform', 'canvas.json')) as f:
             canvas = json.load(f)['mip0']
         cx, cy = (canvas[0] + canvas[2]) // 2, (canvas[1] + canvas[3]) // 2
@@ -640,7 +737,7 @@ def run_align(dev):
             f'{len(stacked)} stacked window solve(s), {device_blocks[0]} '
             f'device blocks in {launches["mesh_raster"]} raster launches, '
             f'overlay cc {min(ccs):.5f}-{max(ccs):.5f}')
-        return launches, stage_s
+        return launches, by_shape, stage_s
     finally:
         aligner.Stack._sharded_window_solve = solve
         render.raster_blocks = raster
@@ -669,21 +766,38 @@ def main():
         f'{time.perf_counter() - t:.2f} s')
     rows = check_kernels(dev)
     rows += check_raster(dev, make_texture(dev, 8192, 8192).cpu().numpy())
-    by_path = {'stitch': run_slice(dev)[0], 'align': run_align(dev)[0]}
-    by_name = {}
-    for name, _shape, _what, err, ms, pms in rows:
-        prev = by_name.get(name)
-        by_name[name] = {'err': max(err, prev['err']) if prev else err,
-                         'ms': ms if prev is None else prev['ms'],
-                         'plain_ms': pms if prev is None else prev['plain_ms']}
-    log(json.dumps({'kernels': [
-        {'name': n, 'route': 'cuda',
-         'source': f'feabas_tpu_torch/csrc/{src}.cu', 'replaces': replaces,
-         'launches': sum(int(c[n]) for c in by_path.values()),
-         'launches_by_path': {p: int(c[n]) for p, c in by_path.items()},
-         'max_abs_err': by_name[n]['err'], 'ms': by_name[n]['ms'],
-         'plain_ms': by_name[n]['plain_ms']}
-        for n, (src, replaces) in KERNELS.items()]}))
+    runs = {'stitch': run_slice(dev), 'align': run_align(dev)}
+    entries = []
+    for n, (src, replaces) in KERNELS.items():
+        checks = [r for r in rows if r['name'] == n]
+        # the headline row: the checked shape the paths launched most, ties
+        # broken by the device time those launches took
+        shape_launches = {}
+        for r in runs.values():
+            for k, c in r[1][n].items():
+                shape_launches[k] = shape_launches.get(k, 0) + c
+        main_row = max(checks, key=lambda r: (
+            shape_launches.get('x'.join(map(str, r['shape'])), 0),
+            shape_launches.get('x'.join(map(str, r['shape'])), 0) * r['ms']))
+        entries.append({
+            'name': n, 'route': 'cuda',
+            'source': f'feabas_tpu_torch/csrc/{src}.cu', 'replaces': replaces,
+            'launches': sum(int(r[0][n]) for r in runs.values()),
+            'launches_by_path': {p: int(r[0][n]) for p, r in runs.items()},
+            'launches_by_shape': {p: r[1][n] for p, r in runs.items()},
+            'max_abs_err': max(r['max_abs_err'] for r in checks),
+            'shape': main_row['shape'], 'what': main_row['what'],
+            'ms': main_row['ms'], 'plain_ms': main_row['plain_ms'],
+            'bound_ms': main_row['bound_us'] / 1e3,
+            'bound_us': main_row['bound_us'],
+            'bound_by': main_row['bound_by'],
+            # no single PyTorch call computes either function: conv2d pads
+            # with zeros, not 'nearest'; nothing in PyTorch rasterizes
+            'library_ms': None,
+            'checks': [{k: r[k] for k in ('shape', 'what', 'max_abs_err',
+                                          'ms', 'plain_ms', 'bound_us',
+                                          'bound_by')} for r in checks]})
+    log(json.dumps({'kernels': entries}))
     log(card)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,20 +1,16 @@
 """feabas_tpu_torch: the PyTorch + CUDA port of feabas_tpu.
 
-Mirrors the JAX package module by module; host-only modules of
-``feabas_tpu`` (mesh, dal, config, storage, ...) are reused by import.
-Nothing here imports jax.
+Mirrors the JAX package module by module and stands alone: it imports
+nothing of ``feabas_tpu`` and nothing of jax. The host modules it needs
+(constant, storage, config, logging, caching, concurrent, common, spatial,
+triangulation, native, material, mesh, dal, multisem, mipmap, renderer,
+utils) are its own copies of the JAX package's, under the same file
+names; the work-dir files they write are interchangeable with the JAX
+package's. Where h5py is missing, ``storage`` reads and writes standard
+HDF5 through the port's ``_h5lite``.
 
-``feabas_tpu.storage`` needs h5py at import time. On a host without it,
-the port's minimal HDF5 reader/writer (``_h5lite``) stands in for it, so
-the match and tform H5 files are still standard HDF5.
+Entry points compute on the CUDA card unless the caller asks for the CPU
+(``FEABAS_TORCH_DEVICE=cpu`` or a ``device`` argument; see ``device``).
 """
 
-import sys
-
 __version__ = '0.1.0'
-
-try:
-    import h5py  # noqa: F401
-except ImportError:
-    from feabas_tpu_torch import _h5lite
-    sys.modules['h5py'] = _h5lite

@@ -1,10 +1,9 @@
 """A minimal pure-Python HDF5 writer and reader with the h5py calls the
 stitch path makes, for hosts without h5py.
 
-``feabas_tpu.storage`` imports h5py at module load, so on a host that lacks
-it (the GPU machine this port targets has no HDF5 at all) the package
-installs this module as ``h5py`` (see ``feabas_tpu_torch/__init__.py``).
-Where h5py is installed it is always used.
+``feabas_tpu_torch.storage`` imports this module in place of h5py on a
+host that lacks h5py (the GPU machine this port targets has no HDF5 at
+all). Where h5py is installed it is always used.
 
 What it writes is standard HDF5 that h5py and the HDF5 library read:
 superblock version 2, version-2 object headers, groups with compact link

@@ -14,12 +14,12 @@ solve. Hierarchical chunked alignment is not ported yet.
 import numpy as np
 import torch
 
-from feabas_tpu import common, config, logging, storage
-from feabas_tpu import constant as const
-from feabas_tpu.caching import generate_cache
-from feabas_tpu.common import Match
-from feabas_tpu.mesh import Mesh
-from feabas_tpu.storage import H5File, join_paths
+from feabas_tpu_torch import common, config, logging, storage
+from feabas_tpu_torch import constant as const
+from feabas_tpu_torch.caching import generate_cache
+from feabas_tpu_torch.common import Match
+from feabas_tpu_torch.mesh import Mesh
+from feabas_tpu_torch.storage import H5File, join_paths
 from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch import state
 from feabas_tpu_torch.optimizer import SLM
@@ -110,8 +110,8 @@ def normalize_transforms(tlist, angle=0.0, offset=(0.0, 0.0), resolution=None,
     union bounding rectangle), then shift the stack's bbox corner to
     ``offset`` (None -> rotate about the shared centroid). Returns the
     output canvas bbox (0, 0, W, H)."""
-    from feabas_tpu.concurrent import submit_to_workers
-    from feabas_tpu.spatial import find_rotation_for_minimum_rectangle
+    from feabas_tpu_torch.concurrent import submit_to_workers
+    from feabas_tpu_torch.spatial import find_rotation_for_minimum_rectangle
     hulls = list(submit_to_workers(
         get_convex_hull, [(t,) for t in tlist],
         kwargs_list=[{'resolution': resolution}] * len(tlist),
@@ -184,7 +184,8 @@ def match_section_from_initial_matches(match_file, mesh_dir, loaders,
 
 class Stack:
     """Section and match bookkeeping of one alignment stack; window solves
-    run on ``device`` (default ``FEABAS_TORCH_DEVICE``/auto)."""
+    run on ``device`` (default ``FEABAS_TORCH_DEVICE``, else the CUDA
+    card)."""
 
     def __init__(self, section_list=None, match_list=None, **kwargs):
         self.mesh_dir = kwargs.get('mesh_dir', None)
@@ -482,7 +483,7 @@ class Stack:
                 commit_set = [cand[int(np.argmax(score))]]
             win_names = [self.section_list[k] for k in win]
             if dispatch and self.mesh_dir is not None:
-                from feabas_tpu.concurrent import submit_to_workers
+                from feabas_tpu_torch.concurrent import submit_to_workers
                 commit_names = [self.section_list[k] for k in commit_set]
                 job = (_stack_init_dict(self), win_names, commit_names,
                        dict(kwargs))
@@ -560,7 +561,8 @@ def _stack_init_dict(stack):
     """Picklable spec to rebuild a Stack in a worker."""
     return {'section_list': list(stack.section_list),
             'mesh_dir': stack.mesh_dir, 'tform_dir': stack.tform_dir,
-            'match_dir': stack.match_dir, 'resolution': stack.resolution}
+            'match_dir': stack.match_dir, 'resolution': stack.resolution,
+            'device': str(stack.device)}
 
 
 def subprocess_optimize_stack(init_dict, slide_kwargs):
@@ -608,7 +610,9 @@ def split_disconnected_sections(stack):
 
 
 class Aligner:
-    """Drives window alignment of the stack in the work dir."""
+    """Drives window alignment of the stack in the work dir; its stacks
+    solve on ``device`` (default ``FEABAS_TORCH_DEVICE``, else the CUDA
+    card)."""
 
     def __init__(self, mesh_dir, tform_dir, match_dir, **kwargs):
         self.mesh_dir = mesh_dir
@@ -617,6 +621,7 @@ class Aligner:
         self.section_order_file = kwargs.get('section_order_file', None)
         self.resolution = kwargs.get('resolution', None)
         self.logger = kwargs.get('logger', None)
+        self.device = device_mod.get_device(kwargs.get('device', None))
 
     def get_section_list(self):
         files = storage.list_folder_content(join_paths(self.mesh_dir, '*.h5'))
@@ -636,7 +641,7 @@ class Aligner:
         return self._run_window(slide, **kwargs)
 
     def _run_window(self, slide, num_workers=1, **kwargs):
-        from feabas_tpu.concurrent import REMOTE_FRAMEWORKS
+        from feabas_tpu_torch.concurrent import REMOTE_FRAMEWORKS
         slide = dict(slide)
         if (slide.get('parallel_framework') is None
                 and config.parallel_framework() in REMOTE_FRAMEWORKS):
@@ -644,18 +649,18 @@ class Aligner:
         sections = self.get_section_list()
         stack = Stack(section_list=sections, mesh_dir=self.mesh_dir,
                       tform_dir=self.tform_dir, match_dir=self.match_dir,
-                      resolution=self.resolution)
+                      resolution=self.resolution, device=self.device)
         components = split_disconnected_sections(stack)
         committed = []
         if len(components) > 1 and num_workers > 1:
             # link-disconnected components are independent: fan them out
-            from feabas_tpu.concurrent import submit_to_workers
+            from feabas_tpu_torch.concurrent import submit_to_workers
             fw = slide.pop('parallel_framework', None)
             args = []
             for comp in components:
                 sub = Stack(section_list=comp, mesh_dir=self.mesh_dir,
                             tform_dir=self.tform_dir, match_dir=self.match_dir,
-                            resolution=self.resolution)
+                            resolution=self.resolution, device=self.device)
                 args.append((_stack_init_dict(sub), dict(slide)))
             for result in submit_to_workers(subprocess_optimize_stack, args,
                                             num_workers=num_workers,
@@ -670,7 +675,7 @@ class Aligner:
             for comp in components:
                 sub = Stack(section_list=comp, mesh_dir=self.mesh_dir,
                             tform_dir=self.tform_dir, match_dir=self.match_dir,
-                            resolution=self.resolution)
+                            resolution=self.resolution, device=self.device)
                 committed += sub.optimize_slide_window(commit_fn=commit,
                                                        **slide)
         if self.logger:
@@ -694,7 +699,7 @@ class Aligner:
         sections = self.get_section_list()
         stack = Stack(section_list=sections, mesh_dir=self.mesh_dir,
                       tform_dir=self.tform_dir, match_dir=self.match_dir,
-                      resolution=self.resolution)
+                      resolution=self.resolution, device=self.device)
         rows = ['sec0,sec1,num_matches,residue_median,residue_p90,residue_max']
         for pair in stack.match_list:
             try:

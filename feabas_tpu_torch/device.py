@@ -1,9 +1,9 @@
 """Device selection, numerics flags and kernel launch counters.
 
-The port computes on one torch device, chosen explicitly: ``get_device``
-takes a name (``'cuda'``, ``'cuda:1'``, ``'cpu'`` or ``'auto'``), or reads
-``FEABAS_TORCH_DEVICE`` when given none. Asking for CUDA where there is
-none raises; only ``'auto'`` resolves to the CPU when no card is present.
+The port computes on one torch device: ``get_device`` takes a name
+(``'cuda'``, ``'cuda:1'`` or ``'cpu'``), or reads ``FEABAS_TORCH_DEVICE``
+when given none, and is the CUDA card when neither names one. Asking for
+CUDA where there is none raises: the CPU runs only when asked for by name.
 
 Importing this module turns TF32 off for matmuls and cuDNN convolutions:
 the DFT upsampler and the block affines need full f32 (the JAX package
@@ -24,33 +24,41 @@ torch.backends.cudnn.allow_tf32 = False
 DEVICE_ENV = 'FEABAS_TORCH_DEVICE'
 
 _LAUNCHES = {'dog_filter': 0, 'gaussian_blur': 0, 'mesh_raster': 0}
+# the same launches, by the shape the wrapper gave its kernel
+_BY_SHAPE = {k: {} for k in _LAUNCHES}
 
 
 def get_device(name=None):
-    """Resolve a device name to a ``torch.device``; raises when CUDA is
-    asked for and absent."""
+    """Resolve a device name (default: ``FEABAS_TORCH_DEVICE``, else
+    ``'cuda'``) to a ``torch.device``; raises when CUDA is asked for and
+    absent."""
     if isinstance(name, torch.device):
         name = str(name)
     if name is None:
-        name = os.environ.get(DEVICE_ENV, 'auto')
-    name = str(name).strip().lower()
-    if name == 'auto':
-        return torch.device('cuda' if torch.cuda.is_available() else 'cpu')
-    dev = torch.device(name)
+        name = os.environ.get(DEVICE_ENV) or 'cuda'
+    dev = torch.device(str(name).strip().lower())
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(f'device {name!r} requested but CUDA is not '
                            'available')
     return dev
 
 
-def count_launch(kernel):
+def count_launch(kernel, shape=None):
     _LAUNCHES[kernel] += 1
+    key = 'x'.join(str(int(d)) for d in shape) if shape is not None else '?'
+    _BY_SHAPE[kernel][key] = _BY_SHAPE[kernel].get(key, 0) + 1
 
 
 def reset_launch_counts():
     for k in _LAUNCHES:
         _LAUNCHES[k] = 0
+        _BY_SHAPE[k].clear()
 
 
 def launch_counts():
     return dict(_LAUNCHES)
+
+
+def launch_counts_by_shape():
+    """{kernel: {'NxHxW': launches}} since the last reset."""
+    return {k: dict(v) for k, v in _BY_SHAPE.items()}

@@ -19,10 +19,10 @@ or an overlap under 256 px, takes the classic path.
 import numpy as np
 import torch
 
-from feabas_tpu import common, config
-from feabas_tpu import constant as const
-from feabas_tpu.dal import StreamLoader
-from feabas_tpu.mesh import Mesh
+from feabas_tpu_torch import common, config
+from feabas_tpu_torch import constant as const
+from feabas_tpu_torch.dal import StreamLoader
+from feabas_tpu_torch.mesh import Mesh
 from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch import state
 from feabas_tpu_torch.ops import match_loop

@@ -16,7 +16,6 @@ import torch.nn.functional as F
 
 from feabas_tpu_torch import build, device
 
-_TAPS = {}
 _LIB = None
 
 
@@ -58,26 +57,25 @@ def dog_filter_plain(stack, sigma=2.5):
 
 # --------------------------------- kernel --------------------------------- #
 
+MAX_RADIUS = 24                       # csrc/dog_filter.cu kMaxRadius
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         lib = build.load('dog_filter')
-        # x, out, tmp, taps; radius, n, h, w; stream
-        args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        # x, out, taps (host); radius, n, h, w; stream
+        args = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p])
         for fn in ('dog_filter_f32', 'dog_filter_u8', 'gaussian_blur_f32'):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
+        lib.dog_filter_max_radius.restype = ctypes.c_int
+        if lib.dog_filter_max_radius() != MAX_RADIUS:
+            raise RuntimeError('csrc/dog_filter.cu kMaxRadius != '
+                               f'{MAX_RADIUS}')
         _LIB = lib
     return _LIB
-
-
-def _taps_on(sigma, dev):
-    key = (float(sigma), str(dev))
-    t = _TAPS.get(key)
-    if t is None:
-        t = torch.from_numpy(gaussian_kernel1d(sigma)).to(dev)
-        _TAPS[key] = t
-    return t
 
 
 def _check(stack, dtypes):
@@ -91,20 +89,28 @@ def _check(stack, dtypes):
         raise ValueError('stack must be contiguous')
 
 
+def _taps(sigma):
+    """Host taps of ``sigma``; raises beyond the kernel's compiled radius."""
+    taps = gaussian_kernel1d(sigma)
+    radius = (taps.size - 1) // 2
+    if radius > MAX_RADIUS:
+        raise ValueError(f'sigma {sigma}: radius {radius} exceeds the '
+                         f'kernel\'s maximum of {MAX_RADIUS}')
+    return taps, radius
+
+
 def _launch(fn_name, kernel, stack, sigma):
     n, h, w = stack.shape
-    taps = _taps_on(sigma, stack.device)
-    radius = (taps.numel() - 1) // 2
+    taps, radius = _taps(sigma)
     out = torch.empty((n, h, w), dtype=torch.float32, device=stack.device)
-    tmp = torch.empty_like(out)
     stream = torch.cuda.current_stream(stack.device).cuda_stream
     with torch.cuda.device(stack.device):
         err = getattr(_lib(), fn_name)(
-            stack.data_ptr(), out.data_ptr(), tmp.data_ptr(), taps.data_ptr(),
-            radius, n, h, w, stream)
+            stack.data_ptr(), out.data_ptr(), taps.ctypes.data, radius, n, h,
+            w, stream)
     if err != 0:
         raise RuntimeError(f'{fn_name} launch failed: CUDA error {err}')
-    device.count_launch(kernel)
+    device.count_launch(kernel, (n, h, w))
     return out
 
 

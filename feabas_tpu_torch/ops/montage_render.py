@@ -19,7 +19,7 @@ loop is a plain loop over the table rows, so that cap is dropped.
 import numpy as np
 import torch
 
-from feabas_tpu import constant as const
+from feabas_tpu_torch import constant as const
 from feabas_tpu_torch.ops.filters import gaussian_blur
 from feabas_tpu_torch.ops.warp import bilinear_sample_packed, pack_u8_quads
 
@@ -230,7 +230,7 @@ class MontageDeviceEngine:
         buf = self._tile_host.get(t)
         if buf is not None:
             return buf
-        from feabas_tpu.dal import TileView
+        from feabas_tpu_torch.dal import TileView
         tw, th = self._mr._tile_sizes[t]
         tw, th = int(round(tw)), int(round(th))
         hp, wp = self._ensure_tile_shape()

@@ -59,7 +59,7 @@ def resolve_group_cap(flag=None, block_pixels=None):
     link and 4 otherwise, and batches small blocks until a batch covers
     ~``_GROUP_TARGET_PIXELS`` output pixels."""
     if flag is None:
-        from feabas_tpu import config
+        from feabas_tpu_torch import config
         flag = config.render_group_cap()
     if isinstance(flag, str):
         from feabas_tpu_torch.ops.link_probe import is_slow_link
@@ -306,7 +306,7 @@ def _launch(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw):
             out.data_ptr(), covered.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f'mesh_raster launch failed: CUDA error {err}')
-    device.count_launch('mesh_raster')
+    device.count_launch('mesh_raster', (B, h, w))
     return out, covered.bool()
 
 
@@ -530,10 +530,10 @@ class DeviceRenderEngine:
         if group_cap is None:
             # the raw flag ('auto' or int): 'auto' resolves per group key
             # so the cap can scale with the block size
-            from feabas_tpu import config
+            from feabas_tpu_torch import config
             group_cap = config.render_group_cap()
         resident = None
-        from feabas_tpu.dal import StreamLoader
+        from feabas_tpu_torch.dal import StreamLoader
         if isinstance(loader, StreamLoader):
             resident = self._resident_source(loader, fillval)
         prepared = {}     # block index -> (h, w, group_key, tab, src, cand)

@@ -199,7 +199,7 @@ def mesh_blocks_device(mesh, image, centers, block_size, gear=None,
     (stack (N, h, w) float32 tensor, kept indices (M,) numpy); blocks
     whose centre lies outside the mesh are dropped.
     """
-    from feabas_tpu import constant as const
+    from feabas_tpu_torch import constant as const
     if gear is None:
         gear = (const.MESH_GEAR_MOVING, const.MESH_GEAR_INITIAL)
     dev = image.device

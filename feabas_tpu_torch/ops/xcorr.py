@@ -11,7 +11,7 @@ import math
 import numpy as np
 import torch
 
-from feabas_tpu import constant as const
+from feabas_tpu_torch import constant as const
 
 _FFT_SIZES = None
 

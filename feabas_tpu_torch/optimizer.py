@@ -17,7 +17,7 @@ import numpy as np
 import scipy.sparse as sparse
 import torch
 
-from feabas_tpu import constant as const
+from feabas_tpu_torch import constant as const
 from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch.ops import fem
 
@@ -681,7 +681,7 @@ class SLM:
     def _fit_clipped(p_dst, p_src, w, svd_clip):
         """Weighted affine p_src -> p_dst, or its rigid part when the
         singular values leave ``svd_clip``."""
-        from feabas_tpu import spatial as sp
+        from feabas_tpu_torch import spatial as sp
         T, T_rigid = sp.fit_affine(p_dst, p_src, weights=w, return_rigid=True)
         s = np.linalg.svd(T[:2, :2], compute_uv=False)
         if svd_clip is not None and (s.min() < svd_clip[0]

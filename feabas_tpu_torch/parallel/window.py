@@ -27,7 +27,7 @@ device ``pad_stack_sections`` is the identity.
 import numpy as np
 import torch
 
-from feabas_tpu import constant as const
+from feabas_tpu_torch import constant as const
 from feabas_tpu_torch.ops import fem
 
 

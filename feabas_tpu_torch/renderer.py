@@ -1,25 +1,24 @@
-"""Mesh rendering of the port (counterpart of ``feabas_tpu/renderer.py``).
+"""Mesh-warped image rendering (the port's ``feabas_tpu/renderer.py``).
 
-``MeshRenderer`` subclasses ``feabas_tpu.renderer.MeshRenderer``: the
-host path (rasterize, field, cv2 remap, affine short-circuit) is the JAX
-package's own code, and the methods that reach a device are overridden to
-use the port's ``ops.render.DeviceRenderEngine`` and ``ops.link_probe``.
-The base ``_crop_device_multi``, ``crop`` and ``crop_multiple`` reach the
-device only through those overrides, so they are inherited as they are.
-``VolumeRenderer`` (tensorstore volumes) is not ported.
+`MeshRenderer` inverse-warps a source image through a mesh deformation:
+output pixels live in the mesh's MOVING world frame; each pixel finds its
+triangle (scanline rasterization of the deformed mesh), and the triangle's
+affine map sends it back to INITIAL-frame source coordinates, which are
+sampled bilinearly. The host path (rasterize, field, cv2 remap, affine
+short-circuit) is the JAX package's host code; the device and hybrid lanes
+render on a torch device through ``ops.render.DeviceRenderEngine`` (the
+mesh-raster kernel on CUDA) and ``ops.link_probe``. ``VolumeRenderer``
+(tensorstore volumes) is not ported.
 """
 
 import threading
 
 import numpy as np
 
-from feabas_tpu import common, storage
-from feabas_tpu import constant as const
-from feabas_tpu.common import z_order
-from feabas_tpu.renderer import (MeshRenderer as _HostMeshRenderer,
-                                 _complete_mip_tuple, _host_mip_tuple,
-                                 _write_mip_metadata)
+from feabas_tpu_torch import common, storage
+from feabas_tpu_torch import constant as const
 from feabas_tpu_torch import device as device_mod
+from feabas_tpu_torch.common import render_by_subregions, z_order
 
 
 def resolve_device_render(flag, device):
@@ -32,7 +31,7 @@ def resolve_device_render(flag, device):
     otherwise.
     """
     if flag is None:
-        from feabas_tpu import config
+        from feabas_tpu_torch import config
         flag = config.device_render()
     if isinstance(flag, str):
         f = flag.strip().lower()
@@ -44,15 +43,391 @@ def resolve_device_render(flag, device):
     return bool(flag)
 
 
-class MeshRenderer(_HostMeshRenderer):
-    """Inverse-warp engine for one mesh, rendering on ``device`` (a torch
-    device or name; default ``FEABAS_TORCH_DEVICE``/auto)."""
+def _mip_down_host(img, mip_blur):
+    """One host 2x mip step, matching mipmap.mip_one_level: optional
+    Gaussian anti-alias then INTER_AREA."""
+    import cv2
+    src = img
+    if mip_blur and mip_blur > 0:
+        src = cv2.GaussianBlur(np.asarray(img, np.float32), (0, 0),
+                               float(mip_blur))
+    out = cv2.resize(src, (max(img.shape[1] // 2, 1),
+                           max(img.shape[0] // 2, 1)),
+                     interpolation=cv2.INTER_AREA)
+    if np.dtype(img.dtype).kind in 'ui':
+        info = np.iinfo(img.dtype)
+        out = np.clip(np.rint(out), info.min, info.max)
+    return out.astype(img.dtype)
+
+
+def _host_mip_tuple(blk, emit_mips, mip_blur):
+    """(mip0, ..., mipK) from a full-res block via the host chain."""
+    mips = [blk]
+    for _ in range(int(emit_mips)):
+        mips.append(_mip_down_host(mips[-1], mip_blur))
+    return tuple(mips)
+
+
+def _complete_mip_tuple(parts, emit_mips, mip_blur):
+    """Extend a (possibly short) device mip tuple to emit_mips levels —
+    blocks that fell back to mip0-only (padding / odd dims) finish their
+    chain on host."""
+    mips = list(parts) if isinstance(parts, tuple) else [parts]
+    while len(mips) < int(emit_mips) + 1:
+        mips.append(_mip_down_host(mips[-1], mip_blur))
+    return tuple(mips)
+
+
+def rasterize_mesh(mesh, bbox, gear=const.MESH_GEAR_MOVING, tri_weights=None):
+    """Triangle-id map over an integer pixel grid.
+
+    Pixel (r, c) sits at world (bbox[0]+c, bbox[1]+r). Returns (H, W) int32
+    tid map (-1 outside the mesh). When deformed triangles overlap,
+    ``tri_weights`` (per-triangle, higher wins) arbitrates; default keeps
+    the last triangle (WHATEVER policy, reference feabas/constant.py:13).
+    """
+    x0, y0, x1, y1 = [int(np.floor(bbox[0])), int(np.floor(bbox[1])),
+                      int(np.ceil(bbox[2])), int(np.ceil(bbox[3]))]
+    H, W = y1 - y0, x1 - x0
+    tid = np.full((H, W), -1, dtype=np.int32)
+    if H <= 0 or W <= 0:
+        return tid
+    vw = mesh.vertices_w_offset(gear)
+    T = mesh.triangles
+    from feabas_tpu_torch import native
+    if native.available():
+        out = native.rasterize_triangles(vw, T, H, W, x0, y0,
+                                         weights=tri_weights)
+        if out is not None:
+            return out
+    tb = mesh.triangle_bboxes(gear)
+    sel = np.nonzero((tb[:, 0] < x1) & (tb[:, 2] > x0) &
+                     (tb[:, 1] < y1) & (tb[:, 3] > y0))[0]
+    _rasterize_tris_numpy(vw, T, sel, tid, x0, y0, tri_weights=tri_weights)
+    return tid
+
+
+def _rasterize_tris_numpy(vw, T, sel, tid, x0, y0, tri_weights=None):
+    """Vectorized numpy triangle rasterization (native-lib fallback).
+
+    Paints triangle ids ``sel`` into the preallocated (H, W) ``tid`` map.
+    Triangles batch by pow2-quantized pixel-bbox size; each batch runs the
+    barycentric inside-test over an (n, bh, bw) grid at once, and overlap
+    conflicts resolve globally by ``tri_weights`` (two passes over the
+    covered pixels via np.maximum.at). Replaces the per-triangle Python
+    loop, which was minutes-per-tile on large meshes.
+    """
+    H, W = tid.shape
+    if len(sel) == 0:
+        return
+    sel = np.asarray(sel, np.int64)
+    P = vw[T[sel]]                                   # (n, 3, 2)
+    tx0 = np.maximum(np.floor(P[:, :, 0].min(1)).astype(np.int64) - x0, 0)
+    tx1 = np.minimum(np.ceil(P[:, :, 0].max(1)).astype(np.int64) - x0 + 1, W)
+    ty0 = np.maximum(np.floor(P[:, :, 1].min(1)).astype(np.int64) - y0, 0)
+    ty1 = np.minimum(np.ceil(P[:, :, 1].max(1)).astype(np.int64) - y0 + 1, H)
+    bw = tx1 - tx0
+    bh = ty1 - ty0
+    v0 = P[:, 1] - P[:, 0]
+    v1 = P[:, 2] - P[:, 0]
+    den = v0[:, 0] * v1[:, 1] - v0[:, 1] * v1[:, 0]
+    ok = (bw > 0) & (bh > 0) & (np.abs(den) > 1e-12)
+    idxs = np.nonzero(ok)[0]
+    if idxs.size == 0:
+        return
+    eps = 1e-9
+    use_w = tri_weights is not None
+    # bucket by padded pow2 bbox so each batch shares one grid shape
+    qw = 1 << np.clip(np.ceil(np.log2(np.maximum(bw[idxs], 1))), 0, 62).astype(int)
+    qh = 1 << np.clip(np.ceil(np.log2(np.maximum(bh[idxs], 1))), 0, 62).astype(int)
+    keys = qh * (2 ** 32) + qw
+    order = np.argsort(keys, kind='stable')
+    idxs = idxs[order]
+    keys = keys[order]
+    painted = []                                     # (flat_px, tri_val, w)
+    starts = np.r_[0, np.nonzero(np.diff(keys))[0] + 1, idxs.size]
+    for s, e in zip(starts[:-1], starts[1:]):
+        grp = idxs[s:e]
+        BH = int(bh[grp].max())
+        BW = int(bw[grp].max())
+        # cap batch memory at ~8M cells
+        step = max(int(8e6 // max(BH * BW, 1)), 1)
+        for c0 in range(0, grp.size, step):
+            g = grp[c0:c0 + step]
+            oy = np.arange(BH)
+            ox = np.arange(BW)
+            # world coords of each cell relative to triangle vertex 0
+            dx = (tx0[g, None, None] + ox[None, None, :] + x0
+                  - P[g, 0, 0, None, None])
+            dy = (ty0[g, None, None] + oy[None, :, None] + y0
+                  - P[g, 0, 1, None, None])
+            l1 = (dx * v1[g, 1, None, None] - dy * v1[g, 0, None, None]) \
+                / den[g, None, None]
+            l2 = (v0[g, 0, None, None] * dy - v0[g, 1, None, None] * dx) \
+                / den[g, None, None]
+            inside = ((l1 >= -eps) & (l2 >= -eps) & (l1 + l2 <= 1 + eps)
+                      & (ox[None, None, :] < bw[g, None, None])
+                      & (oy[None, :, None] < bh[g, None, None]))
+            k, yy, xx = np.nonzero(inside)
+            if k.size == 0:
+                continue
+            fl = (ty0[g[k]] + yy) * W + (tx0[g[k]] + xx)
+            tv = sel[g[k]].astype(np.int32)
+            painted.append((fl, tv,
+                            tri_weights[tv] if use_w else None))
+    if not painted:
+        return
+    tid_flat = tid.ravel()
+    if use_w:
+        wmap = np.full(H * W, -np.inf, np.float32)
+        for fl, tv, wv in painted:
+            np.maximum.at(wmap, fl, wv)
+        for fl, tv, wv in painted:
+            win = wv >= wmap[fl]
+            tid_flat[fl[win]] = tv[win]
+    else:
+        for fl, tv, _ in painted:
+            tid_flat[fl] = tv
+
+
+def _paint_coverage(mesh, tri_ids, bbox, gear):
+    """Boolean coverage map of a triangle subset over bbox (vectorized)."""
+    x0, y0 = int(np.floor(bbox[0])), int(np.floor(bbox[1]))
+    x1, y1 = int(np.ceil(bbox[2])), int(np.ceil(bbox[3]))
+    H, W = y1 - y0, x1 - x0
+    if H <= 0 or W <= 0 or len(tri_ids) == 0:
+        return np.zeros((max(H, 0), max(W, 0)), bool)
+    tid = np.full((H, W), -1, np.int32)
+    _rasterize_tris_numpy(mesh.vertices_w_offset(gear), mesh.triangles,
+                          np.asarray(tri_ids), tid, x0, y0)
+    return tid >= 0
+
+
+class MeshRenderer:
+    """Inverse-warp engine for one mesh (reference: feabas/renderer.py:22),
+    rendering on ``device`` (a torch device or name; default
+    ``FEABAS_TORCH_DEVICE``, else the CUDA card).
+
+    ``source gear`` coordinates index the source image (the frame the image
+    was acquired/stitched in); ``target gear`` is the output world frame.
+    """
 
     def __init__(self, mesh, image_loader=None,
                  gear=(const.MESH_GEAR_MOVING, const.MESH_GEAR_INITIAL),
                  device=None, **kwargs):
-        super().__init__(mesh, image_loader=image_loader, gear=gear, **kwargs)
         self.device = device_mod.get_device(device)
+        self._mesh = mesh
+        self._image_loader = image_loader
+        self._target_gear, self._source_gear = gear
+        self._fillval = kwargs.get('fillval', None)
+        # per-triangle render weights from the material table
+        mt = mesh.material_table
+        uid2w = {m.uid: (m.render_weight if m.render else 0.0) for _, m in mt}
+        self._tri_render_weight = np.asarray(
+            [uid2w.get(int(u), 1.0) for u in mesh.material_ids], np.float32)
+        # collision arbitration when deformed triangles overlap (folds):
+        # INNERMOST favors triangles far from the mesh boundary,
+        # LEAST_DEFORM the least-distorted one (reference trifinder modes,
+        # feabas/constant.py:13, renderer.py:135-146)
+        mode = kwargs.get('mode', const.MESH_TRIFINDER_WHATEVER)
+        if isinstance(mode, str):
+            mode = const.TRIFINDER_MODE_LIST.index(mode.upper())
+        if mode == const.MESH_TRIFINDER_INNERMOST:
+            from scipy.spatial import cKDTree
+            seg = mesh.segments()
+            vinit = mesh.vertices_w_offset(const.MESH_GEAR_INITIAL)
+            bd_pts = vinit[np.unique(seg)] if seg.size else vinit[:1]
+            cent = vinit[mesh.triangles].mean(axis=1)
+            d, _ = cKDTree(bd_pts).query(cent, k=1)
+            scale = max(float(d.max()), 1e-6)
+            self._tri_render_weight = (self._tri_render_weight
+                                       * (0.5 + d / scale).astype(np.float32))
+        elif mode == const.MESH_TRIFINDER_LEAST_DEFORM:
+            deform = mesh.svds_to_deform(
+                gear0=const.MESH_GEAR_INITIAL, gear1=self._target_gear)
+            self._tri_render_weight = (self._tri_render_weight
+                                       / (1.0 + deform).astype(np.float32))
+        self._render_mask = self._tri_render_weight > kwargs.get(
+            'render_weight_threshold', 0)
+        # geodesic masking (reference: renderer.py:80-88): with the mesh
+        # folded, output pixels inside a fold-overlap zone are covered by
+        # multiple sheets — content there is ambiguous, so mask it out
+        # instead of rendering whichever sheet wins arbitration
+        self._geodesic_mask = bool(kwargs.get('geodesic_mask', False))
+        self._fold_sheets = None
+        if self._geodesic_mask:
+            pairs = mesh.overlapping_triangles(gear=self._target_gear)
+            if pairs.shape[0] == 0:
+                self._geodesic_mask = False
+            else:
+                # sheet coloring is a whole-mesh property: compute ONCE
+                # here, not per rendered block (each crop_field paints
+                # only the cached per-sheet triangle lists over its bbox)
+                colors = mesh.nonoverlap_triangle_groups(
+                    gear=self._target_gear, pairs=pairs)
+                involved = np.unique(pairs)
+                self._fold_sheets = [
+                    involved[colors[involved] == c]
+                    for c in np.unique(colors[involved])]
+        # per-triangle affine target->source, precomputed once
+        A, b = mesh.triangle_affine_tform(gear0=self._target_gear,
+                                          gear1=self._source_gear)
+        self._A = A
+        self._b = b
+        self._dev_engine = None      # lazy device render engine
+        # affine short-circuit (reference: renderer.py:94-109,453-510):
+        # when the whole deformation (or the deformation inside one output
+        # block) is affine within tolerance, skip rasterization entirely
+        # and evaluate source coords from ONE affine
+        self._affine_tol = float(kwargs.get('affine_approx_tol', 0) or 0)
+        self._global_affine = None   # lazy: (A, b, max_residual) | False
+
+    @classmethod
+    def from_mesh(cls, mesh, **kwargs):
+        return cls(mesh, **kwargs)
+
+    @property
+    def bounds(self):
+        return self._mesh.bbox(gear=self._target_gear)
+
+    @property
+    def resolution(self):
+        return self._mesh.resolution
+
+    # --------------------- affine short-circuit --------------------- #
+
+    @staticmethod
+    def _fit_affine(vt, vs):
+        """Least-squares affine vs ~= vt @ A + b (row-vector convention,
+        matching ``triangle_affine_tform``). Returns (A (2,2), b (2),
+        max_residual_px)."""
+        G = np.concatenate([vt, np.ones((len(vt), 1))], axis=1)
+        M, *_ = np.linalg.lstsq(G, vs, rcond=None)
+        res = np.sqrt(((G @ M - vs) ** 2).sum(axis=-1)).max() if len(vt) \
+            else np.inf
+        return M[:2], M[2], float(res)
+
+    def _global_affine_fit(self):
+        if self._global_affine is None:
+            vt = self._mesh.vertices_w_offset(self._target_gear)
+            vs = self._mesh.vertices_w_offset(self._source_gear)
+            self._global_affine = self._fit_affine(vt, vs)
+        return self._global_affine
+
+    def _bbox_fully_covered(self, bbox):
+        """True when bbox lies entirely inside the rendered region: no
+        mesh boundary segment intersects it (separating-axis test) and its
+        center resolves to a triangle."""
+        m = self._mesh
+        seg = m.segments()
+        if seg.size:
+            vw = m.vertices_w_offset(self._target_gear)
+            p = vw[seg[:, 0]]
+            q = vw[seg[:, 1]]
+            x0, y0, x1, y1 = bbox
+            # SAT: x slab, y slab, segment-normal axis
+            ox = (np.minimum(p[:, 0], q[:, 0]) <= x1) \
+                & (np.maximum(p[:, 0], q[:, 0]) >= x0)
+            oy = (np.minimum(p[:, 1], q[:, 1]) <= y1) \
+                & (np.maximum(p[:, 1], q[:, 1]) >= y0)
+            cand = ox & oy
+            if cand.any():
+                pc = p[cand]
+                d = q[cand] - pc
+                cx = np.array([x0, x1, x1, x0])[None]
+                cy = np.array([y0, y0, y1, y1])[None]
+                s = (cx - pc[:, :1]) * d[:, 1:2] - (cy - pc[:, 1:2]) * d[:, :1]
+                if (~((s > 0).all(axis=1) | (s < 0).all(axis=1))).any():
+                    return False
+        cx = (bbox[0] + bbox[2]) / 2
+        cy = (bbox[1] + bbox[3]) / 2
+        tid = m.tri_finder(np.array([[cx, cy]]), gear=self._target_gear)
+        return bool(tid[0] >= 0)
+
+    def _affine_shortcircuit(self, bbox, thresholded=False, tol=None):
+        """(A, b) when the deformation over bbox is affine within
+        ``affine_approx_tol`` AND bbox is fully covered; else None
+        (reference: renderer.py:94-109,453-510). Disabled on folded /
+        geodesic-masked / weight-thresholded meshes, where per-pixel
+        arbitration is the point."""
+        if tol is None:
+            tol = self._affine_tol
+        if (tol <= 0 or thresholded or self._geodesic_mask
+                or not self._render_mask.all()
+                or self._mesh.likely_collisions(self._target_gear)):
+            return None
+        A, b, res = self._global_affine_fit()
+        if res >= tol:
+            # local fit over the triangles intersecting bbox
+            tb = self._mesh.triangle_bboxes(self._target_gear)
+            sel = np.nonzero((tb[:, 0] < bbox[2]) & (tb[:, 2] > bbox[0]) &
+                             (tb[:, 1] < bbox[3]) & (tb[:, 3] > bbox[1]))[0]
+            if sel.size == 0 or sel.size > 4096:
+                return None
+            vid = np.unique(self._mesh.triangles[sel])
+            A, b, res = self._fit_affine(
+                self._mesh.vertices_w_offset(self._target_gear)[vid],
+                self._mesh.vertices_w_offset(self._source_gear)[vid])
+            if res >= tol:
+                return None
+        if not self._bbox_fully_covered(bbox):
+            return None
+        return A, b
+
+    def crop_field(self, bbox, **kwargs):
+        """Source-coordinate field over an output bbox.
+
+        Returns (map_x, map_y, mask): (H,W) source coords (NaN outside) and
+        the validity mask."""
+        thresholded = bool(kwargs.get('render_weight_threshold', None))
+        sc = self._affine_shortcircuit(
+            bbox, thresholded, tol=kwargs.get('affine_approx_tol', None))
+        if sc is not None:
+            A2, b2 = sc
+            x0 = int(np.floor(bbox[0]))
+            y0 = int(np.floor(bbox[1]))
+            x1 = int(np.ceil(bbox[2]))
+            y1 = int(np.ceil(bbox[3]))
+            gx, gy = np.meshgrid(np.arange(x1 - x0) + x0,
+                                 np.arange(y1 - y0) + y0)
+            map_x = (gx * A2[0, 0] + gy * A2[1, 0] + b2[0]).astype(np.float32)
+            map_y = (gx * A2[0, 1] + gy * A2[1, 1] + b2[1]).astype(np.float32)
+            return map_x, map_y, np.ones(gx.shape, bool)
+        tid = rasterize_mesh(self._mesh, bbox, gear=self._target_gear,
+                             tri_weights=self._tri_render_weight)
+        mask = tid >= 0
+        if self._geodesic_mask and self._fold_sheets is not None:
+            # exclude pixels covered by more than one fold sheet
+            count = np.zeros(mask.shape, np.int16)
+            for tris_c in self._fold_sheets:
+                count += _paint_coverage(self._mesh, tris_c, bbox,
+                                         self._target_gear)
+            mask &= count < 2
+        thresholded = bool(kwargs.get('render_weight_threshold', None))
+        if thresholded:
+            mask &= np.where(tid >= 0, self._tri_render_weight[tid], 0) \
+                >= kwargs['render_weight_threshold']
+        H, W = tid.shape
+        x0 = int(np.floor(bbox[0]))
+        y0 = int(np.floor(bbox[1]))
+        from feabas_tpu_torch import native
+        if native.available():
+            tid_m = np.where(mask, tid, -1).astype(np.int32) if thresholded else tid
+            out = native.field_from_tids(tid_m, self._A, self._b, x0, y0)
+            if out is not None:
+                return out[0], out[1], mask
+        gx, gy = np.meshgrid(np.arange(W) + x0, np.arange(H) + y0)
+        t = np.where(mask, tid, 0)
+        A = self._A[t]            # (H,W,2,2)
+        b = self._b[t]            # (H,W,2)
+        map_x = gx * A[..., 0, 0] + gy * A[..., 1, 0] + b[..., 0]
+        map_y = gx * A[..., 0, 1] + gy * A[..., 1, 1] + b[..., 1]
+        map_x = np.where(mask, map_x, np.nan)
+        map_y = np.where(mask, map_y, np.nan)
+        return map_x.astype(np.float32), map_y.astype(np.float32), mask
+
+
+    # ------------------------- device render path ------------------------- #
 
     def _device_render_requested(self, kwargs):
         return resolve_device_render(kwargs.pop('device_render', None),
@@ -91,6 +466,90 @@ class MeshRenderer(_HostMeshRenderer):
                 self._tri_render_weight, colors=colors, device=self.device)
         return self._dev_engine
 
+    def _crop_device_multi(self, bboxes, loader, hybrid=False, **kwargs):
+        """Device render of several output bboxes in one dispatch wave
+        (all block programs in flight before the first fetch, so uploads,
+        compute and downloads pipeline through the host<->device link).
+
+        With ``hybrid``, a host lane (the cv2 path) and the device lane
+        drain one shared work queue — combined throughput is the sum of
+        both paths on any deployment (the work-stealing split adapts to
+        however fast each lane runs). With ``emit_mips`` = k (kwarg),
+        every bbox must be a single render block and each result is a
+        tuple (mip0, ..., mipk) — the fused render->mip pipeline.
+        """
+        eng = self._get_device_engine()
+        thr = kwargs.get('render_weight_threshold', None)
+        wts = None
+        if thr:
+            wts = np.where(self._tri_render_weight >= thr, eng._w, -np.inf)
+        fillval = kwargs.get('fillval', self._fillval)
+        if fillval is None:
+            fillval = getattr(loader, 'default_fillval', 0)
+        dtype_out = kwargs.get('dtype_out', getattr(loader, 'dtype',
+                                                    np.uint8))
+        block_size = kwargs.get('block_size', 2048)
+        emit_mips = int(kwargs.get('emit_mips', 0) or 0)
+        mip_blur = float(kwargs.get('mip_blur', 0.75) or 0.0)
+        per_bbox = []
+        flat = []
+        for bbox in bboxes:
+            ib = (int(np.floor(bbox[0])), int(np.floor(bbox[1])),
+                  int(np.ceil(bbox[2])), int(np.ceil(bbox[3])))
+            x0s, y0s, x1s, y1s = common.divide_bbox(ib, block_size=block_size)
+            blocks = list(zip(x0s, y0s, x1s, y1s))
+            per_bbox.append((ib, slice(len(flat), len(flat) + len(blocks)),
+                             blocks))
+            flat.extend(blocks)
+        if emit_mips and any(len(p[2]) != 1 for p in per_bbox):
+            raise ValueError('emit_mips requires tile-sized bboxes '
+                             '(one render block per bbox)')
+        sc = None
+        tol = kwargs.get('affine_approx_tol', self._affine_tol)
+        if wts is None and tol and tol > 0:
+            sc = lambda bb: self._affine_shortcircuit(bb, tol=tol)
+        # forward loader-directed kwargs (fileid, ...) exactly like the host
+        # path does (render_by_subregions passes unconsumed kwargs into
+        # loader.crop); strip only the render-managed keys
+        _managed = ('render_weight_threshold', 'fillval', 'dtype_out',
+                    'block_size', 'return_empty', 'affine_approx_tol',
+                    'interpolation', 'log_sigma', 'device_remap',
+                    'emit_mips', 'mip_blur', 'group_cap')
+        crop_kwargs = {k: v for k, v in kwargs.items() if k not in _managed}
+        if hybrid and len(flat) > 1:
+            res = self._render_hybrid(eng, flat, loader, fillval, dtype_out,
+                                      wts, sc, emit_mips, mip_blur,
+                                      crop_kwargs, kwargs)
+        else:
+            res = eng.render_blocks(flat, loader, float(fillval), dtype_out,
+                                    wts=wts, shortcircuit=sc,
+                                    emit_mips=emit_mips, mip_blur=mip_blur,
+                                    group_cap=kwargs.get('group_cap'),
+                                    **crop_kwargs)
+            if emit_mips:
+                res = [None if r is None else
+                       _complete_mip_tuple(r, emit_mips, mip_blur)
+                       for r in res]
+        out = []
+        for ib, sl, blocks in per_bbox:
+            parts = res[sl.start:sl.stop]
+            if all(p is None for p in parts):
+                out.append(None if kwargs.get('return_empty', False) else
+                           self._filled((ib[3] - ib[1], ib[2] - ib[0]),
+                                        loader, kwargs))
+                continue
+            if emit_mips:
+                out.append(parts[0])        # one block per bbox (checked)
+                continue
+            imgt = np.full((ib[3] - ib[1], ib[2] - ib[0]), fillval,
+                           dtype=np.dtype(dtype_out))
+            for blk, (bx0, by0, bx1, by1) in zip(parts, blocks):
+                if blk is not None:
+                    imgt[by0 - ib[1]:by1 - ib[1],
+                         bx0 - ib[0]:bx1 - ib[0]] = blk
+            out.append(imgt)
+        return out
+
     def _render_hybrid(self, eng, flat, loader, fillval, dtype_out, wts,
                        sc, emit_mips, mip_blur, crop_kwargs, kwargs):
         """Work-stealing host+device render of the flat block list: the
@@ -98,7 +557,7 @@ class MeshRenderer(_HostMeshRenderer):
         threads claim from the back and run the host path; whichever lane
         is faster ends up doing more blocks. Over a slow link with a
         blockwise source every block goes to the host lane."""
-        from feabas_tpu import config as fconfig
+        from feabas_tpu_torch import config as fconfig
         from feabas_tpu_torch.ops import link_probe
         n = len(flat)
         results = [None] * n
@@ -162,6 +621,108 @@ class MeshRenderer(_HostMeshRenderer):
                 results[i] = (_complete_mip_tuple(v, emit_mips, mip_blur)
                               if emit_mips else v)
         return results
+
+    def crop(self, bbox, image_loader=None, **kwargs):
+        """Render the output block covering bbox (reference: renderer.py:566)."""
+        loader = image_loader or self._image_loader
+        if loader is None:
+            raise RuntimeError('no image loader linked')
+        mode = self._device_render_requested(kwargs)
+        if mode and self._device_render_ok(loader, kwargs):
+            return self._crop_device_multi([bbox], loader,
+                                           hybrid=(mode == 'hybrid'),
+                                           **kwargs)[0]
+        map_x, map_y, mask = self.crop_field(bbox, **kwargs)
+        if not mask.any():
+            if kwargs.get('return_empty', False):
+                return None
+            return self._filled(mask.shape, loader, kwargs)
+        img = render_by_subregions(map_x, map_y, mask, loader, **kwargs)
+        return self._apply_log(img, mask, kwargs)
+
+    @staticmethod
+    def _apply_log(img, mask, kwargs):
+        """Optional Laplacian-of-Gaussian (masked DoG) filtering of a
+        rendered block (reference: renderer.py:568-588 honors a
+        ``log_sigma`` crop kwarg; the device matcher filters on-device, so
+        this host path exists for API parity and ad-hoc filtered exports)."""
+        sigma = kwargs.get('log_sigma', 0)
+        if not sigma or img is None:
+            return img
+        if img.ndim == 3:
+            # multichannel render: blocks come back (H, W, C) but the
+            # filter expects (..., H, W) — filter per channel
+            out = common.masked_dog_filter(np.moveaxis(img, -1, 0), float(sigma),
+                                    mask=mask)
+            return np.moveaxis(out, 0, -1)
+        return common.masked_dog_filter(img, float(sigma), mask=mask)
+
+    def crop_multiple(self, bboxes, image_loader=None, **kwargs):
+        """Render several output blocks with ONE loader IO pass: the
+        source-coordinate fields stack vertically (NaN-padded to a common
+        width) and a single ``render_by_subregions`` sweep serves them all
+        (reference stacked fields: renderer.py:601)."""
+        loader = image_loader or self._image_loader
+        if loader is None:
+            raise RuntimeError('no image loader linked')
+        bboxes = list(bboxes)
+        if not bboxes:
+            return []
+        mode = self._device_render_requested(kwargs)
+        if mode and self._device_render_ok(loader, kwargs):
+            return self._crop_device_multi(bboxes, loader,
+                                           hybrid=(mode == 'hybrid'),
+                                           **kwargs)
+        fields = [self.crop_field(b, **kwargs) for b in bboxes]
+        if len(fields) == 1:
+            mx, my, mk = fields[0]
+            if not mk.any():
+                return [None if kwargs.get('return_empty', False) else
+                        self._filled(mk.shape, loader, kwargs)]
+            img = render_by_subregions(mx, my, mk, loader, **kwargs)
+            return [self._apply_log(img, mk, kwargs)]
+        wmax = max(f[0].shape[1] for f in fields)
+
+        def padw(a, fill):
+            if a.shape[1] == wmax:
+                return a
+            out = np.full((a.shape[0], wmax), fill, dtype=a.dtype)
+            out[:, :a.shape[1]] = a
+            return out
+
+        MX = np.concatenate([padw(f[0], np.nan) for f in fields])
+        MY = np.concatenate([padw(f[1], np.nan) for f in fields])
+        MK = np.concatenate([padw(f[2], False) for f in fields])
+        if MK.any():
+            big = render_by_subregions(MX, MY, MK, loader, **kwargs)
+        else:
+            big = None
+        out = []
+        r = 0
+        for (mx, my, mk), bbox in zip(fields, bboxes):
+            h, w = mk.shape
+            if not mk.any():
+                out.append(None if kwargs.get('return_empty', False) else
+                           self._filled((h, w), loader, kwargs))
+            else:
+                out.append(self._apply_log(big[r:r + h, :w].copy(), mk,
+                                           kwargs))
+            r += h
+        return out
+
+    def _filled(self, shape, loader, kwargs):
+        nc = getattr(loader, 'number_of_channels', None)
+        if nc and nc > 1 and len(shape) == 2:
+            shape = tuple(shape) + (int(nc),)  # match covered-crop rank
+        if kwargs.get('log_sigma', 0):
+            # a filtered constant block is identically zero; returning the
+            # raw fillval here would mix unfiltered uint8 blocks into a
+            # float32 zero-mean filtered batch
+            return np.zeros(shape, np.float32)
+        fv = kwargs.get('fillval', self._fillval)
+        if fv is None:
+            fv = getattr(loader, 'default_fillval', 0)
+        return np.full(shape, fv, dtype=getattr(loader, 'dtype', np.uint8))
 
 
 def render_whole_mesh(mesh, image_loader, prefix, **kwargs):
@@ -236,7 +797,7 @@ def render_whole_mesh(mesh, image_loader, prefix, **kwargs):
         except Exception:
             loader_spec = None      # not serializable: render here
     if loader_spec is not None:
-        from feabas_tpu.concurrent import submit_to_workers
+        from feabas_tpu_torch.concurrent import submit_to_workers
         batches = [jobs[i:i + tiles_per_job]
                    for i in range(0, len(jobs), tiles_per_job)]
         wk = dict(kwargs, mip_dirs=mip_dirs, mip_blur=mip_blur)
@@ -270,13 +831,30 @@ def render_whole_mesh(mesh, image_loader, prefix, **kwargs):
     return out
 
 
+def _write_mip_metadata(rendered, mip_dirs, image_loader):
+    """Coordinate metadata for fused mip levels so every level is
+    mosaic-loadable exactly like mipmap.mip_one_level output."""
+    if not mip_dirs or not rendered:
+        return
+    res0 = getattr(image_loader, 'resolution', None) or 4
+    for lvl, d in enumerate(mip_dirs, start=1):
+        s = 2 ** lvl
+        with storage.File(storage.join_paths(str(d), 'metadata.txt'),
+                          'w') as f:
+            f.write('{ROOT_DIR}\t' + str(d) + '\n')
+            f.write('{RESOLUTION}\t' + str(res0 * s) + '\n')
+            for fname, (a, b, c, dd) in rendered.items():
+                f.write(f'{storage.base_name(fname)}\t{a // s}\t{b // s}'
+                        f'\t{-(-c // s)}\t{-(-dd // s)}\n')
+
+
 def subprocess_render_mesh_tiles(mesh_init, loader_spec, jobs, kwargs):
     """Worker: render a batch of output tiles of one section mesh on the
     host path (render_whole_mesh fans out only when it resolved to the
     host). Submeshes to the batch's bbox union; returns {filename: bbox}
     of the non-empty tiles."""
-    from feabas_tpu.mesh import Mesh
-    from feabas_tpu.dal import get_loader_from_json
+    from feabas_tpu_torch.mesh import Mesh
+    from feabas_tpu_torch.dal import get_loader_from_json
     mesh_init = dict(mesh_init)
     mesh = Mesh(mesh_init.pop('vertices'), mesh_init.pop('triangles'),
                 **mesh_init)

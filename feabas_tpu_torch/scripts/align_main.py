@@ -12,7 +12,7 @@ transforms to ``align/tform``, rendered sections to
 ``thumbnail_align/matches`` when present, else neighbouring sections are
 seeded by whole-image translation. ``section_order.txt`` in the work dir
 reorders sections. The compute device comes from FEABAS_TORCH_DEVICE
-('auto' when unset: the GPU when there is one). The tensorstore modes
+(the CUDA card when unset; 'cpu' runs on the CPU). The tensorstore modes
 (tsr, tsd) are not ported: the GPU host has no tensorstore.
 """
 
@@ -21,16 +21,17 @@ import time
 
 import numpy as np
 
-from feabas_tpu import config, storage
-from feabas_tpu.common import unique_prefix_arg
-from feabas_tpu.logging import initialize_main_logger, terminate_logger
-from feabas_tpu.storage import join_paths
+from feabas_tpu_torch import config, storage
+from feabas_tpu_torch import device as device_mod
+from feabas_tpu_torch.common import unique_prefix_arg
+from feabas_tpu_torch.logging import initialize_main_logger, terminate_logger
+from feabas_tpu_torch.storage import join_paths
 
 
 def stitched_section_list(work_dir, slicing=None):
     """[(name, source)] of the stitched sections: metadata.txt mosaics and
     tensorstore-rendered section dirs."""
-    from feabas_tpu.mipmap import tensorstore_spec_for_dir
+    from feabas_tpu_torch.mipmap import tensorstore_spec_for_dir
     root = join_paths(work_dir, 'stitched_sections', 'mip0')
     metas = storage.list_folder_content(join_paths(root, '*', 'metadata.txt'))
     pairs = [(m.rstrip('/').split('/')[-2], m) for m in sorted(metas)]
@@ -50,10 +51,10 @@ def stitched_section_list(work_dir, slicing=None):
 def section_loader(meta, **loader_config):
     """Loader of a stitched section: a coordinate-file mosaic for
     ``metadata.txt``, a TensorStoreLoader for a rendered-volume dir."""
-    from feabas_tpu.dal import StaticImageLoader, TensorStoreLoader
+    from feabas_tpu_torch.dal import StaticImageLoader, TensorStoreLoader
     if str(meta).endswith('.txt'):
         return StaticImageLoader.from_coordinate_file(meta, **loader_config)
-    from feabas_tpu.mipmap import tensorstore_spec_for_dir
+    from feabas_tpu_torch.mipmap import tensorstore_spec_for_dir
     spec = tensorstore_spec_for_dir(meta)
     if spec is None:
         raise RuntimeError(f'not a stitched section source: {meta}')
@@ -74,8 +75,8 @@ def meshing_main(args, conf, logger):
     """Per-section mesh from its material mask (or the section bbox when
     there is none), carried through the thumbnail transform when one
     exists."""
-    from feabas_tpu.mesh import Mesh, transform_mesh
-    from feabas_tpu.spatial import Geometry
+    from feabas_tpu_torch.mesh import Mesh, transform_mesh
+    from feabas_tpu_torch.spatial import Geometry
     from feabas_tpu_torch.optimizer import relax_mesh_most_deformed
     work_dir = config.get_work_dir()
     mconf = conf.get('meshing', {})
@@ -126,8 +127,8 @@ _MATCHER_KEYS = ('spacings', 'sigma', 'conf_thresh', 'pad', 'residue_mode',
 def matching_main(args, conf, logger):
     """Fine matching between neighbouring sections (and every pair with a
     thumbnail match) at the working mip level."""
-    from feabas_tpu import constant as const
-    from feabas_tpu.mesh import Mesh
+    from feabas_tpu_torch import constant as const
+    from feabas_tpu_torch.mesh import Mesh
     from feabas_tpu_torch.aligner import (match_name, parse_match_name,
                                           read_matches_from_h5,
                                           save_matches_to_h5)
@@ -230,7 +231,7 @@ def matching_main(args, conf, logger):
 def _maybe_stream(loader, mesh, max_px, margin=64):
     """Crop a section's mesh extent into memory when it fits, so its
     blocks render on the device."""
-    from feabas_tpu.dal import StreamLoader
+    from feabas_tpu_torch.dal import StreamLoader
     bb = mesh.bbox(gear='INITIAL')
     w = bb[2] - bb[0] + 2 * margin
     h = bb[3] - bb[1] + 2 * margin
@@ -267,7 +268,7 @@ class _ScaledLoader:
 def _apply_section_order(work_dir, sections):
     """Reorder/filter sections by ``<work_dir>/section_order.txt`` (lines
     are names, or ``z<TAB>name``). Returns (ordered sections, {name: z})."""
-    from feabas_tpu.common import rearrange_section_order
+    from feabas_tpu_torch.common import rearrange_section_order
     onames, zidx = rearrange_section_order(
         [n for n, _ in sections], join_paths(work_dir, 'section_order.txt'))
     metas = dict(sections)
@@ -279,8 +280,8 @@ def downsample_main(args, conf, logger):
     """Mip pyramids of the rendered aligned stack (host). With
     ``parallel_within_section`` the section loop stays serial and each
     section uses the workers; otherwise whole sections fan out."""
-    from feabas_tpu.concurrent import submit_to_workers
-    from feabas_tpu.mipmap import mip_map_one_section
+    from feabas_tpu_torch.concurrent import submit_to_workers
+    from feabas_tpu_torch.mipmap import mip_map_one_section
     work_dir = config.get_work_dir()
     dconf = dict(conf.get('downsample', {}) or {})
     out_root = (conf.get('rendering', {}) or {}).get('out_dir') \
@@ -322,8 +323,8 @@ def get_or_make_canvas(tform_dir, logger=None):
     the canvas that falls outside it is warned about, not clipped
     silently."""
     import json
-    from feabas_tpu.common import get_canvas_bbox
-    from feabas_tpu.mesh import Mesh
+    from feabas_tpu_torch.common import get_canvas_bbox
+    from feabas_tpu_torch.mesh import Mesh
     cf = join_paths(tform_dir, 'canvas.json')
     tforms = sorted(storage.list_folder_content(join_paths(tform_dir, '*.h5')))
     if storage.file_exists(cf):
@@ -389,8 +390,8 @@ def optimize_main(args, conf, logger):
 
 
 def render_main(args, conf, logger):
-    from feabas_tpu.common import interp_from_name
-    from feabas_tpu.mesh import Mesh
+    from feabas_tpu_torch.common import interp_from_name
+    from feabas_tpu_torch.mesh import Mesh
     from feabas_tpu_torch.renderer import render_whole_mesh
     work_dir = config.get_work_dir()
     rconf = conf.get('rendering', {})
@@ -479,8 +480,11 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    from feabas_tpu.logging import stage_timer
+    from feabas_tpu_torch.logging import stage_timer
     args = parse_args(argv)
+    # the CUDA card unless FEABAS_TORCH_DEVICE names another device: raises
+    # here, before any work, when it is absent
+    device_mod.get_device()
     conf = config.align_configs()
     info, logger = initialize_main_logger(prefix=f'align_{args.mode}',
                                           mp_queue=False)

@@ -7,8 +7,8 @@ rendering, with the flags and work-dir protocol of scripts/stitch_main.py.
 Coordinate files in ``stitch/stitch_coord/*.txt``; matches to
 ``stitch/match_h5/{sec}.h5``; transforms to ``stitch/tform/{sec}.h5``;
 rendered tiles to ``stitched_sections/mip0/``. Existing outputs are
-skipped. The compute device comes from FEABAS_TORCH_DEVICE ('auto' when
-unset: the GPU when there is one).
+skipped. The compute device comes from FEABAS_TORCH_DEVICE (the CUDA card
+when unset; set it to 'cpu' to run on the CPU).
 """
 
 import argparse
@@ -16,9 +16,10 @@ import time
 
 import numpy as np
 
-from feabas_tpu import config, storage
-from feabas_tpu.common import unique_prefix_arg
-from feabas_tpu.logging import initialize_main_logger, terminate_logger
+from feabas_tpu_torch import config, storage
+from feabas_tpu_torch import device as device_mod
+from feabas_tpu_torch.common import unique_prefix_arg
+from feabas_tpu_torch.logging import initialize_main_logger, terminate_logger
 
 
 def section_list(work_dir, slicing):
@@ -91,8 +92,8 @@ def optimize_main(sections, conf, logger):
         st.initialize_meshes(**(opt.get('mesh_settings') or {}))
         st.initialize_optimizer(minweight=opt.get('minweight', 0.1))
         if opt.get('msem', False) and st.groupings is not None:
-            from feabas_tpu.multisem import (filter_links_from_sfov_pattern,
-                                             mfovids_beamids_from_filenames)
+            from feabas_tpu_torch.multisem import (
+                filter_links_from_sfov_pattern, mfovids_beamids_from_filenames)
             _, beams = mfovids_beamids_from_filenames(st.imgpaths)
             filter_links_from_sfov_pattern(st._slm, st.groupings, beams)
         st.optimize_translation(**(opt.get('translation') or {}))
@@ -167,6 +168,9 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    # the CUDA card unless FEABAS_TORCH_DEVICE names another device: raises
+    # here, before any work, when it is absent
+    device_mod.get_device()
     conf = config.stitch_configs()
     mode_conf = conf.get(args.mode, {})
     config.set_numpy_thread_from_num_workers(mode_conf.get('num_workers', 1) or 1)

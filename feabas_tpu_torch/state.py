@@ -1,4 +1,5 @@
-"""The JAX package's host-side state, carried onto a torch device.
+"""The JAX package's host-side state, carried into the port and onto a
+torch device.
 
 The system has no weights. What its device programs take are host numpy
 trees: the fused-match prep dict and its per-round tables
@@ -8,7 +9,10 @@ montage tables (``ops.montage_render``), the stacked window system
 render tables and cell candidates (``ops.render.DeviceRenderEngine``).
 ``to_tensors`` turns any such tree into tensors on one device;
 ``cast_floats`` pins the float width first, so a test can hand the JAX
-package and the port the same inputs.
+package and the port the same inputs. ``mesh_from_init_dict`` and
+``match_from_arrays`` rebuild a JAX ``Mesh`` or ``Match`` as the port's
+from their plain numpy arrays and strings, so port code receives only the
+port's objects.
 """
 
 import numpy as np
@@ -96,3 +100,23 @@ def render_batch_to_device(src, tables, cands, device):
             torch.from_numpy(np.asarray(tables, np.float32)).to(device),
             None if cands is None
             else torch.from_numpy(np.asarray(cands, np.int32)).to(device))
+
+
+def mesh_from_init_dict(init):
+    """The port's ``Mesh`` from a ``Mesh.get_init_dict()`` of either
+    package: numpy arrays, scalars and the material table as JSON. The
+    arrays are copied, so the two meshes share no state."""
+    from feabas_tpu_torch.mesh import Mesh
+    kw = {k: (np.array(v) if isinstance(v, np.ndarray) else v)
+          for k, v in init.items()}
+    return Mesh(kw.pop('vertices'), kw.pop('triangles'), **kw)
+
+
+def match_from_arrays(xy0, xy1, weight, strain=None):
+    """The port's ``common.Match`` from a match's arrays (a JAX ``Match``
+    unpacks into them: ``match_from_arrays(*match)``)."""
+    from feabas_tpu_torch.common import Match
+    xy0, xy1, weight = (np.array(a) for a in (xy0, xy1, weight))
+    if strain is None:
+        return Match(xy0, xy1, weight)
+    return Match(xy0, xy1, weight, strain)

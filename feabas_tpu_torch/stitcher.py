@@ -12,17 +12,18 @@ import numpy as np
 import scipy.sparse as sparse
 import torch
 
-from feabas_tpu import common, config
-from feabas_tpu import constant as const
-from feabas_tpu import spatial as sp
-from feabas_tpu.common import (Match, bbox_centers, intersect_bbox,
-                               numpy_to_str_ascii, str_to_numpy_ascii, z_order)
-from feabas_tpu.concurrent import submit_to_workers
-from feabas_tpu.dal import StaticImageLoader, get_loader_from_json
-from feabas_tpu.mesh import Mesh
-from feabas_tpu.renderer import MeshRenderer
-from feabas_tpu.storage import H5File, join_paths
-from feabas_tpu.utils.spatial_index import GridIndex
+from feabas_tpu_torch import common, config
+from feabas_tpu_torch import constant as const
+from feabas_tpu_torch import spatial as sp
+from feabas_tpu_torch.common import (Match, bbox_centers, intersect_bbox,
+                                     numpy_to_str_ascii, str_to_numpy_ascii,
+                                     z_order)
+from feabas_tpu_torch.concurrent import submit_to_workers
+from feabas_tpu_torch.dal import StaticImageLoader, get_loader_from_json
+from feabas_tpu_torch.mesh import Mesh
+from feabas_tpu_torch.renderer import MeshRenderer
+from feabas_tpu_torch.storage import H5File, join_paths
+from feabas_tpu_torch.utils.spatial_index import GridIndex
 from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch.optimizer import SLM, _sparse_spd_solve, relax_mesh
 from feabas_tpu_torch.renderer import resolve_device_render
@@ -370,7 +371,7 @@ class Stitcher:
         if groupings is not None:
             self.groupings = np.asarray(groupings)
         elif msem:
-            from feabas_tpu.multisem import mfovids_beamids_from_filenames
+            from feabas_tpu_torch.multisem import mfovids_beamids_from_filenames
             mfovs, _ = mfovids_beamids_from_filenames(self.imgpaths)
             self.groupings = mfovs
         return self.groupings
@@ -609,7 +610,8 @@ class MontageRenderer:
         self._maskouts = kwargs.get('tile_maskouts', None)
         self._maskout_margin = kwargs.get('maskout_margin', 16.0)
         self._pyramid_sigma = max((self._blend_margin or 16) / 4.0, 2.0)
-        self._renderers = [MeshRenderer.from_mesh(m) for m in meshes]
+        self._renderers = [MeshRenderer.from_mesh(m, device=self.device)
+                           for m in meshes]
         self._bounds = np.asarray([m.bbox(gear=const.MESH_GEAR_MOVING)
                                    for m in meshes])
         self._index = GridIndex(self._bounds)
@@ -686,7 +688,7 @@ class MontageRenderer:
             acc_low = np.zeros((H, W), np.float32)
             best_high = np.zeros((H, W), np.float32)
         sub_pad = int(np.ceil(4 * self._pyramid_sigma)) + 1 if pyramid else 1
-        from feabas_tpu.dal import TileView
+        from feabas_tpu_torch.dal import TileView
         for t in hits:
             tb = self._bounds[int(t)]
             ix0 = max(xbase, int(np.floor(tb[0])) - sub_pad)
@@ -792,7 +794,7 @@ class MontageRenderer:
         """Render a list of (filename, bbox) output tiles; existing files
         are skipped. Blocks the device path declines go to the host path
         one by one. Returns the rendered sublist."""
-        from feabas_tpu import storage
+        from feabas_tpu_torch import storage
         rendered = []
         pending = []
         for fname, bbox in plan:
@@ -828,7 +830,7 @@ class MontageRenderer:
         coordinate file. With ``num_workers`` > 1 on the CPU, plan slices
         go to worker processes that rebuild the renderer from its tform
         H5; on a CUDA device everything renders in this process."""
-        from feabas_tpu import storage
+        from feabas_tpu_torch import storage
         tile_size = kwargs.pop('tile_size', (4096, 4096))
         pattern = kwargs.pop('pattern', '_tr{ROW_IND}-tc{COL_IND}.png')
         one_based = kwargs.pop('one_based', True)

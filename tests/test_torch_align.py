@@ -1,7 +1,9 @@
 """The port's alignment slice against the JAX package: the optimizer
 additions (affine cascade, outcasts, disconnected split, huber_smooth),
 the region block distributors and the section matcher on the same inputs,
-and the whole align CLI on copies of one work dir."""
+and the whole align CLI on copies of one work dir. The port receives its
+own meshes (rebuilt from the JAX meshes' init dicts through ``state``) and
+its own loaders; work-dir files pass between the packages as they are."""
 
 import json
 import os
@@ -18,7 +20,9 @@ from feabas_tpu import matcher as jmatcher
 from feabas_tpu import optimizer as jopt
 from feabas_tpu.dal import StaticImageLoader, StreamLoader
 from feabas_tpu.mesh import Mesh
-from feabas_tpu_torch import matcher, optimizer
+from feabas_tpu_torch import config as pconfig
+from feabas_tpu_torch import dal as pdal
+from feabas_tpu_torch import matcher, optimizer, state
 from synthutil import texture
 
 # the tier-1 run shares the cores among several pytest workers
@@ -27,6 +31,28 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MOVING, INITIAL, FIXED = (const.MESH_GEAR_MOVING, const.MESH_GEAR_INITIAL,
                           const.MESH_GEAR_FIXED)
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    """The CPU, asked for by name; the port's config caches start and end
+    empty."""
+    monkeypatch.setenv('FEABAS_TORCH_DEVICE', 'cpu')
+    pconfig.clear_config_caches()
+    yield
+    pconfig.clear_config_caches()
+
+
+def _p(mesh):
+    """The port's copy of a JAX mesh."""
+    return state.mesh_from_init_dict(mesh.get_init_dict())
+
+
+def _mesh(opt, *args, **kwargs):
+    """``Mesh.from_bbox`` of the JAX package, carried into the port when
+    ``opt`` is the port's optimizer."""
+    m = Mesh.from_bbox(*args, **kwargs)
+    return m if opt is jopt else _p(m)
 
 
 def _grid_pts(bbox, n=5, margin=2.0):
@@ -55,8 +81,8 @@ def _both(build):
 # ------------------------------ optimizer ------------------------------ #
 
 def _smoothing_link(opt, off):
-    m0 = Mesh.from_bbox((0, 0, 200, 200), cartesian=True, mesh_size=50, uid=0)
-    m1 = Mesh.from_bbox((0, 0, 200, 200), cartesian=True, mesh_size=50, uid=1)
+    m0 = _mesh(opt, (0, 0, 200, 200), cartesian=True, mesh_size=50, uid=0)
+    m1 = _mesh(opt, (0, 0, 200, 200), cartesian=True, mesh_size=50, uid=1)
     pts = _grid_pts((0, 0, 200, 200), n=8, margin=10.0)
     link = opt.Link.from_coordinates(m0, m1, pts, pts + off,
                                      gear=(INITIAL, INITIAL))
@@ -85,8 +111,8 @@ def _cascade_slm(opt, locked_first=True):
     tile): tiles 1-3 must each move by the affine that lands their points
     on their left neighbour's."""
     from feabas_tpu.spatial import apply_affine
-    meshes = [Mesh.from_bbox((80 * k, 0, 80 * k + 100, 100), cartesian=True,
-                             mesh_size=25, uid=k, locked=(k == 0 and locked_first))
+    meshes = [_mesh(opt, (80 * k, 0, 80 * k + 100, 100), cartesian=True,
+                    mesh_size=25, uid=k, locked=(k == 0 and locked_first))
               for k in range(5)]
     slm = opt.SLM(meshes)
     rng = np.random.default_rng(4)
@@ -114,15 +140,15 @@ def test_affine_cascade_matches_jax(groupings):
 
 
 def _split_slm(opt):
-    anchor = Mesh.from_bbox((0, 0, 300, 100), cartesian=True, mesh_size=25,
-                            uid=0, locked=True)
-    broken = Mesh.from_bbox((0, 0, 300, 100), cartesian=True, mesh_size=25,
-                            uid=1)
+    anchor = _mesh(opt, (0, 0, 300, 100), cartesian=True, mesh_size=25,
+                   uid=0, locked=True)
+    broken = _mesh(opt, (0, 0, 300, 100), cartesian=True, mesh_size=25,
+                   uid=1)
     cent = broken.triangle_centers('INITIAL')
     broken = broken.submesh(np.abs(cent[:, 0] - 150) > 20)
     broken.uid = 1.0
-    lone = Mesh.from_bbox((0, 200, 100, 300), cartesian=True, mesh_size=25,
-                          uid=2)
+    lone = _mesh(opt, (0, 200, 100, 300), cartesian=True, mesh_size=25,
+                 uid=2)
     slm = opt.SLM([anchor, broken, lone])
     ptsL = _grid_pts((10, 10, 120, 90), n=4)
     ptsR = _grid_pts((180, 10, 290, 90), n=4)
@@ -155,7 +181,7 @@ def test_outcasts_and_disconnected_split_match_jax():
 
 def test_relax_mesh_most_deformed_matches_jax():
     def build(opt):
-        m = Mesh.from_bbox((0, 0, 200, 200), cartesian=False, mesh_size=25)
+        m = _mesh(opt, (0, 0, 200, 200), cartesian=False, mesh_size=25)
         v = m.vertices(FIXED).copy()
         v[40] += (6.0, -5.0)
         m.set_vertices(v, MOVING, offset=m.offset(FIXED))
@@ -189,7 +215,9 @@ def _section_pair(seed=42, drift=(6.0, -4.0), amp=2.0):
     return imgs
 
 
-def _section_meshes(split=False):
+def _section_meshes(split=False, port=False):
+    """The two sections' meshes (the JAX package's, or the port's copies
+    with ``port``)."""
     meshes = []
     for z in range(2):
         m = Mesh.from_bbox((0, 0, 320, 320), cartesian=False, mesh_size=30,
@@ -200,18 +228,19 @@ def _section_meshes(split=False):
             m.uid = 1.0
         meshes.append(m)
     meshes[1].set_translation((-6.0, 4.0))
-    return meshes
+    return [_p(m) for m in meshes] if port else meshes
 
 
 @pytest.mark.parametrize('distributor', ['cartesian_region',
                                          'intersect_triangulation'])
 def test_distribute_matching_blocks_matches_jax(distributor):
     m0, m1 = _section_meshes(split=True)
+    p0, p1 = _section_meshes(split=True, port=True)
     for mbd in (0, 20):
         kw = dict(distributor=distributor, min_boundary_distance=mbd,
                   render_weight_threshold=0.1,
                   stiffness_multiplier_threshold=0.1)
-        c, f = matcher.distribute_matching_blocks(m0, m1, 50.0, **kw)
+        c, f = matcher.distribute_matching_blocks(p0, p1, 50.0, **kw)
         jc, jf = jmatcher.distribute_matching_blocks(m0, m1, 50.0, **kw)
         assert c.shape[0] > 10
         assert np.array_equal(c, jc) and np.array_equal(f, jf)
@@ -233,17 +262,20 @@ def test_section_matcher_matches_jax(case, tmp_path, jax_eager_fused):
     imgs = _section_pair()
     if case == 'rendered_blocks':
         from feabas_tpu.common import imwrite
-        loaders = []
+        loaders, ploaders = [], []
         for z, img in enumerate(imgs):
             fn = str(tmp_path / f's{z}.png')
             imwrite(fn, img)
             loaders.append(StaticImageLoader([fn], bboxes=[(0, 0, 320, 320)]))
+            ploaders.append(pdal.StaticImageLoader(
+                [fn], bboxes=[(0, 0, 320, 320)]))
     else:
         loaders = [StreamLoader(img) for img in imgs]
+        ploaders = [pdal.StreamLoader(img) for img in imgs]
     jm = _section_meshes(split=case == 'split')
-    pm = _section_meshes(split=case == 'split')
+    pm = _section_meshes(split=case == 'split', port=True)
     want = jmatcher.section_matcher(jm[0], jm[1], *loaders, **dict(_SEC_KW))
-    got = matcher.section_matcher(pm[0], pm[1], *loaders, device='cpu',
+    got = matcher.section_matcher(pm[0], pm[1], *ploaders, device='cpu',
                                   dtype=torch.float64, **dict(_SEC_KW))
     assert want is not None and got is not None
     assert got.xy0.shape == want.xy0.shape and got.xy0.shape[0] >= 20
@@ -259,6 +291,7 @@ def test_match_from_initial_matches_matches_jax(tmp_path, jax_eager_fused):
     from feabas_tpu_torch import aligner as pal
     imgs = _section_pair()
     loaders = [StreamLoader(img) for img in imgs]
+    ploaders = [pdal.StreamLoader(img) for img in imgs]
     mesh_dir = str(tmp_path / 'mesh')
     for z in range(2):
         Mesh.from_bbox((0, 0, 320, 320), cartesian=False, mesh_size=30,
@@ -274,7 +307,7 @@ def test_match_from_initial_matches_matches_jax(tmp_path, jax_eager_fused):
         coarse, mesh_dir, loaders, str(tmp_path / 'jax'),
         working_resolution=4, **dict(kw))
     got = pal.match_section_from_initial_matches(
-        coarse, mesh_dir, loaders, str(tmp_path / 'port'),
+        coarse, mesh_dir, ploaders, str(tmp_path / 'port'),
         working_resolution=4, **dict(kw))
     mw = jal.read_matches_from_h5(want)
     mp = pal.read_matches_from_h5(got)
@@ -368,11 +401,13 @@ def _run_cli(main, cfg, modes, monkeypatch):
     from feabas_tpu import config
     monkeypatch.setenv('FEABAS_TPU_CONFIG_DIR', cfg)
     config.clear_config_caches()
+    pconfig.clear_config_caches()
     try:
         for mode in modes:
             main(['--mode', mode])
     finally:
         config.clear_config_caches()
+        pconfig.clear_config_caches()
 
 
 def _truth_error(m, drift):
@@ -465,19 +500,21 @@ def test_port_align_cli_refuses_tensorstore_and_chunking(tmp_path,
 _SUBPROCESS = r'''
 import json, sys
 sys.modules['h5py'] = None          # a host without h5py
-import feabas_tpu_torch
 from feabas_tpu_torch.scripts import align_main
 for mode in ('meshing', 'matching', 'optimization', 'rendering'):
     align_main.main(['--mode', mode])
 print(json.dumps({'jax': sorted(m for m in sys.modules
-                                if m == 'jax' or m.startswith('jax.'))}))
+                                if m == 'jax' or m.startswith('jax.')),
+                  'feabas_tpu': sorted(m for m in sys.modules
+                                       if m == 'feabas_tpu'
+                                       or m.startswith('feabas_tpu.'))}))
 '''
 
 
 def test_port_align_alone_imports_no_jax(tmp_path):
     """A fresh interpreter runs the port's align CLI end to end, rendering
     through the device lane (the plain raster on the CPU), without
-    importing jax."""
+    importing jax or the JAX package."""
     cfg, wd, names, drift = _align_workdir(str(tmp_path), device_render=True)
     env = dict(os.environ, FEABAS_TPU_CONFIG_DIR=cfg, FEABAS_TORCH_DEVICE='cpu',
                PYTHONPATH=REPO, OMP_NUM_THREADS='1')
@@ -485,5 +522,5 @@ def test_port_align_alone_imports_no_jax(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {'jax': []}
+    assert out == {'jax': [], 'feabas_tpu': []}
     assert min(_overlay_cc(wd, names)) > 0.85

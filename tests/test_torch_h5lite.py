@@ -64,8 +64,8 @@ def test_h5lite_refuses_what_it_cannot_read(tmp_path):
 def test_stitcher_h5_round_trip_through_h5lite(tmp_path, monkeypatch):
     """The match/tform H5 files the stitch path writes, through the
     stand-in, read back equal with h5py."""
-    from feabas_tpu import storage
-    from feabas_tpu.common import Match
+    from feabas_tpu_torch import storage
+    from feabas_tpu_torch.common import Match
     from feabas_tpu_torch.stitcher import Stitcher
     rng = np.random.default_rng(0)
     st = Stitcher([f't{k}.png' for k in range(3)],

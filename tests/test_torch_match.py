@@ -1,15 +1,22 @@
 """The port's fused match schedule and tile-pair matcher against the JAX
 package on the same pair."""
 
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
-# the port first: on a host without h5py its HDF5 stand-in must be in
-# place before the JAX package's host modules import storage
-import feabas_tpu_torch  # noqa: F401
+# the JAX package's storage imports h5py at load; on a host without it
+# (the GPU machine) the port's standard-HDF5 subset stands in for it in
+# this test process (the port itself needs no such patch)
+try:
+    import h5py  # noqa: F401
+except ImportError:
+    from feabas_tpu_torch import _h5lite
+    sys.modules['h5py'] = _h5lite
 
 from feabas_tpu import matcher as jmatcher
 from feabas_tpu.ops import match_loop as jloop
@@ -22,6 +29,11 @@ from feabas_tpu_torch.ops.xcorr import _peak_and_subpixel
 # the tier-1 run shares the cores among several pytest workers: one torch
 # thread per worker avoids oversubscription
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setenv('FEABAS_TORCH_DEVICE', 'cpu')
 
 # img1's true origin in img0's frame, and the stage prior the matcher gets
 TRUE_T = np.array([131.0, 3.0])

@@ -18,6 +18,11 @@ from feabas_tpu_torch.ops import fem, warp, xcorr
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setenv('FEABAS_TORCH_DEVICE', 'cpu')
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -241,6 +246,7 @@ def test_montage_blend_matches_jax(rng, pyramid):
     from feabas_tpu import constant as const
     from feabas_tpu.mesh import Mesh
     from feabas_tpu.ops import montage_render as jmr
+    from feabas_tpu_torch import state
     from feabas_tpu_torch.ops import montage_render as tmr
     H = W = 128
     tiles = rng.integers(0, 255, (2, 96, 112)).astype(np.uint8)
@@ -249,7 +255,8 @@ def test_montage_blend_matches_jax(rng, pyramid):
         m = Mesh.from_bbox((0, 0, 112, 96), cartesian=True, mesh_size=40, uid=k)
         m.set_translation((x0, y0), gear=(const.MESH_GEAR_INITIAL,
                                           const.MESH_GEAR_MOVING))
-        tt = tmr._TileTable(m, const.MESH_GEAR_MOVING, const.MESH_GEAR_INITIAL)
+        tt = tmr._TileTable(state.mesh_from_init_dict(m.get_init_dict()),
+                            const.MESH_GEAR_MOVING, const.MESH_GEAR_INITIAL)
         tabs.append(tt.table_for_block(np.arange(len(m.triangles)), (0, 0)))
     R = max(t.shape[0] for t in tabs)
     tables = np.zeros((2, R, 14), np.float32)

@@ -1,7 +1,11 @@
 """The port's mesh raster (ops/render.py) and MeshRenderer against the JAX
 package: the plain raster against ``_raster_core`` / ``_raster_core_cells``
 (bit-equal state, u8 within 1 LSB), device crops against the host cv2
-crop, the hybrid lane, and the render-lane resolution."""
+crop, the hybrid lane, and the render-lane resolution. The port receives
+its own meshes (rebuilt from the JAX meshes' init dicts through ``state``)
+and its own loaders."""
+
+import sys
 
 import numpy as np
 import pytest
@@ -9,16 +13,23 @@ import torch
 
 import jax.numpy as jnp
 
-# the port first: on a host without h5py its HDF5 stand-in must be in
-# place before the JAX package's host modules import storage
-import feabas_tpu_torch  # noqa: F401
+# the JAX package's storage imports h5py at load; on a host without it
+# (the GPU machine) the port's standard-HDF5 subset stands in for it in
+# this test process (the port itself needs no such patch)
+try:
+    import h5py  # noqa: F401
+except ImportError:
+    from feabas_tpu_torch import _h5lite
+    sys.modules['h5py'] = _h5lite
 
-from feabas_tpu.dal import StaticImageLoader, StreamLoader
+from feabas_tpu.dal import StreamLoader as JStreamLoader
 from feabas_tpu.mesh import Mesh
 from feabas_tpu.ops import render as R
 from feabas_tpu.renderer import MeshRenderer as HostRenderer
+from feabas_tpu_torch import config as pconfig
 from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch import state
+from feabas_tpu_torch.dal import StaticImageLoader, StreamLoader
 from feabas_tpu_torch.ops import link_probe, render
 from feabas_tpu_torch.renderer import MeshRenderer, resolve_device_render
 
@@ -26,6 +37,21 @@ from feabas_tpu_torch.renderer import MeshRenderer, resolve_device_render
 torch.set_num_threads(1)
 
 CPU = torch.device('cpu')
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    """The CPU, asked for by name; the port's config caches start and end
+    empty (``workdir`` clears only the JAX package's)."""
+    monkeypatch.setenv('FEABAS_TORCH_DEVICE', 'cpu')
+    pconfig.clear_config_caches()
+    yield
+    pconfig.clear_config_caches()
+
+
+def _p(mesh):
+    """The port's copy of a JAX mesh."""
+    return state.mesh_from_init_dict(mesh.get_init_dict())
 
 
 def _smooth_mesh(N=512, mesh_size=64, amp=4.0):
@@ -100,14 +126,13 @@ def test_plain_raster_matches_jax_state(case, cells, monkeypatch):
     so there the flat program is the reference."""
     cap = _jax_state(monkeypatch)
     if case == 'smooth':
-        mesh, loader, bbox, kw = (_smooth_mesh(mesh_size=48),
-                                  StreamLoader(_world()), (0, 0, 512, 512), {})
+        mesh, img, bbox, kw = (_smooth_mesh(mesh_size=48), _world(),
+                               (0, 0, 512, 512), {})
     else:
-        mesh, loader, bbox, kw = (_folded_mesh(),
-                                  StreamLoader(_world(N=128)[:60, :120]),
-                                  (0, 0, 128, 128),
-                                  {'mode': 'LEAST_DEFORM', 'geodesic_mask': True})
-    eng, res, tab, cand = _engine_block(mesh, loader, bbox, **kw)
+        mesh, img, bbox, kw = (_folded_mesh(), _world(N=128)[:60, :120],
+                               (0, 0, 128, 128),
+                               {'mode': 'LEAST_DEFORM', 'geodesic_mask': True})
+    eng, res, tab, cand = _engine_block(mesh, JStreamLoader(img), bbox, **kw)
     assert eng._geodesic == (case != 'smooth')
     h = w = bbox[2]
     refs = [np.asarray(R._raster_core(res[0], jnp.asarray(tab), jnp.float32(7),
@@ -120,7 +145,8 @@ def test_plain_raster_matches_jax_state(case, cells, monkeypatch):
         states.append(cap['state'])
     # the port's engine builds the same table; its resident source is the
     # JAX buffer before the u8 quad packing
-    pe = MeshRenderer.from_mesh(mesh, image_loader=loader, device='cpu',
+    loader = StreamLoader(img)
+    pe = MeshRenderer.from_mesh(_p(mesh), image_loader=loader, device='cpu',
                                 **kw)._get_device_engine()
     psrc, porigin = pe._resident_source(loader, 0)
     sel = np.nonzero(np.isfinite(pe._w) & (pe._tb[:, 0] < w) & (pe._tb[:, 2] > 0)
@@ -149,8 +175,7 @@ def test_plain_raster_out_kinds_and_mips(out_kind):
     the JAX program (mip levels within 1 LSB)."""
     mesh = _smooth_mesh(mesh_size=48)
     img = (_world().astype(np.float32) * (3.0 if out_kind == 'u16' else 0.5))
-    loader = StreamLoader(img)
-    eng, res, tab, _ = _engine_block(mesh, loader, (0, 0, 512, 512))
+    eng, res, tab, _ = _engine_block(mesh, JStreamLoader(img), (0, 0, 512, 512))
     want = np.asarray(R._raster_core(res[0], jnp.asarray(tab), jnp.float32(0),
                                      512, 512, False, out_kind, n_mips=2,
                                      mip_blur=0.75)).astype(np.float64)
@@ -211,8 +236,8 @@ def test_device_crops_match_host(workdir, tmp_path):
     """The port's MeshRenderer device crop (the plain raster on the CPU):
     a resident whole-section source with an uncovered margin, and an
     on-disk source cropped per block, against the host cv2 crop."""
-    from feabas_tpu import common
-    m = _smooth_mesh()
+    from feabas_tpu_torch import common
+    m = _p(_smooth_mesh())
     r = MeshRenderer.from_mesh(m, image_loader=StreamLoader(_world()),
                                device='cpu')
     host = r.crop((-16, -16, 300, 280), device_render=False)
@@ -222,13 +247,14 @@ def test_device_crops_match_host(workdir, tmp_path):
     fn = str(tmp_path / 'tile.png')
     common.imwrite(fn, _world(N=400))
     loader = StaticImageLoader([fn], bboxes=[(0, 0, 400, 400)])
-    r = MeshRenderer.from_mesh(_smooth_mesh(N=400), image_loader=loader,
+    r = MeshRenderer.from_mesh(_p(_smooth_mesh(N=400)), image_loader=loader,
                                device='cpu')
     _compare(r.crop((0, 0, 400, 400), device_render=False, fileid=0),
              r.crop((0, 0, 400, 400), device_render=True, fileid=0))
     # folded mesh with geodesic masking
     img = _world(N=128)[:60, :]
-    r = MeshRenderer.from_mesh(_folded_mesh(), image_loader=StreamLoader(img[:, :120]),
+    r = MeshRenderer.from_mesh(_p(_folded_mesh()),
+                               image_loader=StreamLoader(img[:, :120]),
                                mode='LEAST_DEFORM', geodesic_mask=True,
                                device='cpu')
     _compare(r.crop((0, 0, 120, 60), device_render=False),
@@ -240,14 +266,15 @@ def test_render_blocks_matches_jax_engine(workdir):
     """The port's engine against the JAX engine, over flat and cells
     blocks, batches of 1 and 4, and the fused mips."""
     m = _smooth_mesh(N=768, mesh_size=40)
-    loader = StreamLoader(_world(N=1024))
+    img = _world(N=1024)
+    jloader, loader = JStreamLoader(img), StreamLoader(img)
     blocks = [(0, 0, 512, 512), (512, 0, 1024, 512), (0, 512, 512, 1024),
               (512, 512, 1024, 1024), (700, 700, 830, 760)]
-    jr = HostRenderer.from_mesh(m, image_loader=loader)._get_device_engine()
-    pr = MeshRenderer.from_mesh(m, image_loader=loader,
+    jr = HostRenderer.from_mesh(m, image_loader=jloader)._get_device_engine()
+    pr = MeshRenderer.from_mesh(_p(m), image_loader=loader,
                                 device='cpu')._get_device_engine()
     for cap in (1, 4):
-        want = jr.render_blocks(blocks, loader, 0, np.uint8, group_cap=cap,
+        want = jr.render_blocks(blocks, jloader, 0, np.uint8, group_cap=cap,
                                 emit_mips=1)
         got = pr.render_blocks(blocks, loader, 0, np.uint8, group_cap=cap,
                                emit_mips=1)
@@ -260,7 +287,7 @@ def test_render_blocks_matches_jax_engine(workdir):
 
 
 def test_hybrid_render_matches_host(workdir):
-    m = _smooth_mesh(N=1024, mesh_size=128)
+    m = _p(_smooth_mesh(N=1024, mesh_size=128))
     r = MeshRenderer.from_mesh(m, image_loader=StreamLoader(_world(N=1024)),
                                device='cpu')
     tiles = [(x, y, x + 256, y + 256)
@@ -313,7 +340,7 @@ def test_raster_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA GPU')
     dev = device_mod.get_device('cuda')
-    mesh = _smooth_mesh(N=1024, mesh_size=40)
+    mesh = _p(_smooth_mesh(N=1024, mesh_size=40))
     loader = StreamLoader(_world(N=1024))
     eng = MeshRenderer.from_mesh(mesh, device=dev)._get_device_engine()
     resident, origin = eng._resident_source(loader, 0)

@@ -21,6 +21,11 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setenv('FEABAS_TORCH_DEVICE', 'cpu')
+
+
 def _make_workdir(root, tiles, stage_bboxes, general_extra=None):
     """A config dir + work dir with one section; returns the config dir."""
     from feabas_tpu import storage
@@ -53,13 +58,16 @@ def _make_workdir(root, tiles, stage_bboxes, general_extra=None):
 
 def _run_cli(main, cfg, monkeypatch):
     from feabas_tpu import config
+    from feabas_tpu_torch import config as pconfig
     monkeypatch.setenv('FEABAS_TPU_CONFIG_DIR', cfg)
     config.clear_config_caches()
+    pconfig.clear_config_caches()
     try:
         for mode in ('matching', 'optimization', 'rendering'):
             main(['--mode', mode])
     finally:
         config.clear_config_caches()
+        pconfig.clear_config_caches()
 
 
 def _results(wd, true_bboxes):
@@ -124,21 +132,23 @@ def test_port_stitch_matches_jax(tmp_path, monkeypatch):
 _SUBPROCESS = r'''
 import json, os, sys
 sys.modules['h5py'] = None          # a host without h5py
-import feabas_tpu_torch
+from feabas_tpu_torch import storage
 from feabas_tpu_torch.scripts import stitch_main
 for mode in ('matching', 'optimization', 'rendering'):
     stitch_main.main(['--mode', mode])
-import feabas_tpu.storage
 print(json.dumps({'jax': sorted(m for m in sys.modules
                                 if m == 'jax' or m.startswith('jax.')),
-                  'h5': feabas_tpu.storage.h5py.__name__}))
+                  'feabas_tpu': sorted(m for m in sys.modules
+                                       if m == 'feabas_tpu'
+                                       or m.startswith('feabas_tpu.')),
+                  'h5': storage.h5py.__name__}))
 '''
 
 
 def test_port_stitch_alone_imports_no_jax(tmp_path):
     """A fresh interpreter runs the port's CLI end to end (classic
-    match path, host render) without importing jax, and on a host without
-    h5py writes H5 files that h5py reads."""
+    match path, host render) without importing jax or the JAX package, and
+    on a host without h5py writes H5 files that h5py reads."""
     rng = np.random.default_rng(5)
     world, tiles, true_bb, stage_bb = tile_grid(
         rng, rows=2, cols=3, tile_h=160, tile_w=200, overlap=40, jitter=3.0)
@@ -149,7 +159,8 @@ def test_port_stitch_alone_imports_no_jax(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {'jax': [], 'h5': 'feabas_tpu_torch._h5lite'}
+    assert out == {'jax': [], 'feabas_tpu': [],
+                   'h5': 'feabas_tpu_torch._h5lite'}
     st, place, canvas = _results(wd, true_bb)      # read back with h5py
     assert len(st.matches) == 7
     assert np.abs(place - (true_bb[:, :2] - true_bb[0, :2])).max() < 0.5

@@ -1,6 +1,7 @@
 """The port's stacked window solve (parallel/window.py) and the lattice
 stencil / incidence ops of ops/fem.py against the JAX package, f64 on both
-sides, on the fixtures of tests/test_parallel.py."""
+sides, on the fixtures of tests/test_parallel.py. The port receives its own
+meshes, rebuilt from the JAX meshes' init dicts (``state``)."""
 
 import numpy as np
 import pytest
@@ -19,6 +20,15 @@ from feabas_tpu_torch.parallel import window
 torch.set_num_threads(1)
 
 F64 = torch.float64
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setenv('FEABAS_TORCH_DEVICE', 'cpu')
+
+
+def _port_meshes(meshes):
+    return [state.mesh_from_init_dict(m.get_init_dict()) for m in meshes]
 
 
 def _links(meshes, drift, pts, extrapolate=False):
@@ -41,7 +51,7 @@ def _stack_inputs(S=8, cartesian=True, bbox=(0, 0, 100, 100), mesh_size=25,
                   sizes=None, seed=0, jitter=2.0, lock_first=True):
     """S sections (one topology, or one per entry of ``sizes``) linked by a
     known cumulative drift, as in test_parallel._make_stack. Returns
-    (meshes, links_per_pair, drift)."""
+    (JAX meshes, links_per_pair, drift)."""
     rng = np.random.default_rng(seed)
     meshes = []
     for z in range(S):
@@ -63,7 +73,7 @@ def _stack_inputs(S=8, cartesian=True, bbox=(0, 0, 100, 100), mesh_size=25,
 
 def _stack(**kw):
     meshes, links, drift = _stack_inputs(**kw)
-    return window.build_stack_system(meshes, links), drift
+    return window.build_stack_system(_port_meshes(meshes), links), drift
 
 
 _KEYS = ('verts0', 'u', 'tris', 'multiplier', 'poisson', 'links', 'r_rest',
@@ -88,7 +98,7 @@ def test_port_packs_the_same_system():
         meshes, links, _ = _stack_inputs(S=4, cartesian=cartesian,
                                          bbox=(0, 0, 300, 240), mesh_size=40,
                                          sizes=sizes)
-        got = window.build_stack_system(meshes, links)
+        got = window.build_stack_system(_port_meshes(meshes), links)
         want = jwin.build_stack_system(meshes, links)
         assert set(got) == set(want)
         for k, v in want.items():
