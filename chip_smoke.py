@@ -14,9 +14,13 @@ Phases (each prints its lines; any failure exits non-zero):
      blur (the pooled bands' mask term, the 4096^2 low band), the edges of
      both code paths of the DoG kernel (a 1x1 plane, 3x700, 24x24 at sigma
      3.5, 129x130 tiles, the mask term's largest radius), and the mesh
-     raster on a 2048^2 cell-binned block of a deformed section mesh with
-     its own source crop, four 512^2 flat-table blocks on one resident
-     source, and a tie of two identical rows, which the first must win;
+     raster, bit-equal with equal coverage flags, on the align path's
+     batches (1 to 4 cell-binned 2048^2 blocks of a deformed section mesh,
+     each with its own source crop), four 512^2 flat-table blocks on one
+     resident source, a tie of two identical rows, which the first must
+     win, and the edges of its design (see ``check_raster``), with its
+     device time per launch and what its tile cull removes; then the
+     batch upload, staged against pageable;
   4. the stitch slice: a synthetic 2x3 grid of 3000x4000 uint8 tiles
      (10% overlap, 3 px stage jitter, made on the card from a seed) goes
      through ``feabas_tpu_torch.scripts.stitch_main`` matching,
@@ -119,12 +123,22 @@ def kernel_row(name, shape, what, err, ms, pms, bnd):
 
 
 def log_rows(rows, err_unit=''):
+    """One [kernel] line per row. A raster row also has its device time
+    per launch; its share of the bound reads from that, every other row's
+    from the wrapper call."""
     for r in rows:
-        log(f'[kernel] {r["name"]} {tuple(r["shape"])} {r["what"]}: '
-            f'max_abs_err={r["max_abs_err"]:.3e}{err_unit} '
-            f'kernel_ms={r["ms"]:.4f} plain_ms={r["plain_ms"]:.4f} '
-            f'bound_us={r["bound_us"]:.4g} ({r["bound_by"]}) '
-            f'share={r["bound_us"] / 1e3 / r["ms"]:.1%}')
+        line = (f'[kernel] {r["name"]} {tuple(r["shape"])} {r["what"]}: '
+                f'max_abs_err={r["max_abs_err"]:.3e}{err_unit} '
+                f'kernel_ms={r["ms"]:.4f} plain_ms={r["plain_ms"]:.4f} '
+                f'bound_us={r["bound_us"]:.4g} ({r["bound_by"]}) ')
+        if 'device_us' in r:
+            line += (f'device_us={r["device_us"]:.2f} share(device time)='
+                     f'{r["bound_us"] / r["device_us"]:.1%} K={r["K"]} '
+                     f'real_per_cell={r["real_per_cell"]:.2f} '
+                     f'kept_per_tile={r["kept_per_tile"]:.2f}')
+        else:
+            line += f'share={r["bound_us"] / 1e3 / r["ms"]:.1%}'
+        log(line)
 
 
 def check_kernels(dev):
@@ -247,93 +261,323 @@ def raster_bound(src, tabs, h, w):
     return bound(RASTER_FLOP_PER_PX * px, nbytes)
 
 
-def check_raster(dev, texture):
-    """Phase 3, mesh raster: the kernel against its plain version on (a) a
-    2048^2 block with a cell-binned table from a deformed section mesh
-    (mesh_size 600 on an 8192^2 section) and its own source crop, (b) four
-    512^2 flat-table blocks against one resident source, (c) two identical
-    triangles with equal weights, where the first row must win."""
-    import numpy as np
+def device_time(run, out, covered, n=20):
+    """Device microseconds per launch: ``n`` launches of the kernel's C
+    entry into preallocated outputs, captured in one CUDA graph and
+    replayed (no host time between launches), timed with CUDA events."""
     import torch
-    from feabas_tpu_torch.dal import StreamLoader
+    run(out, covered)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(n):
+                run(out, covered)
+    torch.cuda.current_stream().wait_stream(side)
+    return cuda_time(graph.replay, iters=10) / n * 1e3
+
+
+def _pad_tables(tabs, cands=None):
+    """Stack per-block tables (and cell candidates) as the engine's
+    dispatch does: rows padded with inert rows to a power of two, padding
+    candidates pointing at the last (inert) row."""
+    import numpy as np
     from feabas_tpu_torch.ops import render
-    from feabas_tpu_torch.renderer import MeshRenderer
-    img = texture[:8192, :8192]
-    mesh = _section_mesh(8192, 600, 8.0, 2048.0)
-    loader = StreamLoader(img)
-    eng = MeshRenderer.from_mesh(mesh, device=dev)._get_device_engine()
-    rows = []
-
-    def block_sel(x0, y0, x1, y1):
-        tb = eng._tb
-        return np.nonzero((tb[:, 0] < x1) & (tb[:, 2] > x0) & (tb[:, 1] < y1)
-                          & (tb[:, 3] > y0) & np.isfinite(eng._w))[0]
-
-    def compare(name, shape, args, geodesic=False, iters=20):
-        src, tabs, cands, h, w = args
-        got, cov = render.raster_blocks(src, tabs, cands, 0.0, h, w,
-                                        geodesic, 'u8')
-        want, pcov = render.raster_blocks_plain(src, tabs, cands, 0.0, h, w,
-                                                geodesic, 'u8')
-        diff = (got[0].to(torch.int32) - want[0].to(torch.int32)).abs()
-        err, frac = float(diff.max()), float((diff > 0).float().mean())
-        if not (err <= 1 and frac <= 1e-4 and torch.equal(cov, pcov)
-                and bool(cov.all())):
-            raise RuntimeError(f'mesh_raster {name}: max diff {err}, '
-                               f'{frac:.2e} of pixels differ, coverage '
-                               f'{cov.tolist()} vs {pcov.tolist()}')
-        ms = cuda_time(lambda: render.raster_blocks(src, tabs, cands, 0.0, h,
-                                                    w, geodesic, 'u8'), iters)
-        pms = cuda_time(lambda: render.raster_blocks_plain(
-            src, tabs, cands, 0.0, h, w, geodesic, 'u8'), max(iters // 4, 2))
-        rows.append(kernel_row('mesh_raster', shape, name, err, ms, pms,
-                               raster_bound(src, tabs, h, w)))
-        return got
-
-    # (a) 2048^2 block, cells, per-block source crop
-    x0, y0 = 3072, 3072
-    sel = block_sel(x0, y0, x0 + 2048, y0 + 2048)
-    ps = eng._Psrc[sel].reshape(-1, 2)
-    sx0, sy0 = (int(np.floor(v)) - 2 for v in ps.min(axis=0))
-    sw, sh = (render._align_up(int(np.ceil(v)) + 2 - o, render._SRC_ALIGN,
-                               render._SRC_ALIGN)
-              for v, o in zip(ps.max(axis=0), (sx0, sy0)))
-    crop = img[sy0:sy0 + sh, sx0:sx0 + sw]
-    tab = eng._table_for_block(sel, (x0, y0), (sx0, sy0), eng._w)
-    cand = eng._cells_for_block(sel, (x0, y0), 2048, 2048)
-    compare('2048^2 cells, own crop', (1, 2048, 2048),
-            (torch.from_numpy(np.ascontiguousarray(crop))[None].to(dev),
-             torch.from_numpy(tab)[None].to(dev),
-             torch.from_numpy(cand)[None].to(dev), 2048, 2048))
-    # (b) 4 x 512^2 flat tables, one resident source
-    resident, origin = eng._resident_source(loader, 0)
-    tabs = []
-    for k in range(4):
-        bx, by = 1024 + 512 * (k % 2), 5120 + 512 * (k // 2)
-        tabs.append(eng._table_for_block(block_sel(bx, by, bx + 512, by + 512),
-                                         (bx, by), origin, eng._w))
     Tp = max(t.shape[0] for t in tabs)
-    tt = np.zeros((4, Tp, 14), np.float32)
+    Tp = render._align_up(1 << int(Tp - 1).bit_length(), render._CHUNK,
+                          render._CHUNK)
+    tt = np.zeros((len(tabs), Tp, 14), np.float32)
     tt[:, :, 2], tt[:, :, 12], tt[:, :, 13] = -2.0, -np.inf, -1.0
     for k, t in enumerate(tabs):
         tt[k, :t.shape[0]] = t
-    compare('4 x 512^2 flat, resident source', (4, 512, 512),
-            (resident, torch.from_numpy(tt).to(dev), None, 512, 512))
+    if cands is None:
+        return tt, None
+    Kp = max(c.shape[-1] for c in cands)
+    cd = np.full((len(tabs), cands[0].shape[0], Kp), Tp - 1, np.int32)
+    for k, c in enumerate(cands):
+        cd[k, :, :c.shape[-1]] = c
+    return tt, cd
+
+
+def _engine_of(mesh, dev, **kw):
+    from feabas_tpu_torch.renderer import MeshRenderer
+    return MeshRenderer.from_mesh(mesh, device=dev, **kw)._get_device_engine()
+
+
+def _block_sel(eng, x0, y0, x1, y1):
+    import numpy as np
+    tb = eng._tb
+    return np.nonzero((tb[:, 0] < x1) & (tb[:, 2] > x0) & (tb[:, 1] < y1)
+                      & (tb[:, 3] > y0) & np.isfinite(eng._w))[0]
+
+
+def _crop_blocks(eng, img, origins, size):
+    """Per-block source crops (one common bucket shape), tables and cell
+    candidates of ``size``^2 blocks at ``origins``, as
+    ``DeviceRenderEngine.render_blocks`` prepares a batch."""
+    import numpy as np
+    from feabas_tpu_torch.ops import render
+    sels = [_block_sel(eng, x0, y0, x0 + size, y0 + size)
+            for x0, y0 in origins]
+    boxes = []
+    for sel in sels:
+        ps = eng._Psrc[sel].reshape(-1, 2)
+        lo = [int(np.floor(v)) - 2 for v in ps.min(axis=0)]
+        hi = [int(np.ceil(v)) + 2 for v in ps.max(axis=0)]
+        boxes.append((lo, [render._align_up(b - a, render._SRC_ALIGN,
+                                            render._SRC_ALIGN)
+                           for a, b in zip(lo, hi)]))
+    sw = max(b[1][0] for b in boxes)
+    sh = max(b[1][1] for b in boxes)
+    crops, tabs, cands = [], [], []
+    for (x0, y0), sel, (lo, _) in zip(origins, sels, boxes):
+        crop = np.zeros((sh, sw), img.dtype)
+        part = img[max(lo[1], 0):lo[1] + sh, max(lo[0], 0):lo[0] + sw]
+        crop[max(-lo[1], 0):max(-lo[1], 0) + part.shape[0],
+             max(-lo[0], 0):max(-lo[0], 0) + part.shape[1]] = part
+        crops.append(crop)
+        tabs.append(eng._table_for_block(sel, (x0, y0), tuple(lo), eng._w))
+        cands.append(eng._cells_for_block(sel, (x0, y0), size, size))
+    return crops, tabs, cands
+
+
+def _quad_mesh(x0, y0, x1, y1, shift):
+    """Two triangles over a rectangle, its MOVING gear shifted by
+    ``shift`` px and sheared a little."""
+    import numpy as np
+    from feabas_tpu_torch.mesh import Mesh
+    v = np.array([[x0, y0], [x1, y0], [x0, y1], [x1, y1]], np.float64)
+    m = Mesh(v, np.array([[0, 1, 2], [1, 3, 2]]), resolution=4)
+    moved = v + shift + 0.01 * (v - v.mean(axis=0))[:, ::-1]
+    c = moved.mean(axis=0, keepdims=True)
+    m.set_vertices(moved - c, 'MOVING', offset=c)
+    return m
+
+
+def check_raster(dev, texture):
+    """Phase 3, mesh raster: the kernel against its plain version, 0 LSB
+    and equal coverage flags everywhere.
+
+    Timed rows (wrapper call, device time per launch, plain version,
+    bound, and what the tile cull removes): (a) 1, 2, 3 and 4 x 2048^2
+    blocks with cell-binned tables from a deformed section mesh (mesh_size
+    600 on an 8192^2 section), each with its own source crop: the align
+    path's batches; (b) four 512^2 flat-table blocks against one resident
+    source; (c) two identical triangles with equal weights, where the
+    first row must win. Edges (checked, timed briefly): flat tables at
+    1x1, 3x5 and 130x70 with u16 and f32 outputs, an f32 source, a folded
+    mesh with the geodesic mask (flat and cells), a cell with only padding
+    candidates and a block with no real row at all, K = 4 and K = 32, a
+    flat table walked in chunks, and a block whose real rows all lie in
+    one corner tile. Then the batch upload: staged through the reused
+    page-locked buffer against a plain copy from pageable memory."""
+    import numpy as np
+    import torch
+    from feabas_tpu_torch import state
+    from feabas_tpu_torch.dal import StreamLoader
+    from feabas_tpu_torch.mesh import Mesh
+    from feabas_tpu_torch.ops import render
+    img = texture[:8192, :8192]
+    mesh = _section_mesh(8192, 600, 8.0, 2048.0)
+    loader = StreamLoader(img)
+    eng = _engine_of(mesh, dev)
+    tile_h = render.kernel_tile_h(dev)
+    rows = []
+
+    def t(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev)
+
+    def compare(name, args, geodesic=False, out_kind='u8', fillval=0.0,
+                covered=True, iters=20, warm_s=0.1, edge=False):
+        src, tabs, cands, h, w = args
+        B = tabs.shape[0]
+
+        def kernel():
+            return render.raster_blocks(src, tabs, cands, fillval, h, w,
+                                        geodesic, out_kind)
+
+        def plain():
+            return render.raster_blocks_plain(src, tabs, cands, fillval, h, w,
+                                              geodesic, out_kind)
+        (got,), cov = kernel()
+        (want,), pcov = plain()
+        torch.cuda.synchronize()
+        diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+        err = float(diff.max())
+        want_cov = [covered] * B if isinstance(covered, bool) else covered
+        if not (torch.equal(got, want) and got.dtype == want.dtype
+                and torch.equal(cov, pcov) and cov.dtype == torch.bool
+                and cov.tolist() == list(want_cov)):
+            raise RuntimeError(
+                f'mesh_raster {name}: max diff {err}, '
+                f'{float((diff > 0).float().mean()):.2e} of pixels differ, '
+                f'coverage {cov.tolist()} vs plain {pcov.tolist()}, expected '
+                f'{list(want_cov)}')
+        ms = cuda_time(kernel, iters, warm_s)
+        pms = cuda_time(plain, max(iters // 4, 2), warm_s)
+        run, _, dt = render._prepare(src, tabs, cands, fillval, h, w,
+                                     geodesic, out_kind, None)
+        us = device_time(run, torch.empty((B, h, w), dtype=dt, device=dev),
+                         torch.empty(B, dtype=torch.bool, device=dev))
+        keep = render.tile_cull_plain(tabs, cands, h, w, tile_h)
+        idx = (cands.long() if cands is not None else
+               torch.arange(tabs.shape[1], device=dev)[None, None]
+               .expand(B, 1, -1))
+        real = torch.isfinite(
+            tabs[torch.arange(B, device=dev)[:, None, None], idx][..., 12])
+        row = kernel_row('mesh_raster', (B, h, w), name, err, ms, pms,
+                         raster_bound(src, tabs, h, w))
+        row.update(edge=edge, device_us=us, K=int(keep.shape[-1]),
+                   real_per_cell=float(real.sum(-1).float().mean()),
+                   kept_per_tile=float(keep.sum(-1).float().mean()))
+        rows.append(row)
+        return got
+
+    # (a) the align path's batches: 1-4 x 2048^2 blocks, cells, own crops
+    origins = [(3072, 3072), (1024, 3072), (3072, 1024), (5120, 5120)]
+    crops, tabs, cands = _crop_blocks(eng, img, origins, 2048)
+    batches = {}
+    for n in (1, 2, 3, 4):
+        tt, cd = _pad_tables(tabs[:n], cands[:n])
+        batches[n] = (np.stack(crops[:n]), tt, cd)
+        compare(f'{n} x 2048^2 cells, own crops' if n > 1
+                else '2048^2 cells, own crop',
+                (t(batches[n][0]), t(tt), t(cd), 2048, 2048),
+                iters=20 if n == 1 else 10)
+    # (b) 4 x 512^2 flat tables, one resident source
+    resident, origin = eng._resident_source(loader, 0)
+    flat = [eng._table_for_block(_block_sel(eng, bx, by, bx + 512, by + 512),
+                                 (bx, by), origin, eng._w)
+            for bx, by in ((1024, 5120), (1536, 5120), (1024, 5632),
+                           (1536, 5632))]
+    tt, _ = _pad_tables(flat)
+    compare('4 x 512^2 flat, resident source', (resident, t(tt), None, 512,
+                                                512))
     # (c) two identical always-inside rows with equal weight and different
     # affines: the first must win every pixel
     A = np.eye(2)
     first = eng._table_affine(A, np.array([10.0, 10.0]), (0, 0), (0, 0))
     tie = first.copy()
     tie[1] = eng._table_affine(A, np.array([20.0, 5.0]), (0, 0), (0, 0))[0]
-    src = torch.from_numpy(np.ascontiguousarray(img[:1024, :1024])).to(dev)
-    got = compare('tie, 512^2', (1, 512, 512),
-                  (src, torch.from_numpy(tie)[None].to(dev), None, 512, 512))
-    alone, _ = render.raster_blocks(src, torch.from_numpy(first)[None].to(dev),
-                                    None, 0.0, 512, 512, False, 'u8')
-    if not torch.equal(got[0], alone[0]):
+    src = t(img[:1024, :1024])
+    got = compare('tie, 512^2', (src, t(tie[None]), None, 512, 512))
+    alone, _ = render.raster_blocks(src, t(first[None]), None, 0.0, 512, 512,
+                                    False, 'u8')
+    if not torch.equal(got, alone[0]):
         raise RuntimeError('mesh_raster tie: the first row did not win')
+
+    # the kernel's edges
+    def edge(name, args, **kw):
+        compare(name, args, iters=8, warm_s=0.02, edge=True, **kw)
+
+    one = t(flat[0][None])
+    for h, w in ((1, 1), (3, 5), (130, 70)):
+        for kind in ('u16', 'f32'):
+            edge(f'flat {h}x{w}, {kind} out', (resident, one, None, h, w),
+                 out_kind=kind)
+    edge('flat 130x70, f32 source, u8 out',
+         (resident.to(torch.float32) * 0.5, one, None, 130, 70))
+    edge('4 x 512^2 flat, f32 source, f32 out, fill 7',
+         (resident.to(torch.float32) * 0.5, t(tt), None, 512, 512),
+         out_kind='f32', fillval=7.0)
+    # a folded mesh (x > 340 mirrored back) with the geodesic mask
+    fm = Mesh.from_bbox((0, 0, 512, 256), cartesian=True, mesh_size=40,
+                        resolution=4)
+    v = fm.vertices('FIXED').copy()
+    v[v[:, 0] > 340, 0] = 680 - v[v[:, 0] > 340, 0]
+    fm.set_vertices(v, 'MOVING')
+    fimg = np.ascontiguousarray(img[:256, :512])
+    floader = StreamLoader(fimg)
+    feng = _engine_of(fm, dev, image_loader=floader, mode='LEAST_DEFORM',
+                      geodesic_mask=True)
+    if not feng._geodesic:
+        raise RuntimeError('the folded mesh has no fold sheets')
+    fres, forigin = feng._resident_source(floader, 0)
+    fsel = _block_sel(feng, 0, 0, 512, 256)
+    ftab = feng._table_for_block(fsel, (0, 0), forigin, feng._w)
+    fcand = feng._cells_for_block(fsel, (0, 0), 256, 512)
+    edge('fold, geodesic, 256x512 flat', (fres, t(ftab[None]), None, 256, 512),
+         geodesic=True)
+    edge('fold, geodesic, 256x512 cells',
+         (fres, t(ftab[None]), t(fcand[None]), 256, 512), geodesic=True)
+    # one cell with only padding candidates; a block with no real row
+    hole = batches[1][2].copy()
+    hole[0, 5 * 16 + 7] = batches[1][1].shape[1] - 1
+    edge('2048^2 cells, one cell all padding, fill 7',
+         (t(batches[1][0]), t(batches[1][1]), t(hole), 2048, 2048),
+         fillval=7.0)
+    empty = np.stack([flat[0], np.zeros_like(flat[0])])
+    empty[1, :, 2], empty[1, :, 12], empty[1, :, 13] = -2.0, -np.inf, -1.0
+    edge('2 x 512^2 flat, second block all padding, fill 7',
+         (resident, t(empty), None, 512, 512), fillval=7.0,
+         covered=[True, False])
+    # K = 4 (two triangles), K = 32 and a flat table of more than 256 rows
+    # (mesh_size 50 on a 2048^2 section)
+    qimg = np.ascontiguousarray(img[:1024, :1024])
+    qeng = _engine_of(_quad_mesh(-8, -8, 1032, 1032, (6.0, 4.0)), dev)
+    qsel = _block_sel(qeng, 0, 0, 1024, 1024)
+    qtab = qeng._table_for_block(qsel, (0, 0), (0, 0), qeng._w)
+    qcand = qeng._cells_for_block(qsel, (0, 0), 1024, 1024)
+    if qcand.shape[-1] != 4:
+        raise RuntimeError(f'two triangles gave K = {qcand.shape[-1]}')
+    edge('1024^2 cells, K = 4', (t(qimg), t(qtab[None]), t(qcand[None]), 1024,
+                                 1024))
+    deng = _engine_of(_section_mesh(2048, 50, 4.0, 512.0), dev)
+    dcrops, dtabs, dcands = _crop_blocks(deng, img, [(512, 512)], 512)
+    if dcands[0].shape[-1] != 32 or dtabs[0].shape[0] <= 256:
+        raise RuntimeError(f'mesh_size 50 gave K = {dcands[0].shape[-1]} and '
+                           f'{dtabs[0].shape[0]} rows')
+    edge('512^2 cells, K = 32',
+         (t(dcrops[0][None]), t(dtabs[0][None]), t(dcands[0][None]), 512, 512))
+    edge(f'512^2 flat, {dtabs[0].shape[0]} rows in chunks',
+         (t(dcrops[0][None]), t(dtabs[0][None]), None, 512, 512))
+    # every real row inside the first tile (the top-left 128 x 8 px)
+    ceng = _engine_of(_quad_mesh(2, 1, 100, 7, (3.0, 2.0)), dev)
+    csel = _block_sel(ceng, 0, 0, 512, 512)
+    ctab = ceng._table_for_block(csel, (0, 0), (0, 0), ceng._w)
+    ccand = ceng._cells_for_block(csel, (0, 0), 512, 512)
+    edge('512^2 flat, rows in one corner tile',
+         (t(qimg), t(ctab[None]), None, 512, 512))
+    edge('512^2 cells, rows in one corner tile',
+         (t(qimg), t(ctab[None]), t(ccand[None]), 512, 512))
     torch.cuda.synchronize()
     log_rows(rows, ' LSB')
+
+    # the batch upload: one reused page-locked staging buffer against a
+    # copy from pageable memory, for the 1- and 4-block batches above
+    for n in (1, 4):
+        crop_list = crops[:n]
+        tt, cd = batches[n][1], batches[n][2]
+
+        def staged():
+            return state.render_batch_to_device(crop_list, tt, cd, dev)
+
+        def pageable():
+            return (torch.from_numpy(np.stack(crop_list)).to(dev),
+                    torch.from_numpy(tt).to(dev), torch.from_numpy(cd).to(dev))
+        for a, b in zip(staged(), pageable()):
+            if not torch.equal(a, b):
+                raise RuntimeError('the staged upload changed the bytes')
+        held = torch.empty(np.stack(crop_list).shape, dtype=torch.uint8,
+                           pin_memory=True)
+        dst = torch.empty(held.shape, dtype=torch.uint8, device=dev)
+        dma = cuda_time(lambda: dst.copy_(held, non_blocking=True), 10)
+        line = f'[upload] {n} x {crop_list[0].shape} u8 crops + tables:'
+        for name, fn in (('pageable', pageable), ('staged', staged),
+                         ('staged', staged), ('pageable', pageable)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            host = (time.perf_counter() - t0) / 10 * 1e3
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 10 * 1e3
+            line += f' {name} host {host:.3f} ms, to sync {wall:.3f} ms;'
+        log(line + f' device time of the crops\' copy from page-locked '
+            f'memory {dma:.3f} ms')
     return rows
 
 
@@ -637,7 +881,7 @@ def run_align(dev):
     CLI (meshing, matching, optimization, rendering)."""
     import numpy as np
     import torch
-    from feabas_tpu_torch import aligner
+    from feabas_tpu_torch import aligner, state
     from feabas_tpu_torch import device as device_mod
     from feabas_tpu_torch.ops import render
     from feabas_tpu_torch.scripts import align_main
@@ -646,11 +890,13 @@ def run_align(dev):
     sections, drift = make_stack(dev)
     root = tempfile.mkdtemp(prefix='feabas_chip_align_')
     # observe, without changing them, the window solves and the raster
-    # batches of the run
+    # batches of the run: CUDA events around each raster call, the host
+    # clock around each batch upload
     stacked, raster_blocks, device_blocks = [], [0], [0]
-    solve, raster, engine_render = (aligner.Stack._sharded_window_solve,
-                                    render.raster_blocks,
-                                    render.DeviceRenderEngine.render_blocks)
+    raster_events, upload_s = [], [0.0]
+    solve, raster, engine_render, upload = (
+        aligner.Stack._sharded_window_solve, render.raster_blocks,
+        render.DeviceRenderEngine.render_blocks, state.render_batch_to_device)
 
     def solve_spy(self, *a, **k):
         stacked.append(solve(self, *a, **k) and self.last_window_sharded)
@@ -658,7 +904,18 @@ def run_align(dev):
 
     def raster_spy(src, tables, *a, **k):
         raster_blocks[0] += tables.shape[0]
-        return raster(src, tables, *a, **k)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = raster(src, tables, *a, **k)
+        ev[1].record()
+        raster_events.append(ev)
+        return out
+
+    def upload_spy(*a, **k):
+        t = time.perf_counter()
+        out = upload(*a, **k)
+        upload_s[0] += time.perf_counter() - t
+        return out
 
     def render_spy(self, *a, **k):
         out = engine_render(self, *a, **k)
@@ -668,6 +925,7 @@ def run_align(dev):
     aligner.Stack._sharded_window_solve = solve_spy
     render.raster_blocks = raster_spy
     render.DeviceRenderEngine.render_blocks = render_spy
+    state.render_batch_to_device = upload_spy
     try:
         wd, names = setup_align_workdir(root, sections)
         log(f'[align] {STACK_S} sections of {SECTION}x{SECTION} uint8, drift '
@@ -737,11 +995,17 @@ def run_align(dev):
             f'{len(stacked)} stacked window solve(s), {device_blocks[0]} '
             f'device blocks in {launches["mesh_raster"]} raster launches, '
             f'overlay cc {min(ccs):.5f}-{max(ccs):.5f}')
+        raster_ms = sum(a.elapsed_time(b) for a, b in raster_events)
+        log(f'[align] rendering: {raster_ms:.3f} ms between the CUDA events '
+            f'around the {len(raster_events)} raster calls (the kernel and, '
+            f'on an idle card, the wait for its launch), {upload_s[0]:.3f} s '
+            f'of host time in the {len(raster_events)} batch uploads')
         return launches, by_shape, stage_s
     finally:
         aligner.Stack._sharded_window_solve = solve
         render.raster_blocks = raster
         render.DeviceRenderEngine.render_blocks = engine_render
+        state.render_batch_to_device = upload
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -776,7 +1040,7 @@ def main():
         for r in runs.values():
             for k, c in r[1][n].items():
                 shape_launches[k] = shape_launches.get(k, 0) + c
-        main_row = max(checks, key=lambda r: (
+        main_row = max((r for r in checks if not r.get('edge')), key=lambda r: (
             shape_launches.get('x'.join(map(str, r['shape'])), 0),
             shape_launches.get('x'.join(map(str, r['shape'])), 0) * r['ms']))
         entries.append({
@@ -794,9 +1058,10 @@ def main():
             # no single PyTorch call computes either function: conv2d pads
             # with zeros, not 'nearest'; nothing in PyTorch rasterizes
             'library_ms': None,
-            'checks': [{k: r[k] for k in ('shape', 'what', 'max_abs_err',
-                                          'ms', 'plain_ms', 'bound_us',
-                                          'bound_by')} for r in checks]})
+            'checks': [{k: r[k] for k in (
+                'shape', 'what', 'max_abs_err', 'ms', 'plain_ms', 'bound_us',
+                'bound_by', 'device_us', 'K', 'real_per_cell',
+                'kept_per_tile') if k in r} for r in checks]})
     log(json.dumps({'kernels': entries}))
     log(card)
     log(json.dumps({'ok': True, 'device': {

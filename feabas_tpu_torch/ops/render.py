@@ -11,7 +11,8 @@ blocks in the output dtype with one coverage flag each.
 On a CUDA tensor ``raster_blocks`` launches the hand-written kernel
 (``csrc/mesh_raster.cu``) once per batch, for flat and cell-binned tables,
 for one shared source or per-block source crops; on a CPU tensor it runs
-``raster_blocks_plain``, the same arithmetic in plain PyTorch. The
+``raster_blocks_plain``, the same arithmetic in plain PyTorch.
+``tile_cull_plain`` states the kernel's per-tile candidate cull. The
 optional mip chain (2x area averages with a Gaussian pre-blur) runs in
 PyTorch after either, its blur through ``ops.dog.gaussian_blur``.
 
@@ -25,7 +26,8 @@ import ctypes
 import numpy as np
 import torch
 
-from feabas_tpu_torch import build, device, state
+from feabas_tpu_torch import build, state
+from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch.ops import dog
 from feabas_tpu_torch.ops.warp import bilinear_sample
 
@@ -50,7 +52,8 @@ _MAX_INFLIGHT = 3
 
 _OUT_KINDS = {'u8': (0, torch.uint8), 'u16': (1, torch.uint16),
               'f32': (2, torch.float32)}
-_LIB = None
+# device -> (library, device index, raw current-stream lookup)
+_LIBS = {}
 
 
 def resolve_group_cap(flag=None, block_pixels=None):
@@ -220,6 +223,8 @@ def _mip_chain(out, out_kind, n_mips, mip_blur):
     """[mip0, mip1, ...]: each level blurs (sigma ``mip_blur``) and 2x
     area-averages the quantized previous level, then quantizes again."""
     levels = [out]
+    if not n_mips:
+        return levels
     cur = out.to(torch.float32)
     for _ in range(int(n_mips)):
         if mip_blur and mip_blur > 0:
@@ -246,28 +251,89 @@ def raster_blocks_plain(src, tables, cands, fillval, h, w, geodesic,
 
 # --------------------------------- kernel --------------------------------- #
 
-def _lib():
-    global _LIB
-    if _LIB is None:
+def tile_cull_plain(tables, cands, h, w, tile_h):
+    """The kernel's tile cull, in plain PyTorch: which candidate rows
+    survive in each tile of ``_CELL`` x ``tile_h`` px (``tile_h`` divides
+    ``_CELL``; tiles are clipped to the block). Returns (B, tiles_y,
+    tiles_x, n) bool over the cell's K candidates, or over the Tp table
+    rows for a flat table.
+
+    l1 and l2 as ``_affine`` spells them are monotone in x and in y
+    (rounding to nearest is monotone), so their extremes over a tile lie
+    at its four corner pixels. A row is dropped when its largest l1 or l2
+    is below -eps, or when its smallest l1 plus its smallest l2, which no
+    pixel's rounded l1 + l2 falls below, exceeds 1 + eps: the per-pixel
+    test then rejects it at every pixel of the tile. The raster does not
+    call this; tests and the chip check's counts do."""
+    B = tables.shape[0]
+    dev = tables.device
+    nty, ntx = -(-h // tile_h), -(-w // _CELL)
+    tx0 = torch.arange(ntx, device=dev) * _CELL
+    ty0 = torch.arange(nty, device=dev) * tile_h
+    tx1 = torch.clamp(tx0 + _CELL, max=w) - 1
+    ty1 = torch.clamp(ty0 + tile_h, max=h) - 1
+    if cands is None:
+        rows = tables[:, None, None]                     # (B, 1, 1, Tp, 14)
+    else:
+        cell = ((ty0 // _CELL) * (w // _CELL))[:, None] + tx0[None] // _CELL
+        idx = cands.to(torch.int64)[:, cell]             # (B, nty, ntx, K)
+        rows = tables[torch.arange(B, device=dev)[:, None, None, None], idx]
+
+    def extremes(j):
+        at = torch.stack([
+            _affine(rows[..., j], x.to(torch.float32)[None, None, :, None],
+                    rows[..., j + 1], y.to(torch.float32)[None, :, None, None],
+                    rows[..., j + 2])
+            for y in (ty0, ty1) for x in (tx0, tx1)])
+        return at.amax(dim=0), at.amin(dim=0)
+
+    hi1, lo1 = extremes(0)
+    hi2, lo2 = extremes(3)
+    return (hi1 >= -_EPS) & (hi2 >= -_EPS) & (lo1 + lo2 <= 1.0 + _EPS)
+
+
+def _lib(dev):
+    """(library, device index, raw current-stream lookup) of ``dev``, built
+    and bound at the first launch on it."""
+    ent = _LIBS.get(dev)
+    if ent is None:
         lib = build.load('mesh_raster')
         P, I = ctypes.c_void_p, ctypes.c_int
         # tables, Tp, cands, K, cell, ncx, src, src_bstride, src_stride,
-        # src_kind, src_hw, fillval, B, h, w, geodesic, out_kind, out,
-        # covered, stream
+        # src_kind, src_hw, src_h, src_w, fillval, B, h, w, geodesic,
+        # out_kind, out, covered, stream
         lib.mesh_raster.argtypes = [P, I, P, I, I, I, P, ctypes.c_longlong,
-                                    I, I, P, ctypes.c_float, I, I, I, I, I,
-                                    P, P, P]
+                                    I, I, P, I, I, ctypes.c_float, I, I, I,
+                                    I, I, P, P, P]
         lib.mesh_raster.restype = I
-        _LIB = lib
-    return _LIB
+        lib.mesh_raster_tile_h.restype = I
+        index = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+        if raw is None:
+            def raw(i):
+                return torch.cuda.current_stream(i).cuda_stream
+        ent = _LIBS[dev] = (lib, index, raw)
+    return ent
 
 
-def _launch(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw):
+def kernel_tile_h(dev):
+    """Tile height in px of the built kernel on ``dev`` (its tiles are
+    ``_CELL`` px wide), as ``tile_cull_plain`` takes it."""
+    return int(_lib(dev)[0].mesh_raster_tile_h())
+
+
+def _prepare(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw):
+    """Check one batch for the kernel. Returns (run, B, out dtype):
+    ``run(out, covered)`` enqueues one launch on the current stream into a
+    (B, h, w) tensor of that dtype and a (B,) bool tensor, and counts it."""
     dev = tables.device
     if tables.dtype != torch.float32 or tables.dim() != 3 \
-            or tables.shape[-1] != 14 or not tables.is_contiguous():
-        raise ValueError('tables must be a contiguous (B, Tp, 14) float32 '
-                         f'tensor, got {tuple(tables.shape)} {tables.dtype}')
+            or tables.shape[-1] != 14 or not tables.is_contiguous() \
+            or tables.data_ptr() % 8:
+        raise ValueError('tables must be a contiguous, 8-byte aligned '
+                         '(B, Tp, 14) float32 tensor, got '
+                         f'{tuple(tables.shape)} {tables.dtype}')
     B, Tp = tables.shape[:2]
     if src.device != dev:
         raise ValueError(f'source on {src.device}, tables on {dev}')
@@ -278,9 +344,18 @@ def _launch(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw):
     if per_block and src.shape[0] != B:
         raise ValueError(f'{src.shape[0]} source crops for {B} blocks')
     Hs, Ws = src.shape[-2:]
-    hw = _src_extents(src, B, src_hw)
-    if any(H < 2 or W < 2 or H > Hs or W > Ws for H, W in hw):
-        raise ValueError(f'source extents {hw} outside the ({Hs}, {Ws}) source')
+    hw_t = None
+    if src_hw is not None:
+        # per-block extents: one (B, 2) int32 tensor on the card
+        hw = _src_extents(src, B, src_hw)
+        if len(hw) != B or any(H < 2 or W < 2 or H > Hs or W > Ws
+                               for H, W in hw):
+            raise ValueError(f'source extents {hw} outside the ({Hs}, {Ws}) '
+                             f'source of {B} blocks')
+        hw_t = torch.as_tensor(np.asarray(hw, np.int32).reshape(B, 2),
+                               device=dev)
+    elif Hs < 2 or Ws < 2:
+        raise ValueError(f'source ({Hs}, {Ws}) smaller than 2 x 2')
     K, ncx, cand_ptr = Tp, 1, None
     if cands is not None:
         if h % _CELL or w % _CELL:
@@ -293,21 +368,42 @@ def _launch(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw):
         cands = cands.contiguous()
         K, cand_ptr = cands.shape[2], cands.data_ptr()
     code, dt = _OUT_KINDS[out_kind]
-    hw_t = torch.as_tensor(np.asarray(hw, np.int32).reshape(B, 2), device=dev)
-    out = torch.empty((B, h, w), dtype=dt, device=dev)
-    covered = torch.zeros(B, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = _lib().mesh_raster(
-            tables.data_ptr(), Tp, cand_ptr, K, _CELL, ncx, src.data_ptr(),
+    lib, index, raw_stream = _lib(dev)
+    args = (tables.data_ptr(), Tp, cand_ptr, K, _CELL, ncx, src.data_ptr(),
             Hs * Ws if per_block else 0, Ws,
-            0 if src.dtype == torch.uint8 else 1, hw_t.data_ptr(),
-            float(fillval), B, h, w, int(bool(geodesic)), code,
-            out.data_ptr(), covered.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f'mesh_raster launch failed: CUDA error {err}')
-    device.count_launch('mesh_raster', (B, h, w))
-    return out, covered.bool()
+            0 if src.dtype == torch.uint8 else 1,
+            None if hw_t is None else hw_t.data_ptr(), Hs, Ws,
+            float(fillval), B, h, w, int(bool(geodesic)), code)
+
+    def run(out, covered):
+        if (out.dtype != dt or tuple(out.shape) != (B, h, w)
+                or covered.dtype != torch.bool or covered.numel() != B
+                or out.device != dev or covered.device != dev
+                or not out.is_contiguous()):
+            raise ValueError('outputs must be a contiguous (B, h, w) '
+                             f'{dt} tensor and a (B,) bool tensor on {dev}')
+        if torch.cuda.current_device() == index:
+            err = lib.mesh_raster(*args, out.data_ptr(), covered.data_ptr(),
+                                  raw_stream(index))
+        else:
+            with torch.cuda.device(index):
+                err = lib.mesh_raster(*args, out.data_ptr(),
+                                      covered.data_ptr(), raw_stream(index))
+        if err != 0:
+            raise RuntimeError(f'mesh_raster launch failed: CUDA error {err}')
+        device_mod.count_launch('mesh_raster', (B, h, w))
+
+    run.tensors = (src, tables, cands, hw_t)   # alive as long as ``run`` is
+    return run, B, dt
+
+
+def _launch(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw):
+    run, B, dt = _prepare(src, tables, cands, fillval, h, w, geodesic,
+                          out_kind, src_hw)
+    out = torch.empty((B, h, w), dtype=dt, device=tables.device)
+    covered = torch.empty(B, dtype=torch.bool, device=tables.device)
+    run(out, covered)
+    return out, covered
 
 
 def raster_blocks(src, tables, cands, fillval, h, w, geodesic, out_kind,
@@ -349,7 +445,7 @@ class DeviceRenderEngine:
 
     def __init__(self, mesh, target_gear, source_gear, tri_weights,
                  colors=None, device=None):
-        self.device = device if device is not None else torch.device('cpu')
+        self.device = device_mod.get_device(device)
         vw = np.asarray(mesh.vertices_w_offset(target_gear), np.float64)
         tris = mesh.triangles
         self._P = vw[tris]                                # (T, 3, 2) target
@@ -563,7 +659,7 @@ class DeviceRenderEngine:
                     cands[k, :, :c.shape[-1]] = c
             src, tabs, cands = state.render_batch_to_device(
                 None if key[3] == 'resident'
-                else np.stack([prepared[i][4] for i in idxs]),
+                else [prepared[i][4] for i in idxs],
                 tabs, cands, self.device)
             if src is None:
                 src = resident[0]

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from feabas_tpu_torch import constant as const
+from feabas_tpu_torch import device as device_mod
 
 _FFT_SIZES = None
 
@@ -240,8 +241,9 @@ def xcorr_fft(img0, img1, conf_mode=const.FFT_CONF_MIRROR, device=None,
     subpixel = int(subpixel) if not isinstance(subpixel, bool) else subpixel
     pad = kwargs.get('pad', True)
     pow2 = kwargs.get('pow2', True)
-    img0 = torch.as_tensor(np.asarray(img0) if not torch.is_tensor(img0)
-                           else img0, device=device)
+    if not torch.is_tensor(img0):
+        img0 = torch.as_tensor(np.asarray(img0),
+                               device=device_mod.get_device(device))
     img1 = torch.as_tensor(np.asarray(img1) if not torch.is_tensor(img1)
                            else img1, device=img0.device)
     dev = img0.device

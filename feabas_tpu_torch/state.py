@@ -15,6 +15,8 @@ from their plain numpy arrays and strings, so port code receives only the
 port's objects.
 """
 
+import threading
+
 import numpy as np
 import torch
 
@@ -86,20 +88,86 @@ def window_system_to_device(system, device, float_dtype=torch.float32):
                        if system.get(k) is not None}, device, float_dtype)
 
 
+_TORCH_DTYPES = {'uint8': torch.uint8, 'float32': torch.float32,
+                 'int32': torch.int32}
+
+
+class _PinnedStage:
+    """One growing page-locked host buffer per CUDA device, reused by every
+    batch: arrays are written into it and leave as asynchronous copies on
+    the current stream. The next batch waits for those copies (an event)
+    before it overwrites the buffer."""
+
+    def __init__(self):
+        self.buf = None
+        self.done = None
+
+    def upload(self, parts, device):
+        """parts: [(list of same-shape arrays to stack | array, dtype)] ->
+        one device tensor each, same bytes as a synchronous copy."""
+        specs, total = [], 0
+        for arrs, dt in parts:
+            stacked = isinstance(arrs, (list, tuple))
+            shape = ((len(arrs),) + arrs[0].shape) if stacked else arrs.shape
+            nbytes = int(np.prod(shape)) * np.dtype(dt).itemsize
+            specs.append((arrs, np.dtype(dt), stacked, shape, total, nbytes))
+            total += -(-nbytes // 256) * 256
+        if self.done is not None:
+            self.done.synchronize()
+        if self.buf is None or self.buf.numel() < total:
+            self.buf = torch.empty(max(total, 1), dtype=torch.uint8,
+                                   pin_memory=True)
+        out = []
+        for arrs, dt, stacked, shape, off, nbytes in specs:
+            held = self.buf[off:off + nbytes].view(_TORCH_DTYPES[dt.name])
+            held = held.view(shape)
+            view = held.numpy()
+            if stacked:
+                for k, a in enumerate(arrs):
+                    view[k] = a
+            else:
+                view[...] = arrs
+            out.append(torch.empty_like(held, device=device)
+                       .copy_(held, non_blocking=True))
+        self.done = torch.cuda.Event()
+        self.done.record(torch.cuda.current_stream(device))
+        return out
+
+
+# one stage per thread and device: concurrent renderers share no buffer
+_STAGES = threading.local()
+
+
 def render_batch_to_device(src, tables, cands, device):
-    """One raster batch on ``device``: the source (uint8 or float32 as
-    given, other dtypes widened to float32; None passes through), the
-    (B, Tp, 14) float32 tables and the (B, NC, K) int32 cell candidates
-    (or None), as ``ops.render.raster_blocks`` takes them."""
+    """One raster batch on ``device``: the source (one array, or a list of
+    same-shape crops to stack; uint8 or float32 as given, other dtypes
+    widened to float32; None passes through), the (B, Tp, 14) float32
+    tables and the (B, NC, K) int32 cell candidates (or None), as
+    ``ops.render.raster_blocks`` takes them. On a CUDA device the arrays
+    are staged through one reused page-locked buffer and copied
+    asynchronously on the current stream."""
+    stacked = isinstance(src, (list, tuple))
+    if device.type != 'cuda':
+        if src is not None:
+            src = np.stack(src) if stacked else np.ascontiguousarray(src)
+            if src.dtype not in (np.uint8, np.float32):
+                src = src.astype(np.float32)
+            src = torch.from_numpy(src).to(device)
+        return (src,
+                torch.from_numpy(np.asarray(tables, np.float32)).to(device),
+                None if cands is None
+                else torch.from_numpy(np.asarray(cands, np.int32)).to(device))
+    parts = [(np.asarray(tables), np.float32)]
+    if cands is not None:
+        parts.append((np.asarray(cands), np.int32))
     if src is not None:
-        src = np.ascontiguousarray(src)
-        if src.dtype not in (np.uint8, np.float32):
-            src = src.astype(np.float32)
-        src = torch.from_numpy(src).to(device)
-    return (src,
-            torch.from_numpy(np.asarray(tables, np.float32)).to(device),
-            None if cands is None
-            else torch.from_numpy(np.asarray(cands, np.int32)).to(device))
+        dt = (src[0] if stacked else src).dtype
+        parts.append((src, dt if dt in (np.uint8, np.float32)
+                      else np.float32))
+    stages = _STAGES.__dict__.setdefault('by_device', {})
+    out = stages.setdefault(str(device), _PinnedStage()).upload(parts, device)
+    return (out[-1] if src is not None else None, out[0],
+            out[1] if cands is not None else None)
 
 
 def mesh_from_init_dict(init):

@@ -335,24 +335,301 @@ def test_resolve_group_cap_follows_the_link_profile():
         link_probe.set_profile_for_testing(None)
 
 
+# ------------------------------ the tile cull ------------------------------ #
+
+def _inert(n):
+    tab = np.zeros((n, 14), np.float32)
+    tab[:, 2], tab[:, 12], tab[:, 13] = -2.0, -np.inf, -1.0
+    return tab
+
+
+def _table_from_triangles(P, rng, sheets=False):
+    """(Tp, 14) table of triangles P (n, 3, 2) in block pixels, built as the
+    engine builds it: near-identity affines, weights from a few values (so
+    ties occur), fold-sheet colours when asked; at least one inert row
+    follows."""
+    n = len(P)
+    a, e1, e2 = P[:, 0], P[:, 1] - P[:, 0], P[:, 2] - P[:, 0]
+    den = e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]
+    ok = np.abs(den) > 1e-9
+    P, a, e1, e2, den = P[ok], a[ok], e1[ok], e2[ok], den[ok]
+    n = len(P)
+    tab = _inert(render._align_up(n + 1, 8, 8))
+    l1 = np.stack([e2[:, 1] / den, -e2[:, 0] / den], -1)
+    l2 = np.stack([-e1[:, 1] / den, e1[:, 0] / den], -1)
+    tab[:n, 0:2], tab[:n, 2] = l1, -(a * l1).sum(-1)
+    tab[:n, 3:5], tab[:n, 5] = l2, -(a * l2).sum(-1)
+    A = np.eye(2) + rng.normal(0, 0.02, (n, 2, 2))
+    tab[:n, 6], tab[:n, 7] = A[:, 0, 0], A[:, 1, 0]
+    tab[:n, 9], tab[:n, 10] = A[:, 0, 1], A[:, 1, 1]
+    tab[:n, 8], tab[:n, 11] = rng.uniform(2, 6, (2, n))
+    tab[:n, 12] = rng.choice([0.5, 1.0, 2.0], n)
+    tab[:n, 13] = rng.integers(-1, 3, n) if sheets else -1.0
+    return tab, P
+
+
+def _cells_from_triangles(P, h, w):
+    """(NC, Kp) candidates per 128-px cell by bounding box, ascending,
+    padded with the inert row ``len(P)``."""
+    C = render._CELL
+    lo, hi = P.min(axis=1), P.max(axis=1)
+    cells = []
+    for cy in range(h // C):
+        for cx in range(w // C):
+            cells.append(np.nonzero(
+                (lo[:, 0] <= (cx + 1) * C) & (hi[:, 0] >= cx * C - 1)
+                & (lo[:, 1] <= (cy + 1) * C) & (hi[:, 1] >= cy * C - 1))[0])
+    K = max(max(len(c) for c in cells), 1)
+    Kp = max(4, 1 << (K - 1).bit_length())
+    cand = np.full((len(cells), Kp), len(P), np.int32)
+    for k, c in enumerate(cells):
+        cand[k, :len(c)] = c
+    return cand
+
+
+def _random_triangles(rng, n, h, w, tile_h):
+    """Random triangles of mixed orientation over (and beyond) the block,
+    plus triangles whose vertices sit on tile-corner pixels, so that
+    edges pass exactly through the corners the cull evaluates."""
+    P = rng.uniform(-40, 1, (n, 3, 2)) + rng.uniform(
+        0, 1, (n, 1, 2)) * [w + 40, h + 40] + rng.uniform(0, 90, (n, 3, 2))
+    xs = np.array([0, 127, 128, w - 1], np.float64)
+    ys = np.concatenate([np.arange(0, h, tile_h),
+                         np.arange(tile_h - 1, h, tile_h)]).astype(np.float64)
+    m = max(n // 3, 4)
+    lattice = np.stack([rng.choice(xs, (m, 3)), rng.choice(ys, (m, 3))], -1)
+    return np.concatenate([P, lattice])
+
+
+def _check_cull(tables, cands, h, w, tile_h, geodesic):
+    """The cull keeps every row that is inside at some pixel of a tile, and
+    the raster state of each tile from its surviving rows alone is
+    bit-equal to the state from all rows."""
+    keep = render.tile_cull_plain(tables, cands, h, w, tile_h)
+    B, Tp = tables.shape[:2]
+    nty, ntx, n = keep.shape[1:]
+    assert (nty, ntx) == (-(-h // tile_h), -(-w // 128))
+    assert n == (Tp if cands is None else cands.shape[-1])
+    full = render._raster_state_plain(tables, cands, h, w, geodesic)
+    inert = torch.from_numpy(_inert(1)[0])
+    assert torch.equal(tables[:, Tp - 1], inert.expand(B, 14))
+    f32 = torch.float32
+    tabs, cds, where = [], [], []
+    culled = 0
+    for b in range(B):
+        for ty in range(nty):
+            for tx in range(ntx):
+                y0, x0 = ty * tile_h, tx * 128
+                y1, x1 = min(y0 + tile_h, h), min(x0 + 128, w)
+                k = keep[b, ty, tx]
+                if cands is None:
+                    rows = tables[b]
+                else:
+                    cell = (y0 // 128) * (w // 128) + tx
+                    rows = tables[b][cands[b, cell].long()]
+                gx = torch.arange(x0, x1, dtype=f32)[None, None, :]
+                gy = torch.arange(y0, y1, dtype=f32)[None, :, None]
+
+                def col(j):
+                    return rows[:, j][:, None, None]
+                l1 = render._affine(col(0), gx, col(1), gy, col(2))
+                l2 = render._affine(col(3), gx, col(4), gy, col(5))
+                inside = ((l1 >= -render._EPS) & (l2 >= -render._EPS)
+                          & (l1 + l2 <= 1.0 + render._EPS)).flatten(1).any(1)
+                assert not bool((inside & ~k).any()), (b, ty, tx)
+                culled += int((~k).sum())
+                if cands is None:
+                    t = tables[b].clone()
+                    t[~k] = inert
+                    tabs.append(t)
+                else:
+                    c = cands[b].clone()
+                    c[cell][~k] = Tp - 1
+                    tabs.append(tables[b])
+                    cds.append(c)
+                where.append((b, slice(y0, y1), slice(x0, x1)))
+    part = render._raster_state_plain(
+        torch.stack(tabs), torch.stack(cds) if cds else None, h, w, geodesic)
+    for i, (b, ys, xs) in enumerate(where):
+        for got, want in zip(part, full):
+            assert torch.equal(got[i, ys, xs], want[b, ys, xs]), (b, ys, xs)
+    return culled, keep
+
+
+@pytest.mark.parametrize('tile_h', [8, 16, 32])
+@pytest.mark.parametrize('cells', [False, True])
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_tile_cull_is_conservative_on_random_tables(seed, cells, tile_h):
+    rng = np.random.default_rng(seed)
+    h, w = (128, 256) if cells else (90, 200)
+    tabs, cds = [], []
+    for _ in range(2):
+        tab, P = _table_from_triangles(
+            _random_triangles(rng, 14, h, w, tile_h), rng, sheets=seed == 2)
+        tabs.append(tab)
+        if cells:
+            cds.append(_cells_from_triangles(P, h, w))
+    Tp = max(t.shape[0] for t in tabs)
+    tt = np.stack([np.concatenate([t, _inert(Tp - t.shape[0])]) for t in tabs])
+    cd = None
+    if cells:
+        Kp = max(c.shape[1] for c in cds)
+        cd = np.full((2, cds[0].shape[0], Kp), Tp - 1, np.int32)
+        for k, c in enumerate(cds):
+            cd[k, :, :c.shape[1]] = c
+        cd = torch.from_numpy(cd)
+    culled, keep = _check_cull(torch.from_numpy(tt), cd, h, w, tile_h,
+                               seed == 2)
+    # the rule does remove rows, the padding among them
+    assert culled > 0 and not bool(keep[..., -1].any())
+
+
+@pytest.mark.parametrize('case', ['smooth_flat', 'smooth_cells', 'fold_flat',
+                                  'fold_cells'])
+def test_tile_cull_is_conservative_on_meshes(case):
+    """The deformed and the folded mesh of this file, through the port's
+    engine tables."""
+    if case.startswith('smooth'):
+        mesh, img, (h, w), kw = (_smooth_mesh(mesh_size=48), _world(),
+                                 (256, 256), {})
+    else:
+        mesh, img, (h, w), kw = (_folded_mesh(), _world(N=128)[:60, :120],
+                                 (128, 128),
+                                 {'mode': 'LEAST_DEFORM', 'geodesic_mask': True})
+    loader = StreamLoader(img)
+    pe = MeshRenderer.from_mesh(_p(mesh), image_loader=loader, device='cpu',
+                                **kw)._get_device_engine()
+    _, origin = pe._resident_source(loader, 0)
+    sel = np.nonzero(np.isfinite(pe._w) & (pe._tb[:, 0] < w) & (pe._tb[:, 2] > 0)
+                     & (pe._tb[:, 1] < h) & (pe._tb[:, 3] > 0))[0]
+    tab = pe._table_for_block(sel, (0, 0), origin, pe._w)
+    cand = pe._cells_for_block(sel, (0, 0), h, w)
+    _, tabs, cds = state.render_batch_to_device(
+        None, tab[None], cand[None] if case.endswith('cells') else None, CPU)
+    culled, _ = _check_cull(tabs, cds, h, w, 32, pe._geodesic)
+    assert culled > 0
+
+
+# --------------------- no CPU default outside get_device -------------------- #
+
+def _engine(device):
+    m = _p(_smooth_mesh(N=128, mesh_size=64))
+    return render.DeviceRenderEngine(m, 'FIXED', 'MOVING',
+                                     np.ones(len(m.triangles)), device=device)
+
+
+@pytest.mark.parametrize('entry', ['engine', 'xcorr_fft'])
+def test_device_none_means_the_card(entry, monkeypatch):
+    """``device=None`` resolves through ``get_device``: the CUDA card, and
+    an error where there is none; the CPU only when asked for by name or
+    through FEABAS_TORCH_DEVICE."""
+    from feabas_tpu_torch.ops import xcorr
+    rng = np.random.default_rng(0)
+    a = rng.normal(0, 1, (2, 32, 32)).astype(np.float32)
+    b = np.roll(a, 3, axis=2)
+
+    def call(device):
+        if entry == 'engine':
+            return _engine(device).device
+        dx, dy, _ = xcorr.xcorr_fft(a, b, device=device)
+        assert np.abs(dx - 3).max() < 0.5 and np.abs(dy).max() < 0.5
+        return CPU
+
+    assert call('cpu') == CPU                         # asked for by name
+    assert call(None) == CPU                          # asked for by the env
+    monkeypatch.delenv('FEABAS_TORCH_DEVICE')
+    if torch.cuda.is_available():
+        if entry == 'engine':
+            assert call(None).type == 'cuda'
+        return
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        call(None)
+    assert call('cpu') == CPU
+
+
+def _card_case(case, dev):
+    """(src, tables, cands, h, w, geodesic, out_kind) of one kernel edge
+    case, on ``dev``."""
+    rng = np.random.default_rng(11)
+
+    def t(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev)
+
+    if case.startswith('fold'):
+        img = _world(N=128)[:60, :120]
+        loader = StreamLoader(img)
+        eng = MeshRenderer.from_mesh(
+            _p(_folded_mesh()), image_loader=loader, mode='LEAST_DEFORM',
+            geodesic_mask=True, device=dev)._get_device_engine()
+        src, origin = eng._resident_source(loader, 0)
+        sel = np.arange(len(eng._w))[np.isfinite(eng._w)]
+        tab = eng._table_for_block(sel, (0, 0), origin, eng._w)
+        cand = eng._cells_for_block(sel, (0, 0), 128, 128)
+        return (src, t(tab[None]), t(cand[None]) if case == 'fold_cells'
+                else None, 128, 128, True, 'u8')
+    if case.startswith('mesh'):
+        mesh = _p(_smooth_mesh(N=1024, mesh_size=40))
+        loader = StreamLoader(_world(N=1024))
+        eng = MeshRenderer.from_mesh(mesh, device=dev)._get_device_engine()
+        src, origin = eng._resident_source(loader, 0)
+        tb = eng._tb
+        sel = np.nonzero((tb[:, 0] < 512) & (tb[:, 2] > 0) & (tb[:, 1] < 512)
+                         & (tb[:, 3] > 0))[0]
+        tab = eng._table_for_block(sel, (0, 0), origin, eng._w)
+        cand = eng._cells_for_block(sel, (0, 0), 512, 512)
+        if case == 'mesh_hole':
+            cand[5] = tab.shape[0] - 1          # one cell: padding only
+        if case == 'mesh_f32_source':
+            src = src.to(torch.float32) * 0.5
+        return (src, t(tab[None]), None if case == 'mesh_flat_chunks'
+                else t(cand[None]), 512, 512, False,
+                'f32' if case == 'mesh_f32_source' else 'u8')
+    # random triangle tables (flat; any block size)
+    kind, h, w = {'flat_1x1_u16': ('u16', 1, 1), 'flat_3x5_f32': ('f32', 3, 5),
+                  'flat_130x70_u16': ('u16', 130, 70),
+                  'flat_130x70_f32': ('f32', 130, 70),
+                  'flat_corner_tile': ('u8', 256, 384),
+                  'cells_k4': ('u8', 256, 256)}[case]
+    if case == 'flat_corner_tile':
+        P = rng.uniform(0, 1, (6, 3, 2)) * [100, 7] + [2, 0]
+    elif case == 'cells_k4':
+        P = np.array([[[-8, -8], [300, -8], [-8, 300]],
+                      [[300, -8], [300, 300], [-8, 300]]], np.float64)
+    else:
+        P = np.concatenate([_random_triangles(rng, 20, h, w, 8),
+                            [[[-5, -5], [40, -5], [-5, 40]]]])
+    tab, P = _table_from_triangles(P, rng)
+    cand = None
+    if case == 'cells_k4':
+        cand = _cells_from_triangles(P, h, w)
+        assert cand.shape[-1] == 4
+    return (t(_world(N=512)), t(tab[None]), None if cand is None
+            else t(cand[None]), h, w, False, kind)
+
+
 @pytest.mark.cuda
-def test_raster_kernel_matches_plain_on_card():
+@pytest.mark.parametrize('case', [
+    'mesh_flat_chunks', 'mesh_cells', 'mesh_hole', 'mesh_f32_source',
+    'fold_flat', 'fold_cells', 'flat_1x1_u16', 'flat_3x5_f32',
+    'flat_130x70_u16', 'flat_130x70_f32', 'flat_corner_tile', 'cells_k4'])
+def test_raster_kernel_matches_plain_on_card(case):
+    """The kernel is bit-equal to the plain version, coverage flags
+    included, at the edges of its design: a flat table walked in chunks
+    (more than 256 rows), cells with K = 64 and K = 4, a cell with only
+    padding candidates, an f32 source, the geodesic mask, ragged flat
+    blocks with u16 and f32 outputs, and real rows in one corner tile."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA GPU')
     dev = device_mod.get_device('cuda')
-    mesh = _p(_smooth_mesh(N=1024, mesh_size=40))
-    loader = StreamLoader(_world(N=1024))
-    eng = MeshRenderer.from_mesh(mesh, device=dev)._get_device_engine()
-    resident, origin = eng._resident_source(loader, 0)
-    tb = eng._tb
-    sel = np.nonzero((tb[:, 0] < 512) & (tb[:, 2] > 0) & (tb[:, 1] < 512)
-                     & (tb[:, 3] > 0))[0]
-    tab = eng._table_for_block(sel, (0, 0), origin, eng._w)
-    cand = eng._cells_for_block(sel, (0, 0), 512, 512)
-    for cands in (None, cand[None]):
-        _, tabs, cd = state.render_batch_to_device(None, tab[None], cands, dev)
-        got, cov = render.raster_blocks(resident, tabs, cd, 0.0, 512, 512,
-                                        False, 'u8')
-        want, pcov = render.raster_blocks_plain(resident, tabs, cd, 0.0, 512,
-                                                512, False, 'u8')
-        assert torch.equal(got[0], want[0]) and torch.equal(cov, pcov)
+    src, tabs, cands, h, w, geodesic, kind = _card_case(case, dev)
+    if case == 'mesh_flat_chunks':
+        assert tabs.shape[1] > 256
+    if case == 'mesh_cells':
+        assert cands.shape[-1] == 64
+    got, cov = render.raster_blocks(src, tabs, cands, 7.0, h, w, geodesic,
+                                    kind)
+    want, pcov = render.raster_blocks_plain(src, tabs, cands, 7.0, h, w,
+                                            geodesic, kind)
+    assert got[0].dtype == want[0].dtype and cov.dtype == torch.bool
+    assert torch.equal(got[0], want[0]) and torch.equal(cov, pcov)
