@@ -7,9 +7,9 @@ Phases (each prints its lines; any failure exits non-zero):
   2. build of the hand-written kernels from feabas_tpu_torch/csrc, one
      nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, at every
-     shape the stitch and align paths below launch it with, with both
-     times from CUDA events and each kernel's bound (the larger of its
-     FLOP over 67 TFLOP/s and its bytes over 3.35 TB/s) and share of it:
+     shape the three paths below launch it with, with both times from CUDA
+     events and each kernel's bound (the larger of its FLOP over 67 TFLOP/s
+     and its bytes over 3.35 TB/s) and share of it:
      the DoG (sigma 1.25, 2.5 and 3.5, whole planes and halo tiles) and
      blur (the pooled bands' mask term, the 4096^2 low band), the edges of
      both code paths of the DoG kernel (a 1x1 plane, 3x700, 24x24 at sigma
@@ -20,7 +20,18 @@ Phases (each prints its lines; any failure exits non-zero):
      resident source, a tie of two identical rows, which the first must
      win, and the edges of its design (see ``check_raster``), with its
      device time per launch and what its tile cull removes; then the
-     batch upload, staged against pageable;
+     batch upload, staged against pageable; then the three kernels of the
+     thumbnail path, each also beside one PyTorch library call of the same
+     function (``check_lradon``): the peak response (bit-equal; 2048^2 at
+     window 10 with and without a mask, a 1x1 and a 7x300 plane, windows 3
+     and 7, plateaus), the LRadon descriptors (<= 1e-5; 5000 keypoints on
+     2048^2, keypoints on every border and corner with fractional offsets
+     0 and just under 1, a 3000x2000 image) and the rotation-exhaustive
+     match (indices, best rotation and mutual flags equal except where the
+     plain version's top two are closer than 1e-5, which are counted;
+     5000 x 5000 x 12 variants, 64 x 4096, one side masked, duplicated
+     descriptors, no rotation search, and pairs whose best variant is 0,
+     in 1..P-1 and in P..2P-1);
   4. the stitch slice: a synthetic 2x3 grid of 3000x4000 uint8 tiles
      (10% overlap, 3 px stage jitter, made on the card from a seed) goes
      through ``feabas_tpu_torch.scripts.stitch_main`` matching,
@@ -31,14 +42,31 @@ Phases (each prints its lines; any failure exits non-zero):
      made on the card) go through ``feabas_tpu_torch.scripts.align_main``
      meshing, matching (working mip 2), optimization and rendering; the
      matches are checked against the analytic truth, the window against
-     the stacked solve, the render against section 0.
+     the stacked solve, the render against section 0;
+  6. the thumbnail slice: 6 sections of 8192x8192 uint8 at 4 nm, each a
+     rigid motion of one seeded texture (turns of 0 or 30 degrees plus a
+     draw within +-2 degrees, so that every pair is turned by about 0, +30
+     or -30 degrees, which is what the feature stage resolves;
+     translations N(0, 200 px)), go through
+     ``feabas_tpu_torch.scripts.thumbnail_main`` downsample and alignment
+     (matching, optimization, render) at thumbnail mip 2 (2048^2
+     thumbnails) with the default feature settings; all 9 pairs must
+     match, feature and refined matches are held against the analytic
+     motion, each pair's best rotation variant against its relative
+     angle, the aligned thumbnails against section 0.
 Each slice resets the kernels' launch counts just before it and reads
 them just after (in total and by shape), and fails if a kernel of its
-path never launched. Then one JSON line lists each kernel with its
-launches, its worst error, and the times and bound of the checked shape
-the paths launched most, then all its phase-3 checks; the line before
+path never launched. Then one JSON line lists each of the six kernels with
+its launches (in all and by path), its worst error, and the times, bound
+and library time of the checked shape the paths launched most, then all its
+phase-3 checks; the line before
 last is nvidia-smi's card line; the last line is one JSON object
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
+
+``--phases`` (a comma list of kernels, stitch, align, thumbnail) runs a
+part of it, for work on one path; the kernels line and the ok line are
+printed only by the whole run. ``--profile`` wraps each thumbnail stage in
+one ``torch.profiler`` pass and prints its device time by kernel.
 """
 
 import json
@@ -65,6 +93,9 @@ KERNELS = {
     'dog_filter': ('dog_filter', 'feabas_tpu/ops/pallas_kernels.py:59'),
     'gaussian_blur': ('dog_filter', 'feabas_tpu/ops/pallas_kernels.py:25'),
     'mesh_raster': ('mesh_raster', 'feabas_tpu/ops/render.py:160'),
+    'peak_detect': ('peak_detect', 'feabas_tpu/ops/lradon.py:48'),
+    'lradon_patch': ('lradon_patch', 'feabas_tpu/ops/lradon.py:207'),
+    'lradon_match': ('lradon_match', 'feabas_tpu/ops/lradon.py:301'),
 }
 KERNEL_SOURCES = sorted({src for src, _ in KERNELS.values()})
 
@@ -116,10 +147,11 @@ def dog_bound(shape, in_bytes, sigma, is_dog):
     return bound(flop, px * (in_bytes + 4))
 
 
-def kernel_row(name, shape, what, err, ms, pms, bnd):
+def kernel_row(name, shape, what, err, ms, pms, bnd, library_ms=None):
     return {'name': name, 'shape': list(shape), 'what': what,
             'max_abs_err': err, 'ms': ms, 'plain_ms': pms,
-            'bound_us': bnd[0] * 1e6, 'bound_by': bnd[1]}
+            'bound_us': bnd[0] * 1e6, 'bound_by': bnd[1],
+            'library_ms': library_ms}
 
 
 def log_rows(rows, err_unit=''):
@@ -138,6 +170,10 @@ def log_rows(rows, err_unit=''):
                      f'kept_per_tile={r["kept_per_tile"]:.2f}')
         else:
             line += f'share={r["bound_us"] / 1e3 / r["ms"]:.1%}'
+        if r.get('library_ms') is not None:
+            line += f' library_ms={r["library_ms"]:.4f}'
+        if 'close_rows' in r:
+            line += f' close_rows={r["close_rows"]}'
         log(line)
 
 
@@ -175,7 +211,7 @@ def check_kernels(dev):
     # blur at 1.25 * sqrt 2), which are most of its launches; the PYRAMID
     # low band's blur of 1, 2 and 4 padded 4096^2 tiles at sigma 4. Align
     # (working mip 2, sigma 3.5): 96^2 and 24^2 blocks and the whole
-    # 2048^2 region.
+    # 2048^2 region. Thumbnail: see below.
     for shape in ((384, 128, 128), (64, 128, 128), (2048, 96, 96),
                   (1536, 64, 64), (256, 64, 64)):
         check(shape, torch.float32, 2.5, True)
@@ -188,6 +224,10 @@ def check_kernels(dev):
     check((512, 96, 96), torch.float32, 3.5, True)
     check((8192, 24, 24), torch.float32, 3.5, True, ', halo > plane')
     check((1, 2048, 2048), torch.float32, 3.5, True, ', tiles')
+    # thumbnail (sigma 3.5): the detector's whole 2048^2 thumbnail (above)
+    # and the refinement's blocks of 192^2 and 64^2
+    check((128, 192, 192), torch.float32, 3.5, True, ', tiles')
+    check((128, 64, 64), torch.float32, 3.5, True)
     # reference stacks kept from earlier runs: 8 pairs x 128 blocks of
     # 128^2, 512^2 uint8 blocks, and the low band of all 6 tiles at once
     check((1024, 128, 128), torch.float32, 2.5, True)
@@ -364,7 +404,7 @@ def check_raster(dev, texture):
     bound, and what the tile cull removes): (a) 1, 2, 3 and 4 x 2048^2
     blocks with cell-binned tables from a deformed section mesh (mesh_size
     600 on an 8192^2 section), each with its own source crop: the align
-    path's batches; (b) four 512^2 flat-table blocks against one resident
+    path's batches, and three 1536^2 blocks, the thumbnail path's; (b) four 512^2 flat-table blocks against one resident
     source; (c) two identical triangles with equal weights, where the
     first row must win. Edges (checked, timed briefly): flat tables at
     1x1, 3x5 and 130x70 with u16 and f32 outputs, an f32 source, a folded
@@ -447,6 +487,12 @@ def check_raster(dev, texture):
                 else '2048^2 cells, own crop',
                 (t(batches[n][0]), t(tt), t(cd), 2048, 2048),
                 iters=20 if n == 1 else 10)
+    # the thumbnail path's render batches: 3 x 1536^2 blocks
+    crops3, tabs3, cands3 = _crop_blocks(
+        eng, img, [(1024, 1024), (2560, 1024), (1024, 2560)], 1536)
+    tt, cd = _pad_tables(tabs3, cands3)
+    compare('3 x 1536^2 cells, own crops',
+            (t(np.stack(crops3)), t(tt), t(cd), 1536, 1536), iters=10)
     # (b) 4 x 512^2 flat tables, one resident source
     resident, origin = eng._resident_source(loader, 0)
     flat = [eng._table_for_block(_block_sel(eng, bx, by, bx + 512, by + 512),
@@ -1009,8 +1055,686 @@ def run_align(dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def main():
+# ------------------- phase 3: the thumbnail path's kernels ------------------- #
+
+MATCH_GAP = 1e-5        # S agrees to ~1e-6 (f32 sums of 48 products in
+                        # another order): below this gap an argmax may flip
+DESC_ATOL = 1e-5        # unit descriptors, f32 sums of 2401 products
+
+
+def peak_library(f, mask, size):
+    """The peak response through one 2-D ``F.max_pool2d`` on the
+    -inf-padded plane, and the compares."""
     import torch
+    import torch.nn.functional as F
+    a = f.abs()
+    lo, hi = (size - 1) // 2, size // 2
+    mx = F.max_pool2d(F.pad(a[None, None], (lo, hi, lo, hi),
+                            value=float('-inf')), size, stride=1)[0, 0]
+    peaks = (a >= mx) & (a > 0)
+    if mask is not None:
+        peaks = peaks & (mask > 0)
+    return torch.where(peaks, a, torch.full_like(a, float('-inf')))
+
+
+def patch_library(img, z, f, tables, proj_num, Rp):
+    """The descriptors' product through a patch gather and one
+    ``torch.matmul`` (the blend and normalisation are not included)."""
+    import torch
+    import torch.nn.functional as F
+    W = tables[0]
+    Dp = 2 * Rp + 1
+    imgp = F.pad(img[None, None], (Rp + 1,) * 4, mode='replicate')[0, 0]
+    ar = torch.arange(Dp, device=img.device)
+    zz = z.long()
+    Pm = imgp[zz[:, 1, None, None] + ar[None, :, None],
+              zz[:, 0, None, None] + ar[None, None, :]]
+    return torch.matmul(Pm.reshape(zz.shape[0], -1),
+                        W.reshape(-1, W.shape[-1]).T)
+
+
+def match_library(d0, v0, d1, v1, proj_num, exhaustive):
+    """The match through ``torch.matmul``, ``max``, ``topk(2)`` and
+    ``argmax`` per variant (no promise on ties)."""
+    import torch
+    from feabas_tpu_torch.ops import lradon
+    a0 = d0.reshape(d0.shape[0], -1)
+    vmask = v1[:, None] & v0[None, :]
+    ninf = torch.tensor(float('-inf'), device=d0.device)
+    variants = lradon._variants(d1, proj_num) if exhaustive \
+        else d1.reshape(1, d1.shape[0], -1)
+    best = None
+    for ri, vr in enumerate(variants):
+        S = torch.where(vmask, torch.matmul(vr, a0.T), ninf)
+        m = S.max()
+        if best is None or bool(m > best[0]):
+            best = (m, ri, S)
+    S = best[2]
+    top2 = S.topk(min(2, S.shape[1]), dim=1)
+    back = S.argmax(dim=0)
+    top, i0 = top2.values[:, 0], top2.indices[:, 0]
+    second = top2.values[:, -1]
+    conf = torch.where(top > 0, 1 - second.clamp(min=0) / top.clamp(min=1e-6),
+                       torch.zeros_like(top))
+    mutual = (back[i0] == torch.arange(S.shape[0], device=S.device)) & v1
+    return i0, top, conf, mutual, best[1]
+
+
+def _unit_descriptors(g, dev, n, shape=(6, 8)):
+    import torch
+    d = torch.randn((n,) + shape, generator=g, device=dev)
+    d = d - d.mean(dim=(1, 2), keepdim=True)
+    return d / torch.linalg.norm(d.reshape(n, -1), dim=-1)[:, None, None]
+
+
+def lradon_cases(dev, kernel):
+    """[(name, thunk)] of one thumbnail-path kernel's phase-3 cases. A
+    thunk makes the case on ``dev`` from a seed: a dict with the wrapper's
+    ``args``, ``timed`` (timed beside a library call), ``on_path`` (what
+    the thumbnail path launches; ``timed`` where absent) and, for some,
+    ``post`` (a further check of the kernel's result)."""
+    import numpy as np
+    import torch
+    from feabas_tpu_torch.ops import lradon
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    if kernel == 'peak_detect':
+        def plane(h, w, size, mask=False, levels=None, timed=False):
+            def make():
+                g = gen()
+                f = torch.randn((h, w), generator=g, device=dev)
+                if levels:                 # few distinct values: plateaus
+                    f = torch.round(f * levels) / levels
+                m = None
+                if mask:
+                    m = (torch.rand((h, w), generator=g, device=dev)
+                         > 0.2).to(torch.float32)
+                return {'args': (f, m, size), 'timed': timed,
+                        'on_path': timed and not mask}
+            return make
+        return [('2048^2 size 10', plane(2048, 2048, 10, timed=True)),
+                ('2048^2 size 10, mask', plane(2048, 2048, 10, mask=True,
+                                               timed=True)),
+                ('1x1', plane(1, 1, 10)),
+                ('7x300', plane(7, 300, 10, mask=True)),
+                ('size 3', plane(200, 333, 3)),
+                ('size 7', plane(200, 333, 7, mask=True)),
+                ('plateau', plane(512, 640, 10, levels=2))]
+
+    if kernel == 'lradon_patch':
+        def keypoints(h, w, K, border=False, timed=False, radius=15):
+            def make():
+                D, offs, Rp = lradon._desc_params(6, 8, 3, radius)
+                g = gen()
+                img = torch.rand((h, w), generator=g, device=dev) * 255
+                xy = torch.rand((K, 2), generator=g, device=dev) \
+                    * torch.tensor([w - 1.0, h - 1.0], device=dev)
+                if border:
+                    # every corner and border, offsets 0 and just under 1
+                    e = 1.0 - 2.0 ** -20
+                    pts = [(0, 0), (w - 1, 0), (0, h - 1), (w - 1, h - 1),
+                           (w / 2, 0), (0, h / 2), (w - 1, h / 2),
+                           (w / 2, h - 1), (e, e), (w - 2 + e, e),
+                           (e, h - 2 + e), (w - 2 + e, h - 2 + e),
+                           (5 + e, 7), (5, 7 + e), (1, 1), (w - 2, h - 2)]
+                    xy[:len(pts)] = torch.tensor(pts, device=dev)
+                z0 = torch.floor(xy)
+                tables = lradon._stencil_tensors(6, 8, 3, D, offs, Rp, dev)
+                return {'args': (img, z0.to(torch.int32) + 1, xy - z0, tables,
+                                 6, Rp), 'timed': timed}
+            return make
+        # the kernel takes 8 keypoints per block while their patches fit
+        # half an SM's shared memory, then 4, then 1: beam radii 30
+        # (93^2 patches) and 45 (135^2) reach the other two group sizes
+        return [('K 5000', keypoints(2048, 2048, 5000, timed=True)),
+                ('K 64, borders and corners', keypoints(300, 260, 64,
+                                                        border=True)),
+                ('K 4096, 3000x2000', keypoints(2000, 3000, 4096)),
+                ('radius 30, groups of 4', keypoints(300, 260, 70,
+                                                     border=True, radius=30)),
+                ('radius 45, one per block', keypoints(300, 260, 37,
+                                                       border=True,
+                                                       radius=45))]
+
+    P = 6
+    perms = lradon._variant_perms(P, 8, dev).long()
+
+    def sets(K0, K1, exhaustive=True, mask0=None, dup=False, variant=None,
+             timed=False):
+        def make():
+            g = gen()
+            d0 = _unit_descriptors(g, dev, K0)
+            d1 = _unit_descriptors(g, dev, K1)
+            v0 = torch.rand(K0, generator=g, device=dev) > 0.1
+            v1 = torch.rand(K1, generator=g, device=dev) > 0.1
+            post = None
+            if mask0 is not None:
+                v0[:] = mask0
+            if dup:
+                # columns K0/2.. repeat columns 0..; rows K1/2.. repeat rows
+                # 0..; half of d1 are noisy copies of d0, so tops are ties
+                h0, h1 = K0 // 2, K1 // 2
+                n = min(h0, h1)
+                d1[:n] = d0[:n]
+                d0[h0:2 * h0] = d0[:h0]
+                d1[h1:2 * h1] = d1[:h1]
+                v0[:], v1[:] = True, True
+
+                def post(got):
+                    i0, top, conf, mutual, rot = got
+                    if not (bool((i0 < h0).all()) and int(rot) == 0):
+                        raise RuntimeError('duplicates: a later column won')
+                    if bool(mutual[h1:2 * h1].any()):
+                        raise RuntimeError('duplicates: a later row won')
+                    if not (bool(mutual[:n].all())
+                            and float(conf[:n].abs().max()) < 1e-6):
+                        raise RuntimeError('duplicates: exact copies are not '
+                                           'mutual ties')
+            if variant is not None:
+                # variant r of d1 equals d0 on the first rows
+                n = min(K0, K1) // 2
+                inv = torch.argsort(perms[variant])
+                d1[:n] = d0[:n].reshape(n, -1)[:, inv].reshape(n, P, -1)
+                v0[:n], v1[:n] = True, True
+
+                def post(got):
+                    if int(got[4]) != variant:
+                        raise RuntimeError(f'best_rot {int(got[4])}, made '
+                                           f'for variant {variant}')
+            return {'args': (d0, v0, d1, v1, P, exhaustive), 'timed': timed,
+                    'post': post}
+        return make
+    return [('5000 x 5000', sets(5000, 5000, timed=True)),
+            ('64 x 4096', sets(64, 4096)),
+            ('side 0 masked', sets(300, 200, mask0=False)),
+            ('duplicates', sets(512, 256, dup=True)),
+            ('not exhaustive', sets(1000, 777, exhaustive=False)),
+            ('variant 0', sets(400, 300, variant=0)),
+            ('variant 1..P-1', sets(400, 300, variant=3)),
+            ('variant P..2P-1', sets(400, 300, variant=8))]
+
+
+def _match_disagreement(got, want, args):
+    """Hold a kernel match against the plain version's. Returns (max abs
+    error of top, rows whose result may differ because the plain
+    version's top two are closer than MATCH_GAP); raises on any other
+    difference."""
+    import torch
+    from feabas_tpu_torch.ops import lradon
+    d0, v0, d1, v1, P, exhaustive = args
+    i0, top, conf, mutual, rot = got
+    pi0, ptop, pconf, pmutual, prot = want
+    K1 = d1.shape[0]
+    a0 = d0.reshape(d0.shape[0], -1)
+    ninf = torch.tensor(float('-inf'), device=d0.device)
+    vmask = v1[:, None] & v0[None, :]
+    if exhaustive:
+        vmax = torch.stack([torch.where(vmask, vr @ a0.T, ninf).max()
+                            for vr in lradon._variants(d1, P)])
+        if int(rot) != int(prot):
+            best2 = vmax.topk(2).values
+            if float(best2[0] - best2[1]) >= MATCH_GAP:
+                raise RuntimeError(f'best_rot {int(rot)} != plain '
+                                   f'{int(prot)}, variant maxima {vmax}')
+            return float('nan'), K1
+        d1v = lradon._variants(d1, P)[int(prot)]
+    else:
+        if int(rot) != 0:
+            raise RuntimeError(f'best_rot {int(rot)} without a search')
+        d1v = d1.reshape(K1, -1)
+    S = torch.where(vmask, d1v @ a0.T, ninf)
+
+    def gap(S, dim):
+        if S.shape[dim] < 2:
+            return torch.full((S.shape[1 - dim],), float('inf'),
+                              device=S.device)
+        t = S.topk(2, dim=dim).values
+        t0, t1 = (t[:, 0], t[:, 1]) if dim == 1 else (t[0], t[1])
+        # an all -inf line has its argmax at 0 in both versions
+        return torch.where(torch.isfinite(t0), t0 - t1,
+                           torch.full_like(t0, float('inf')))
+    close = (gap(S, 1) < MATCH_GAP) | (gap(S, 0)[pi0] < MATCH_GAP)
+    sure = ~close
+    if not torch.equal(i0[sure], pi0[sure]):
+        raise RuntimeError('i0 differs outside close rows')
+    if not torch.equal(mutual[sure], pmutual[sure]):
+        raise RuntimeError('mutual differs outside close rows')
+    fin = torch.isfinite(ptop)
+    if not torch.equal(torch.isfinite(top), fin):
+        raise RuntimeError('top: -inf rows differ')
+    err = float((top[fin] - ptop[fin]).abs().max()) if bool(fin.any()) else 0.0
+    if not err <= MATCH_GAP:
+        raise RuntimeError(f'top differs by {err}')
+    held = sure & (ptop > 0.1)
+    cerr = float((conf[held] - pconf[held]).abs().max()) \
+        if bool(held.any()) else 0.0
+    if not cerr <= MATCH_GAP:
+        raise RuntimeError(f'conf differs by {cerr}')
+    if not torch.equal(conf[~fin], pconf[~fin]):
+        raise RuntimeError('conf of rows without a partner differs')
+    return max(err, cerr), int(close.sum())
+
+
+def lradon_compare(kernel, case):
+    """One launch of a thumbnail-path kernel on a case of ``lradon_cases``
+    against its plain version. Returns (max abs error, close rows or
+    None); raises where they disagree."""
+    import torch
+    from feabas_tpu_torch.ops import lradon
+    args = case['args']
+    if kernel == 'peak_detect':
+        got = lradon.peak_response(*args)
+        want = lradon.peak_response_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and got.dtype == want.dtype):
+            raise RuntimeError(
+                f'peak_detect: {int((got != want).sum())} pixels differ')
+        return 0.0, None
+    if kernel == 'lradon_patch':
+        got = lradon.lradon_patch(*args)
+        want = _patch_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not (err <= DESC_ATOL and got.shape == want.shape):
+            raise RuntimeError(f'lradon_patch: max abs error {err}')
+        return err, None
+    got = lradon.lradon_match(*args)
+    want = lradon.lradon_match_plain(*args)
+    torch.cuda.synchronize()
+    err, close = _match_disagreement(got, want, args)
+    if case.get('post') is not None:
+        case['post'](got)
+    return err, close
+
+
+def _patch_plain(img, z, f, tables, proj_num, Rp):
+    from feabas_tpu_torch.ops import lradon
+    return lradon.lradon_patch_plain(img, z, f, tables[0], proj_num, Rp)
+
+
+def _lradon_bound(kernel, args):
+    """Bound of one call from its inputs: each input read once, each
+    output written once, and the operations the function needs."""
+    if kernel == 'peak_detect':
+        f, mask, size = args
+        px = f.numel()
+        return bound(px * (2 * size + 3),
+                     px * (8 + (4 if mask is not None else 0)))
+    if kernel == 'lradon_patch':
+        img, z, f, (W, _) = args[:4]
+        K, out = z.shape[0], W.shape[1]
+        # the products with the table's non-zero taps (a beam touches a
+        # small part of its patch), then the blend and the normalisation
+        return bound(K * (2 * int(W.count_nonzero()) + 12 * out),
+                     4 * (img.numel() + 4 * K + W.numel() + K * out))
+    d0, v0, d1, v1, P, exhaustive = args
+    K0, K1, dlen = d0.shape[0], d1.shape[0], d0.shape[1] * d0.shape[2]
+    nvar = 2 * P if exhaustive else 1
+    # the products of every variant, then a compare per reduction and entry
+    return bound(nvar * 2 * K0 * K1 * dlen + (nvar + 3) * K0 * K1,
+                 4 * (K0 + K1) * dlen + K0 + K1 + 13 * K1 + 4)
+
+
+def check_lradon(dev):
+    """Phase 3, the thumbnail path's three kernels: every case of
+    ``lradon_cases`` against the plain version, the main-path shapes also
+    timed (kernel, plain, one PyTorch library call of the same function)
+    beside their bound."""
+    import torch
+    from feabas_tpu_torch.ops import lradon
+    wrappers = {'peak_detect': lradon.peak_response,
+                'lradon_patch': lradon.lradon_patch,
+                'lradon_match': lradon.lradon_match}
+    plains = {'peak_detect': lradon.peak_response_plain,
+              'lradon_patch': _patch_plain,
+              'lradon_match': lradon.lradon_match_plain}
+    libraries = {'peak_detect': peak_library,
+                 'lradon_patch': patch_library,
+                 'lradon_match': match_library}
+    rows = []
+    for kernel in wrappers:
+        for name, make in lradon_cases(dev, kernel):
+            case = make()
+            args = case['args']
+            err, close = lradon_compare(kernel, case)
+            timed = case['timed']
+            iters, warm = (10, 0.1) if timed else (3, 0.01)
+            ms = cuda_time(lambda: wrappers[kernel](*args), iters, warm)
+            pms = cuda_time(lambda: plains[kernel](*args),
+                            3 if kernel == 'lradon_match' else iters, warm)
+            lib = cuda_time(lambda: libraries[kernel](*args),
+                            3 if kernel == 'lradon_match' else iters,
+                            warm) if timed else None
+            if kernel == 'peak_detect':
+                shape = tuple(args[0].shape)
+            elif kernel == 'lradon_patch':
+                shape = (args[1].shape[0], args[3][0].shape[1])
+            else:
+                shape = (args[2].shape[0], args[0].shape[0],
+                         12 if args[5] else 1)
+            row = kernel_row(kernel, shape, name, err, ms, pms,
+                             _lradon_bound(kernel, args), lib)
+            row['edge'] = not case.get('on_path', timed)
+            if close is not None:
+                row['close_rows'] = close
+            rows.append(row)
+            del case, args
+    torch.cuda.synchronize()
+    log_rows(rows)
+    return rows
+
+
+# phase 6: the thumbnail stack
+THUMB_S = 6
+THUMB_MIP = 2                         # 2048^2 thumbnails at 16 nm
+# degrees of each section, plus a draw of +-THUMB_ROT. The feature stage
+# resolves what the JAX package's does: a pair turned by a multiple of one
+# variant step (30 degrees), give or take a few degrees, and by less than
+# the strain filter's shear_limit of 45 degrees. Every pair of the stack
+# (distance 1 and 2) is turned by about 0, +30 or -30 degrees, so both
+# halves of the variants win somewhere (+30: variant 1; -30: variant 11)
+THUMB_TURNS = (0.0, 30.0, 30.0, 0.0, 0.0, 30.0)
+THUMB_ROT = 2.0
+THUMB_SHIFT = 200.0                   # translation std, mip0 px at 8192^2
+
+
+def make_turned_stack(dev, size=SECTION, blur=4.0 * ALIGN_SCALE):
+    """THUMB_S sections of size^2 on ``dev``: section z at mip0 pixel p
+    shows the seeded base texture at cb + R(angle_z) (p - c) + t_z. Returns
+    (sections as host uint8 arrays, angles in degrees, translations)."""
+    import numpy as np
+    import torch
+    from feabas_tpu_torch.ops.warp import bilinear_sample
+    rng = np.random.default_rng(SEED + 2)
+    angles = rng.uniform(-THUMB_ROT, THUMB_ROT, THUMB_S) \
+        + np.asarray(THUMB_TURNS)
+    shifts = rng.normal(0, THUMB_SHIFT * size / 8192.0, (THUMB_S, 2))
+    n = int(math.ceil(size * math.sqrt(2.0) + 2 * np.abs(shifts).max())) + 16
+    base = make_texture(dev, n, n, seed=SEED + 3, blur=blur).to(torch.float32)
+    c, cb = (size - 1) / 2.0, (n - 1) / 2.0
+    gy, gx = torch.meshgrid(
+        torch.arange(size, dtype=torch.float32, device=dev) - c,
+        torch.arange(size, dtype=torch.float32, device=dev) - c,
+        indexing='ij')
+    sections = []
+    for z in range(THUMB_S):
+        a = math.radians(angles[z])
+        ca, sa = math.cos(a), math.sin(a)
+        img = bilinear_sample(base, cb + ca * gx - sa * gy + shifts[z][0],
+                              cb + sa * gx + ca * gy + shifts[z][1])
+        sections.append(torch.round(img).clamp(0, 255).to(torch.uint8)
+                        .cpu().numpy())
+    return sections, angles, shifts
+
+
+def _turned_truth(xy1, z0, z1, angles, shifts, size, scale):
+    """Where the content at thumbnail px ``xy1`` of section z1 sits in
+    section z0 (thumbnail px): R0 (p0 - c) + t0 = R1 (p1 - c) + t1."""
+    import numpy as np
+
+    def rot(z):
+        a = math.radians(angles[z])
+        return np.array([[math.cos(a), -math.sin(a)],
+                         [math.sin(a), math.cos(a)]])
+    c = (size - 1) / 2.0
+    p1 = xy1 * scale + (scale - 1) / 2.0
+    q = (p1 - c) @ rot(z1).T + shifts[z1] - shifts[z0]
+    p0 = q @ rot(z0) + c
+    return (p0 - (scale - 1) / 2.0) / scale
+
+
+def setup_thumbnail_workdir(root, sections, size):
+    """Config dir + work dir holding the stack as stitched sections (tiles
+    of at most 4096^2, uncompressed PNG) and the thumbnail overrides; points
+    the config system at it."""
+    import cv2
+    from concurrent.futures import ThreadPoolExecutor
+    cfg = os.path.join(root, 'configs')
+    shutil.copytree(os.path.join(REPO, 'configs'), cfg)
+    wd = os.path.join(root, 'work_dir')
+    _save_yaml(os.path.join(cfg, 'general_configs.yaml'), {
+        'working_directory': wd, 'parallel_framework': 'serial',
+        'full_resolution': 4, 'section_thickness': 30,
+        'logfile_level': 'NONE', 'archive_level': 'NONE',
+        'console_level': 'WARNING'})
+    names = [f't{z:04d}' for z in range(len(sections))]
+    tile = min(SECTION_TILE, size)
+    jobs = []
+    for name, img in zip(names, sections):
+        d = os.path.join(wd, 'stitched_sections', 'mip0', name)
+        os.makedirs(d)
+        lines = ['{ROOT_DIR}\t' + d, '{RESOLUTION}\t4']
+        for r in range(0, size, tile):
+            for c in range(0, size, tile):
+                fn = f'{name}_tr{r // tile + 1}-tc{c // tile + 1}.png'
+                jobs.append((os.path.join(d, fn), img[r:r + tile, c:c + tile]))
+                lines.append(f'{fn}\t{c}\t{r}\t{c + tile}\t{r + tile}')
+        with open(os.path.join(d, 'metadata.txt'), 'w') as f:
+            f.write('\n'.join(lines) + '\n')
+
+    def write(job):
+        if not cv2.imwrite(job[0], job[1], [cv2.IMWRITE_PNG_COMPRESSION, 0]):
+            raise OSError(f'could not write {job[0]}')
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+    # the defaults (sigma 3.5, min_spacing 10, 5000 features, 6 x 8
+    # descriptors, exhaustive match, compare_distance 2) but for the mip
+    # level, one worker and the archived feature-stage matches
+    _save_yaml(os.path.join(wd, 'configs', 'thumbnail_configs.yaml'), {
+        'thumbnail_mip_level': THUMB_MIP,
+        'downsample': {'num_workers': 1},
+        'alignment': {'num_workers': 1, 'compare_distance': 2,
+                      'save_feature_match': True}})
+    os.environ['FEABAS_TPU_CONFIG_DIR'] = cfg
+    from feabas_tpu_torch import config
+    config.clear_config_caches()
+    return wd, names
+
+
+def _profiled(profile, label, fn):
+    """Run ``fn``; with ``profile``, inside one torch.profiler pass whose
+    device time by kernel is printed."""
+    if not profile:
+        return fn()
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    # the hand-written kernels, by the names of their __global__ functions
+    own = [e for e in events if any(
+        '(anonymous namespace)::' + k in e.key for k in (
+            'dog_kernel', 'raster<', 'peak_kernel', 'patch_kernel',
+            'variant_max_kernel', 'reduce_kernel(', 'finish_kernel'))]
+
+    def fmt(es):
+        return '; '.join(f'{e.key[:48]} {e.self_device_time_total / 1e3:.2f} '
+                         f'ms x{e.count}' for e in es)
+    log(f'[profile] {label}: device {total / 1e6:.4f} s over '
+        f'{sum(e.count for e in events)} device ops; largest: {fmt(top)}; '
+        f'hand-written kernels: {fmt(own) or "none"}')
+    return out
+
+
+def run_thumbnail(dev, size=SECTION, profile=False):
+    """Phase 6: the turned stack at full size through the thumbnail CLI
+    (downsample, then alignment = matching, optimization, render)."""
+    import numpy as np
+    import torch
+    from feabas_tpu_torch import aligner, thumbnail
+    from feabas_tpu_torch import device as device_mod
+    from feabas_tpu_torch.common import imread
+    from feabas_tpu_torch.ops import lradon
+    from feabas_tpu_torch.scripts import thumbnail_main
+
+    cuda = dev.type == 'cuda'
+    t0 = time.perf_counter()
+    sections, angles, shifts = make_turned_stack(dev, size)
+    root = tempfile.mkdtemp(prefix='feabas_chip_thumb_')
+    scale = 2 ** THUMB_MIP
+    # observe, without changing them, each pair's first rotation search and
+    # the seconds of the three stages that 'alignment' chains
+    rots, stage_s = [], {}
+    pair_matcher, masked = (thumbnail.match_two_thumbnails_LRadon,
+                            lradon.match_lradon_device_masked)
+    stages = {k: getattr(thumbnail_main, k)
+              for k in ('matching_main', 'optimize_main', 'render_main')}
+
+    def pair_spy(*a, **k):
+        rots.append(None)
+        return pair_matcher(*a, **k)
+
+    def masked_spy(*a, **k):
+        out = masked(*a, **k)
+        if rots and rots[-1] is None:
+            rots[-1] = out[3]
+        return out
+
+    def timed(key):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = _profiled(profile, f'thumbnail.{key}',
+                            lambda: stages[key](*a, **k))
+            if cuda:
+                torch.cuda.synchronize()
+            stage_s[key.split('_')[0]] = time.perf_counter() - t
+            return out
+        return run
+
+    thumbnail.match_two_thumbnails_LRadon = pair_spy
+    lradon.match_lradon_device_masked = masked_spy
+    for key in stages:
+        setattr(thumbnail_main, key, timed(key))
+    try:
+        wd, names = setup_thumbnail_workdir(root, sections, size)
+        log(f'[thumbnail] {THUMB_S} sections of {size}x{size} uint8, angles '
+            f'{np.round(angles, 1).tolist()} degrees, thumbnails at mip '
+            f'{THUMB_MIP} ({size // scale}^2): below highpass_inter_mip_lvl, '
+            f'so thumbnail_highpass has nothing to do; set-up '
+            f'{time.perf_counter() - t0:.2f} s')
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        device_mod.reset_launch_counts()
+        t = time.perf_counter()
+        _profiled(profile, 'thumbnail.downsample',
+                  lambda: thumbnail_main.main(['--mode', 'downsample']))
+        stage_s['downsample'] = time.perf_counter() - t
+        thumbnail_main.main(['--mode', 'alignment'])
+        launches = device_mod.launch_counts()
+        by_shape = device_mod.launch_counts_by_shape()
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        log('[thumbnail] stage seconds ' + json.dumps(
+            {k: round(v, 3) for k, v in stage_s.items()})
+            + f'; max_memory_allocated {peak} B; launches {launches}')
+        pairs = thumbnail_main._pair_list(names, 2, wd)
+        res = 4.0 * scale
+        if len(rots) != len(pairs) or len(pairs) != 9:
+            raise RuntimeError(f'{len(rots)} feature matches for '
+                               f'{len(pairs)} pairs')
+        f_errs, r_errs, counts, f_counts = [], [], [], []
+        for (a, b), rot in zip(pairs, rots):
+            z0, z1 = names.index(a), names.index(b)
+            for sub, errs in (('feature_matches', f_errs),
+                              ('matches', r_errs)):
+                path = os.path.join(wd, 'thumbnail_align', sub,
+                                    aligner.match_name(a, b))
+                if not os.path.exists(path):
+                    raise RuntimeError(f'{a} -> {b}: no {sub} file')
+                m = aligner.read_matches_from_h5(path, target_resolution=res)
+                truth = _turned_truth(m.xy1, z0, z1, angles, shifts, size,
+                                      scale)
+                errs.append(float(np.median(
+                    np.linalg.norm(m.xy0 - truth, axis=-1))))
+                (f_counts if sub == 'feature_matches' else counts).append(
+                    m.xy0.shape[0])
+            # the winning variant turns by rot * 180 / P degrees
+            want = (angles[z1] - angles[z0]) % 360.0
+            if rot is None or rot != int(round(want / 30.0)) % 12:
+                raise RuntimeError(f'{a} -> {b}: best_rot {rot} for a turn '
+                                   f'of {want:.1f} degrees')
+        log(f'[thumbnail] pairs {[a[-1] + b[-1] for a, b in pairs]}: best_rot '
+            f'{rots}, feature matches {f_counts} with median errors '
+            f'{np.round(f_errs, 4).tolist()} px, refined matches {counts} '
+            f'with median errors {np.round(r_errs, 4).tolist()} px')
+        # the JAX package's own bounds: 1.5 px for its unturned and
+        # half-turned pairs (tests/test_lradon_device.py:99), 2 px for its
+        # pair turned by 30 degrees (tests/test_thumbnail.py:56), whose
+        # subpixel refinement correlates patches that are turned too
+        turned = [abs((angles[names.index(b)] - angles[names.index(a)]
+                       + 180.0) % 360.0 - 180.0) > 15.0 for a, b in pairs]
+        if not all(e < (2.0 if t else 1.5) for e, t in zip(f_errs, turned)):
+            raise RuntimeError(f'feature matches: median errors {f_errs}')
+        if not max(r_errs) < 1.0:
+            raise RuntimeError(f'refined matches: median errors {r_errs}')
+        aligned = []
+        for n in names:
+            if not os.path.exists(os.path.join(wd, 'thumbnail_align', 'tform',
+                                               n + '.h5')):
+                raise RuntimeError(f'no tform for {n}')
+            aligned.append(imread(os.path.join(
+                wd, 'thumbnail_align', 'aligned', n + '.png'))
+                .astype(np.float64))
+        h, w = aligned[0].shape
+        q = min(h, w) // 4
+        inner = (slice(h // 2 - q, h // 2 + q), slice(w // 2 - q, w // 2 + q))
+        ccs = []
+        for img in aligned[1:]:
+            ok = (aligned[0][inner] > 0) & (img[inner] > 0)
+            if ok.mean() < 0.5:
+                raise RuntimeError('aligned thumbnails do not overlap')
+            ccs.append(float(np.corrcoef(aligned[0][inner][ok],
+                                         img[inner][ok])[0, 1]))
+        if not min(ccs) > 0.9:
+            raise RuntimeError(f'aligned thumbnail cc {ccs}, refined match '
+                               f'errors {r_errs}')
+        if cuda:
+            for name in ('dog_filter', 'peak_detect', 'lradon_patch',
+                         'lradon_match'):
+                if launches[name] <= 0:
+                    raise RuntimeError(f'{name} was not launched by the '
+                                       'thumbnail path')
+        if any(m == 'jax' or m.startswith('jax.') for m in sys.modules):
+            raise RuntimeError('jax was imported')
+        log(f'[thumbnail] {len(pairs)} of {len(pairs)} pairs matched, worst '
+            f'median error of feature matches {max(f_errs):.4f} px and of '
+            f'refined matches {max(r_errs):.4f} px, aligned cc '
+            f'{min(ccs):.5f}-{max(ccs):.5f}')
+        return launches, by_shape, stage_s
+    finally:
+        thumbnail.match_two_thumbnails_LRadon = pair_matcher
+        lradon.match_lradon_device_masked = masked
+        for key, fn in stages.items():
+            setattr(thumbnail_main, key, fn)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+PHASES = ('kernels', 'stitch', 'align', 'thumbnail')
+
+
+def parse_args(argv=None):
+    import argparse
+    p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    p.add_argument('--phases', default=','.join(PHASES),
+                   help='comma list of ' + ', '.join(PHASES))
+    p.add_argument('--profile', action='store_true',
+                   help='one torch.profiler pass per thumbnail stage')
+    args = p.parse_args(argv)
+    args.phases = [x for x in args.phases.split(',') if x]
+    if set(args.phases) - set(PHASES):
+        p.error(f'unknown phase in {args.phases}')
+    return args
+
+
+def main(argv=None):
+    import torch
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
@@ -1028,9 +1752,20 @@ def main():
         libs = list(pool.map(build.build, KERNEL_SOURCES))
     log(f'[build] {", ".join(os.path.relpath(l, REPO) for l in libs)} in '
         f'{time.perf_counter() - t:.2f} s')
-    rows = check_kernels(dev)
-    rows += check_raster(dev, make_texture(dev, 8192, 8192).cpu().numpy())
-    runs = {'stitch': run_slice(dev), 'align': run_align(dev)}
+    rows = []
+    if 'kernels' in args.phases:
+        rows += check_kernels(dev)
+        rows += check_raster(dev, make_texture(dev, 8192, 8192).cpu().numpy())
+        rows += check_lradon(dev)
+    paths = {'stitch': run_slice, 'align': run_align,
+             'thumbnail': lambda d: run_thumbnail(d, profile=args.profile)}
+    runs = {p: fn(dev) for p, fn in paths.items() if p in args.phases}
+    if set(args.phases) != set(PHASES):
+        for path, r in runs.items():
+            log(f'[{path}] launches by shape ' + json.dumps(r[1]))
+        log(f'chip_smoke: ran only {args.phases}')
+        log(card)
+        return 0
     entries = []
     for n, (src, replaces) in KERNELS.items():
         checks = [r for r in rows if r['name'] == n]
@@ -1055,13 +1790,14 @@ def main():
             'bound_ms': main_row['bound_us'] / 1e3,
             'bound_us': main_row['bound_us'],
             'bound_by': main_row['bound_by'],
-            # no single PyTorch call computes either function: conv2d pads
-            # with zeros, not 'nearest'; nothing in PyTorch rasterizes
-            'library_ms': None,
+            # the DoG, blur and raster have none: conv2d pads with zeros,
+            # not 'nearest', and nothing in PyTorch rasterizes a mesh
+            'library_ms': main_row['library_ms'],
             'checks': [{k: r[k] for k in (
                 'shape', 'what', 'max_abs_err', 'ms', 'plain_ms', 'bound_us',
-                'bound_by', 'device_us', 'K', 'real_per_cell',
-                'kept_per_tile') if k in r} for r in checks]})
+                'bound_by', 'library_ms', 'close_rows', 'device_us', 'K',
+                'real_per_cell', 'kept_per_tile') if k in r}
+                for r in checks]})
     log(json.dumps({'kernels': entries}))
     log(card)
     log(json.dumps({'ok': True, 'device': {

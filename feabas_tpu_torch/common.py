@@ -63,6 +63,10 @@ def imwrite(path, img, **kwargs):
 
 # ------------------------------ masks & filters ------------------------------ #
 
+def cross2d(v0, v1):
+    return v0[..., 0] * v1[..., 1] - v0[..., 1] * v1[..., 0]
+
+
 def masked_dog_filter(img, sigma, mask=None, signed=True):
     """Difference-of-Gaussian band-pass with mask-bleed suppression.
 

@@ -143,6 +143,26 @@ def render_host_lanes():
     return max(1, int(dev.get('render_host_lanes', 1) or 1))
 
 
+def device_thumbnail():
+    """general_configs ``device.thumbnail``: run the thumbnail feature
+    pipeline (DoG detect, LRadon descriptors, match reduction) on the
+    device (feabas_tpu_torch/ops/lradon.py); per-call ``use_device=`` kwargs
+    override. 'auto' is the device: only an explicit false value takes the
+    host routes."""
+    dev = general_settings().get('device', {}) or {}
+    return dev.get('thumbnail', 'auto')
+
+
+def resolve_device_thumbnail(val=None):
+    """Map a device.thumbnail value onto a concrete route (see
+    :func:`device_thumbnail`)."""
+    if val is None:
+        val = device_thumbnail()
+    if isinstance(val, str) and val.strip().lower() == 'auto':
+        return True
+    return bool(val)
+
+
 def get_work_dir():
     work_dir = general_settings().get('working_directory', './work_dir')
     return storage.expand_dir(work_dir)
@@ -158,6 +178,7 @@ def get_log_dir():
 _PIPELINES = {
     'stitch': ('default_stitching_configs.yaml', 'stitching_configs.yaml'),
     'align': ('default_alignment_configs.yaml', 'alignment_configs.yaml'),
+    'thumbnail': ('default_thumbnail_configs.yaml', 'thumbnail_configs.yaml'),
 }
 
 
@@ -204,6 +225,10 @@ def stitch_configs():
 
 def align_configs():
     return _pipeline_configs('align')
+
+
+def thumbnail_configs():
+    return _pipeline_configs('thumbnail')
 
 
 def section_thickness():
@@ -293,6 +318,14 @@ def montage_resolution():
     if res is not None:
         return float(res)
     return data_resolution()
+
+
+def thumbnail_resolution():
+    conf = thumbnail_configs().get('downsample', {})
+    res = conf.get('thumbnail_mip_level', None)
+    if res is not None:
+        return montage_resolution() * (2 ** int(res))
+    return montage_resolution() * (2 ** 6)
 
 
 def align_resolution():

@@ -23,7 +23,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 DEVICE_ENV = 'FEABAS_TORCH_DEVICE'
 
-_LAUNCHES = {'dog_filter': 0, 'gaussian_blur': 0, 'mesh_raster': 0}
+_LAUNCHES = {'dog_filter': 0, 'gaussian_blur': 0, 'mesh_raster': 0,
+             'peak_detect': 0, 'lradon_patch': 0, 'lradon_match': 0}
 # the same launches, by the shape the wrapper gave its kernel
 _BY_SHAPE = {k: {} for k in _LAUNCHES}
 

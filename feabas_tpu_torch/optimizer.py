@@ -843,6 +843,18 @@ class SLM:
             center = chunk.mean(axis=0, keepdims=True)
             m.set_vertices(chunk - center, target_gear, offset=center)
 
+    def _only_translated(self, shape_gear, start_gear):
+        """True when every free mesh's ``start_gear`` vertices are its
+        ``shape_gear`` vertices moved by one translation."""
+        for m in self.meshes:
+            if m.locked:
+                continue
+            d = m.vertices_w_offset(start_gear) \
+                - m.vertices_w_offset(shape_gear)
+            if np.abs(d - d[:1]).max() > 1e-9:
+                return False
+        return True
+
     def optimize_linear(self, **kwargs):
         """One (tangent) elastic solve through the fused linear-ENG path.
 
@@ -870,6 +882,12 @@ class SLM:
         groups = sys_d['groups']
         all_eng = all(g['model'] == const.MATERIAL_MODEL_ENG
                       and g['knots'] is None for g in groups)
+        if sys_d['links'][4].shape[0] == 0 and self._only_translated(
+                shape_gear, start_gear):
+            # no link ties any mesh and none is strained: the right-hand
+            # side is zero and positions stay (sections whose every pair
+            # failed to match reach this)
+            return 0.0, 0.0
         if not (all_eng and groups and lam_s < 0 and lam_c < 0
                 and groupings is None and sys_d['links'][4].shape[0] > 0):
             raise NotImplementedError(

@@ -11,8 +11,8 @@ render tables and cell candidates (``ops.render.DeviceRenderEngine``).
 ``cast_floats`` pins the float width first, so a test can hand the JAX
 package and the port the same inputs. ``mesh_from_init_dict`` and
 ``match_from_arrays`` rebuild a JAX ``Mesh`` or ``Match`` as the port's
-from their plain numpy arrays and strings, so port code receives only the
-port's objects.
+from their plain numpy arrays and strings, and ``keypoints_from_arrays`` a
+thumbnail ``KeyPoints``, so port code receives only the port's objects.
 """
 
 import threading
@@ -188,3 +188,17 @@ def match_from_arrays(xy0, xy1, weight, strain=None):
     if strain is None:
         return Match(xy0, xy1, weight)
     return Match(xy0, xy1, weight, strain)
+
+
+def keypoints_from_arrays(xy, response=None, class_id=None, des=None):
+    """The port's ``thumbnail.KeyPoints`` from a keypoint set's host arrays
+    (a JAX ``KeyPoints`` hands over ``kp.xy, kp.response, kp.class_id,
+    kp.des``). The arrays are copied; the device-resident descriptors are
+    not carried."""
+    from feabas_tpu_torch.thumbnail import KeyPoints
+    kp = KeyPoints(np.array(xy),
+                   None if response is None else np.array(response),
+                   None if class_id is None else np.array(class_id))
+    if des is not None:
+        kp.des = np.array(des, dtype=np.float32)
+    return kp

@@ -88,6 +88,8 @@ for mode in ('matching', 'optimization', 'rendering'):
     stitch_main.main(['--mode', mode])
 print(json.dumps({
     'modules': len(mods),
+    'thumbnail_modules': sorted(m for m in mods if m.endswith(
+        ('.thumbnail', '.ops.lradon', '.scripts.thumbnail_main'))),
     'h5': storage.h5py.__name__,
     'wrinkle_is_nonlinear': table['wrinkle'].stiffness_func is not None,
     'factory_is_the_ports': factory is material.asymmetrical_elasticity,
@@ -145,7 +147,12 @@ def test_port_alone_imports_every_module_and_stitches(tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     n_mods = len(list(pkgutil.walk_packages(feabas_tpu_torch.__path__,
                                             'feabas_tpu_torch.')))
-    assert out == {'modules': n_mods, 'h5': 'feabas_tpu_torch._h5lite',
+    assert out == {'modules': n_mods,
+                   'thumbnail_modules': [
+                       'feabas_tpu_torch.ops.lradon',
+                       'feabas_tpu_torch.scripts.thumbnail_main',
+                       'feabas_tpu_torch.thumbnail'],
+                   'h5': 'feabas_tpu_torch._h5lite',
                    'wrinkle_is_nonlinear': True, 'factory_is_the_ports': True,
                    'jax': [], 'feabas_tpu': []}
     # the JAX package reads what the port wrote there without h5py
@@ -348,11 +355,17 @@ def test_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
 def _entry_points(tmp_path):
     from feabas_tpu_torch.optimizer import SLM
     from feabas_tpu_torch.renderer import MeshRenderer
-    from feabas_tpu_torch.scripts import align_main, stitch_main
+    from feabas_tpu_torch.ops import lradon
+    from feabas_tpu_torch.scripts import (align_main, stitch_main,
+                                          thumbnail_main)
     mesh = PMesh.from_bbox((0, 0, 100, 100), mesh_size=50)
     return {
         'stitch_main': lambda: stitch_main.main(['--mode', 'matching']),
         'align_main': lambda: align_main.main(['--mode', 'meshing']),
+        'thumbnail_main': lambda: thumbnail_main.main(['--mode',
+                                                       'downsample']),
+        'detect_log_device': lambda: lradon.detect_log_device(
+            np.zeros((32, 32), np.float32)),
         'Stitcher': lambda: pstitcher.Stitcher(['t.png'], [(0, 0, 10, 10)]),
         'Aligner': lambda: paligner.Aligner(str(tmp_path), str(tmp_path),
                                             str(tmp_path)),
@@ -362,8 +375,10 @@ def _entry_points(tmp_path):
     }
 
 
-@pytest.mark.parametrize('entry', ['stitch_main', 'align_main', 'Stitcher',
-                                   'Aligner', 'Stack', 'MeshRenderer', 'SLM'])
+@pytest.mark.parametrize('entry', ['stitch_main', 'align_main',
+                                   'thumbnail_main', 'detect_log_device',
+                                   'Stitcher', 'Aligner', 'Stack',
+                                   'MeshRenderer', 'SLM'])
 def test_entry_points_raise_without_a_card(entry, tmp_path, monkeypatch):
     """With no card and no FEABAS_TORCH_DEVICE every entry point of the
     port raises instead of running on the CPU; asked for the CPU, it
@@ -375,6 +390,6 @@ def test_entry_points_raise_without_a_card(entry, tmp_path, monkeypatch):
     monkeypatch.delenv(device_mod.DEVICE_ENV)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         fn()
-    if entry not in ('stitch_main', 'align_main'):
+    if entry not in ('stitch_main', 'align_main', 'thumbnail_main'):
         monkeypatch.setenv(device_mod.DEVICE_ENV, 'cpu')
         assert fn() is not None
