@@ -26,12 +26,14 @@ Phases (each prints its lines; any failure exits non-zero):
      window 10 with and without a mask, a 1x1 and a 7x300 plane, windows 3
      and 7, plateaus), the LRadon descriptors (<= 1e-5; 5000 keypoints on
      2048^2, keypoints on every border and corner with fractional offsets
-     0 and just under 1, a 3000x2000 image) and the rotation-exhaustive
-     match (indices, best rotation and mutual flags equal except where the
-     plain version's top two are closer than 1e-5, which are counted;
-     5000 x 5000 x 12 variants, 64 x 4096, one side masked, duplicated
-     descriptors, no rotation search, and pairs whose best variant is 0,
-     in 1..P-1 and in P..2P-1);
+     0 and just under 1, a 3000x2000 image, beam radii 30 and 45, 4 x 6
+     bins) and the rotation-exhaustive match (indices, best rotation and
+     mutual flags equal except where the plain version's top two are
+     closer than 1e-5, which are counted; 5000 x 5000 x 12 variants,
+     64 x 4096, one side masked, duplicated descriptors, no rotation
+     search, pairs whose best variant is 0, in 1..P-1 and in P..2P-1,
+     4 x 6 descriptors, 100 x 3001); the descriptor and match rows also
+     with their device time per call from a CUDA-graph replay;
   4. the stitch slice: a synthetic 2x3 grid of 3000x4000 uint8 tiles
      (10% overlap, 3 px stage jitter, made on the card from a seed) goes
      through ``feabas_tpu_torch.scripts.stitch_main`` matching,
@@ -163,17 +165,22 @@ def log_rows(rows, err_unit=''):
                 f'max_abs_err={r["max_abs_err"]:.3e}{err_unit} '
                 f'kernel_ms={r["ms"]:.4f} plain_ms={r["plain_ms"]:.4f} '
                 f'bound_us={r["bound_us"]:.4g} ({r["bound_by"]}) ')
-        if 'device_us' in r:
+        if 'K' in r:
             line += (f'device_us={r["device_us"]:.2f} share(device time)='
                      f'{r["bound_us"] / r["device_us"]:.1%} K={r["K"]} '
                      f'real_per_cell={r["real_per_cell"]:.2f} '
                      f'kept_per_tile={r["kept_per_tile"]:.2f}')
         else:
             line += f'share={r["bound_us"] / 1e3 / r["ms"]:.1%}'
+            if 'device_us' in r:
+                line += (f' device_us={r["device_us"]:.2f} share(device '
+                         f'time)={r["bound_us"] / r["device_us"]:.1%}')
         if r.get('library_ms') is not None:
             line += f' library_ms={r["library_ms"]:.4f}'
         if 'close_rows' in r:
             line += f' close_rows={r["close_rows"]}'
+        if r.get('first_ms') is not None:
+            line += f' first_version_ms(recorded)={r["first_ms"]:.4f}'
         log(line)
 
 
@@ -301,12 +308,12 @@ def raster_bound(src, tabs, h, w):
     return bound(RASTER_FLOP_PER_PX * px, nbytes)
 
 
-def device_time(run, out, covered, n=20):
-    """Device microseconds per launch: ``n`` launches of the kernel's C
-    entry into preallocated outputs, captured in one CUDA graph and
-    replayed (no host time between launches), timed with CUDA events."""
+def graph_time(fn, n=20):
+    """Device microseconds per call of ``fn``: ``n`` calls captured in one
+    CUDA graph and replayed (no host time between launches), timed with
+    CUDA events."""
     import torch
-    run(out, covered)
+    fn()
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -314,7 +321,7 @@ def device_time(run, out, covered, n=20):
     with torch.cuda.stream(side):
         with torch.cuda.graph(graph, stream=side):
             for _ in range(n):
-                run(out, covered)
+                fn()
     torch.cuda.current_stream().wait_stream(side)
     return cuda_time(graph.replay, iters=10) / n * 1e3
 
@@ -460,8 +467,9 @@ def check_raster(dev, texture):
         pms = cuda_time(plain, max(iters // 4, 2), warm_s)
         run, _, dt = render._prepare(src, tabs, cands, fillval, h, w,
                                      geodesic, out_kind, None)
-        us = device_time(run, torch.empty((B, h, w), dtype=dt, device=dev),
-                         torch.empty(B, dtype=torch.bool, device=dev))
+        into = (torch.empty((B, h, w), dtype=dt, device=dev),
+                torch.empty(B, dtype=torch.bool, device=dev))
+        us = graph_time(lambda: run(*into))
         keep = render.tile_cull_plain(tabs, cands, h, w, tile_h)
         idx = (cands.long() if cands is not None else
                torch.arange(tabs.shape[1], device=dev)[None, None]
@@ -1164,9 +1172,10 @@ def lradon_cases(dev, kernel):
                 ('plateau', plane(512, 640, 10, levels=2))]
 
     if kernel == 'lradon_patch':
-        def keypoints(h, w, K, border=False, timed=False, radius=15):
+        def keypoints(h, w, K, border=False, timed=False, radius=15,
+                      geom=(6, 8, 3)):
             def make():
-                D, offs, Rp = lradon._desc_params(6, 8, 3, radius)
+                D, offs, Rp = lradon._desc_params(*geom, radius)
                 g = gen()
                 img = torch.rand((h, w), generator=g, device=dev) * 255
                 xy = torch.rand((K, 2), generator=g, device=dev) \
@@ -1181,13 +1190,14 @@ def lradon_cases(dev, kernel):
                            (5 + e, 7), (5, 7 + e), (1, 1), (w - 2, h - 2)]
                     xy[:len(pts)] = torch.tensor(pts, device=dev)
                 z0 = torch.floor(xy)
-                tables = lradon._stencil_tensors(6, 8, 3, D, offs, Rp, dev)
+                tables = lradon._stencil_tensors(*geom, D, offs, Rp, dev)
                 return {'args': (img, z0.to(torch.int32) + 1, xy - z0, tables,
-                                 6, Rp), 'timed': timed}
+                                 geom[0], Rp), 'timed': timed}
             return make
-        # the kernel takes 8 keypoints per block while their patches fit
-        # half an SM's shared memory, then 4, then 1: beam radii 30
-        # (93^2 patches) and 45 (135^2) reach the other two group sizes
+        # a block holds the sparse table and one blended patch per warp:
+        # 16 warps at radius 15 (49^2 patches), 4 at radius 30 (93^2), 1 at
+        # radius 45 (135^2, its 416-tap bins in 120 KB of table); the 4 x 6
+        # geometry has 24 bins, under one per lane
         return [('K 5000', keypoints(2048, 2048, 5000, timed=True)),
                 ('K 64, borders and corners', keypoints(300, 260, 64,
                                                         border=True)),
@@ -1196,17 +1206,19 @@ def lradon_cases(dev, kernel):
                                                      border=True, radius=30)),
                 ('radius 45, one per block', keypoints(300, 260, 37,
                                                        border=True,
-                                                       radius=45))]
-
-    P = 6
-    perms = lradon._variant_perms(P, 8, dev).long()
+                                                       radius=45)),
+                ('4 x 6 bins, width 1, radius 9.5',
+                 keypoints(300, 260, 300, border=True, radius=9.5,
+                           geom=(4, 6, 1)))]
 
     def sets(K0, K1, exhaustive=True, mask0=None, dup=False, variant=None,
-             timed=False):
+             timed=False, shape=(6, 8)):
         def make():
+            P = shape[0]
+            perms = lradon._variant_perms(P, shape[1], dev).long()
             g = gen()
-            d0 = _unit_descriptors(g, dev, K0)
-            d1 = _unit_descriptors(g, dev, K1)
+            d0 = _unit_descriptors(g, dev, K0, shape)
+            d1 = _unit_descriptors(g, dev, K1, shape)
             v0 = torch.rand(K0, generator=g, device=dev) > 0.1
             v1 = torch.rand(K1, generator=g, device=dev) > 0.1
             post = None
@@ -1253,7 +1265,11 @@ def lradon_cases(dev, kernel):
             ('not exhaustive', sets(1000, 777, exhaustive=False)),
             ('variant 0', sets(400, 300, variant=0)),
             ('variant 1..P-1', sets(400, 300, variant=3)),
-            ('variant P..2P-1', sets(400, 300, variant=8))]
+            ('variant P..2P-1', sets(400, 300, variant=8)),
+            # the kernels' other instantiation (any dlen), and a row tile
+            # cut short beside 24 column tiles that no chunk count divides
+            ('dlen 24 (4 x 6)', sets(700, 900, shape=(4, 6))),
+            ('100 x 3001', sets(3001, 100))]
 
 
 def _match_disagreement(got, want, args):
@@ -1363,7 +1379,8 @@ def _lradon_bound(kernel, args):
         return bound(px * (2 * size + 3),
                      px * (8 + (4 if mask is not None else 0)))
     if kernel == 'lradon_patch':
-        img, z, f, (W, _) = args[:4]
+        img, z, f, tables = args[:4]
+        W = tables[0]
         K, out = z.shape[0], W.shape[1]
         # the products with the table's non-zero taps (a beam touches a
         # small part of its patch), then the blend and the normalisation
@@ -1375,6 +1392,17 @@ def _lradon_bound(kernel, args):
     # the products of every variant, then a compare per reduction and entry
     return bound(nvar * 2 * K0 * K1 * dlen + (nvar + 3) * K0 * K1,
                  4 * (K0 + K1) * dlen + K0 + K1 + 13 * K1 + 4)
+
+
+# call ms of the first versions of K16 / K17 (PERF.md), printed beside
+# this run's for reference; the kernels line carries only this run's
+FIRST_MS = {('lradon_patch', 'K 5000'): 0.4842,
+            ('lradon_patch', 'K 64, borders and corners'): 0.1727,
+            ('lradon_patch', 'K 4096, 3000x2000'): 0.3454,
+            ('lradon_patch', 'radius 30, groups of 4'): 0.4833,
+            ('lradon_patch', 'radius 45, one per block'): 0.8326,
+            ('lradon_match', '5000 x 5000'): 1.7084,
+            ('lradon_match', '64 x 4096'): 0.0762}
 
 
 def check_lradon(dev):
@@ -1413,9 +1441,15 @@ def check_lradon(dev):
                 shape = (args[1].shape[0], args[3][0].shape[1])
             else:
                 shape = (args[2].shape[0], args[0].shape[0],
-                         12 if args[5] else 1)
+                         2 * args[4] if args[5] else 1)
             row = kernel_row(kernel, shape, name, err, ms, pms,
                              _lradon_bound(kernel, args), lib)
+            if kernel != 'peak_detect':
+                # a call near the host floor is mostly host time: the
+                # device's share of it, from a CUDA-graph replay
+                row['device_us'] = graph_time(
+                    lambda: wrappers[kernel](*args), 20 if timed else 5)
+                row['first_ms'] = FIRST_MS.get((kernel, name))
             row['edge'] = not case.get('on_path', timed)
             if close is not None:
                 row['close_rows'] = close
@@ -1552,7 +1586,8 @@ def _profiled(profile, label, fn):
     own = [e for e in events if any(
         '(anonymous namespace)::' + k in e.key for k in (
             'dog_kernel', 'raster<', 'peak_kernel', 'patch_kernel',
-            'variant_max_kernel', 'reduce_kernel(', 'finish_kernel'))]
+            'prep_kernel', 'variant_max_kernel', 'reduce_kernel<',
+            'finish_kernel'))]
 
     def fmt(es):
         return '; '.join(f'{e.key[:48]} {e.self_device_time_total / 1e3:.2f} '

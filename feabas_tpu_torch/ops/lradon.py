@@ -8,11 +8,13 @@ PyTorch version:
 - ``peak_response`` (``csrc/peak_detect.cu``): the max-pool peak test of the
   detector and the response plane its top-k reads. The band-pass before it
   goes through ``ops.dog`` (the DoG kernel, and the blur kernel for a mask).
-- ``lradon_patch`` (``csrc/lradon_patch.cu``): per-keypoint patch times the
-  precomputed sampling-stencil table, corner blend and normalisation.
+- ``lradon_patch`` (``csrc/lradon_patch.cu``): per-keypoint patch blended
+  by its fractional offset, times the sparse sampling stencil, and the
+  normalisation.
 - ``lradon_match`` (``csrc/lradon_match.cu``): similarity over all 2P
   rotation variants, best-rotation selection, mutual-nearest check and
-  ratio-test confidence, reduced on the device: only O(K) vectors leave it.
+  ratio-test confidence, reduced on the device in column chunks: only O(K)
+  vectors leave it.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises. Detection returns a fixed-size top-k keypoint
@@ -191,16 +193,17 @@ _STENCIL_CACHE = {}
 _STENCIL_DEVICE_CACHE = {}
 
 
-def _stencil_table(proj_num, beam_num, beam_wd, D, offs, Rp):
-    """(4, P*B, Dp*Dp) f32 sampling-stencil matrix, host-precomputed in
-    f64 and cached.
+def _stencil_table64(proj_num, beam_num, beam_wd, D, offs, Rp):
+    """(4, P*B, Dp*Dp) f64 sampling-stencil matrix, host-precomputed and
+    cached.
 
     Row (t*B + b) of corner plane c = (cy, cx) holds the mean bilinear
     stencil of the beam window's D*wd taps at patch positions
     ``(Rp, Rp) + R(t) @ (a, offs_b + v) + (cx, cy)`` — i.e. the LRadon
     bin evaluated on the integer-corner-shifted patch. The descriptor at
     a fractional keypoint offset is the bilinear blend of the four
-    corner evaluations."""
+    corner evaluations. Plane (cy, cx) is plane (0, 0) shifted by (cx, cy)
+    pixels, exactly (the same taps at integer-shifted positions)."""
     key = (proj_num, beam_num, beam_wd, D, Rp, offs.tobytes())
     if key in _STENCIL_CACHE:
         return _STENCIL_CACHE[key]
@@ -234,21 +237,51 @@ def _stencil_table(proj_num, beam_num, beam_wd, D, offs, Rp):
                         np.add.at(W[cy, cx, it * beam_num + b],
                                   flat[:, b, :].ravel(),
                                   ww[:, b, :].ravel() / (D * beam_wd))
-    W = W.reshape(4, proj_num * beam_num, Dp * Dp).astype(np.float32)
+    W = W.reshape(4, proj_num * beam_num, Dp * Dp)
     _STENCIL_CACHE[key] = W
     return W
 
 
+def _stencil_table(proj_num, beam_num, beam_wd, D, offs, Rp):
+    """The stencil matrix of ``_stencil_table64`` in f32, the values both
+    the plain version and the kernel use."""
+    return _stencil_table64(proj_num, beam_num, beam_wd, D, offs,
+                            Rp).astype(np.float32)
+
+
+# csrc/lradon_patch.cu reads tap offsets as unsigned 16-bit integers
+MAX_PATCH_PX = 1 << 15
+
+
+def _stencil_taps(W0):
+    """The non-zero taps of the corner-(0, 0) plane ``W0`` (PB, Dp^2), the
+    sparse table the kernel holds in shared memory: (off (S, PB) int16,
+    wts (S, PB) of W0's type), column q listing bin q's taps in ascending
+    p and padded to the longest bin's S with (0, 0.0), which add nothing."""
+    if W0.shape[1] > MAX_PATCH_PX:
+        raise ValueError(f'{W0.shape[1]} patch pixels: tap offsets must fit '
+                         f'16 bits (at most {MAX_PATCH_PX})')
+    nz = W0 != 0
+    S = max(1, int(nz.sum(1).max()))
+    off = np.zeros((S, W0.shape[0]), np.int16)
+    wts = np.zeros((S, W0.shape[0]), W0.dtype)
+    for q in range(W0.shape[0]):
+        p = np.nonzero(nz[q])[0]
+        off[:p.size, q] = p
+        wts[:p.size, q] = W0[q, p]
+    return off, wts
+
+
 def _stencil_tensors(proj_num, beam_num, beam_wd, D, offs, Rp, dev):
-    """The stencil table on ``dev``, uploaded once per geometry: (W
-    (4, P*B, Dp^2), its transpose Wt (Dp^2, 4*P*B) that the kernel
-    streams)."""
+    """The stencil tables on ``dev``, uploaded once per geometry: (W
+    (4, P*B, Dp^2) for the plain version, and the kernel's sparse corner
+    plane ``_stencil_taps(W[0])``: off (S, P*B) int16, wts (S, P*B) f32)."""
     key = (proj_num, beam_num, beam_wd, D, Rp, offs.tobytes(), str(dev))
     if key not in _STENCIL_DEVICE_CACHE:
-        W = torch.from_numpy(_stencil_table(proj_num, beam_num, beam_wd, D,
-                                            offs, Rp)).to(dev)
-        Wt = W.permute(2, 0, 1).reshape(W.shape[2], -1).contiguous()
-        _STENCIL_DEVICE_CACHE[key] = (W, Wt)
+        W = _stencil_table(proj_num, beam_num, beam_wd, D, offs, Rp)
+        off, wts = _stencil_taps(W[0])
+        _STENCIL_DEVICE_CACHE[key] = tuple(
+            torch.from_numpy(a).to(dev) for a in (W, off, wts))
     return _STENCIL_DEVICE_CACHE[key]
 
 
@@ -278,10 +311,11 @@ def lradon_patch_plain(img, z, f, W, proj_num, Rp):
 def _patch_lib():
     if 'lradon_patch' not in _LIBS:
         lib = build.load('lradon_patch')
-        # img, h, w, z, frac, wt, out, K, Dp, PB, pad, stream
+        # img, h, w, z, frac, tap_off, tap_w, S, out, K, Dp, PB, pad, stream
         lib.lradon_patch_f32.argtypes = (
             [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.lradon_patch_f32.restype = ctypes.c_int
         _LIBS['lradon_patch'] = lib
     return _LIBS['lradon_patch']
@@ -289,22 +323,27 @@ def _patch_lib():
 
 def lradon_patch(img, z, f, tables, proj_num, Rp):
     """``lradon_patch_plain`` through the CUDA kernel, which clamps its
-    reads into the image instead of padding it and streams the transposed
-    table. ``tables`` is the pair (W, Wt) of ``_stencil_tensors``."""
-    W, Wt = tables
+    reads into the image instead of padding it, blends each keypoint's
+    patch by its fractional offset once, and applies the sparse corner-(0,
+    0) plane to it (the four corner planes are that plane shifted by one
+    pixel, so ``sum_c wc_c W_c . patch == W_0 . blend``). ``tables`` is the
+    triple (W, off, wts) of ``_stencil_tensors``."""
+    W, off, wts = tables
     if img.device.type == 'cpu':
         return lradon_patch_plain(img, z, f, W, proj_num, Rp)
     z = z.to(torch.int32).contiguous()
     f = f.contiguous()
-    _require_cuda('lradon_patch', img=img, z=z, f=f, Wt=Wt)
+    _require_cuda('lradon_patch', img=img, z=z, f=f, off=off, wts=wts)
     if img.dim() != 2 or img.dtype != torch.float32 \
-            or f.dtype != torch.float32 or Wt.dtype != torch.float32:
-        raise TypeError('lradon_patch takes float32 tensors')
+            or f.dtype != torch.float32 or wts.dtype != torch.float32 \
+            or off.dtype != torch.int16:
+        raise TypeError('lradon_patch takes float32 tensors and int16 tap '
+                        'offsets')
     K, Dp = int(z.shape[0]), 2 * int(Rp) + 1
-    PB = Wt.shape[1] // 4
-    if Wt.shape != (Dp * Dp, 4 * PB) or PB % proj_num or z.shape != (K, 2) \
-            or f.shape != (K, 2):
-        raise ValueError(f'table {tuple(Wt.shape)}, z {tuple(z.shape)}, f '
+    S, PB = int(wts.shape[0]), int(wts.shape[1])
+    if off.shape != wts.shape or W.shape[1:] != (PB, Dp * Dp) \
+            or PB % proj_num or z.shape != (K, 2) or f.shape != (K, 2):
+        raise ValueError(f'taps {tuple(wts.shape)}, z {tuple(z.shape)}, f '
                          f'{tuple(f.shape)} do not fit Rp {Rp}')
     out = torch.empty((K, proj_num, PB // proj_num), dtype=torch.float32,
                       device=img.device)
@@ -313,8 +352,9 @@ def lradon_patch(img, z, f, tables, proj_num, Rp):
     h, w = img.shape
     with torch.cuda.device(img.device):
         err = _patch_lib().lradon_patch_f32(
-            img.data_ptr(), h, w, z.data_ptr(), f.data_ptr(), Wt.data_ptr(),
-            out.data_ptr(), K, Dp, PB, int(Rp) + 1, _stream(img))
+            img.data_ptr(), h, w, z.data_ptr(), f.data_ptr(), off.data_ptr(),
+            wts.data_ptr(), S, out.data_ptr(), K, Dp, PB, int(Rp) + 1,
+            _stream(img))
     if err != 0:
         raise RuntimeError(f'lradon_patch launch failed: CUDA error {err}')
     device_mod.count_launch('lradon_patch', (K, PB))
@@ -445,21 +485,56 @@ def _first_argmax(S, dim):
     return torch.where(is_max, ids, torch.full_like(ids, n)).min(dim=dim).values
 
 
+MATCH_TILE = 128                      # csrc/lradon_match.cu kBN (= kBM)
+MATCH_VARIANTS_PER_BLOCK = 2          # csrc/lradon_match.cu kVar
+
+
 def _match_lib():
     if 'lradon_match' not in _LIBS:
         lib = build.load('lradon_match')
-        # d0, v0, d1, v1, perms, nvar, gmax, rowkey1, rowkey2, colkey,
-        # i0, top, conf, mutual, best_rot, K0, K1, dlen, stream
+        # d0, v0, d1, v1, perms, nvar, d0t, gmax, rowkeys, colkey, i0, top,
+        # conf, mutual, best_rot, K0, K1, dlen, chunks1, chunks2, stream
         lib.lradon_match_f32.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 9
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.lradon_match_f32.restype = ctypes.c_int
+        for fn in ('lradon_match_tile', 'lradon_match_variants_per_block'):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = ctypes.c_int
+        if (lib.lradon_match_tile(), lib.lradon_match_variants_per_block()) \
+                != (MATCH_TILE, MATCH_VARIANTS_PER_BLOCK):
+            raise RuntimeError('csrc/lradon_match.cu kBN, kVar != '
+                               f'{MATCH_TILE}, {MATCH_VARIANTS_PER_BLOCK}')
         _LIBS['lradon_match'] = lib
     return _LIBS['lradon_match']
 
 
+def _match_plan(K0, K1, nvar, sms):
+    """Grid of the match kernels on a card of ``sms`` SMs: (K0p, the column
+    count padded to whole tiles; chunks1, chunks2, the column chunks of
+    passes 1 and 2). Pass 1 has row tiles x variant groups blocks before
+    the split, pass 2 row tiles: each is split over columns until it about
+    fills the card at two blocks per SM, and never into more chunks than
+    there are column tiles."""
+    col_tiles = -(-int(K0) // MATCH_TILE)
+    row_tiles = -(-int(K1) // MATCH_TILE)
+    groups = -(-int(nvar) // MATCH_VARIANTS_PER_BLOCK)
+    chunks1 = max(1, min(col_tiles, round(2 * sms / (row_tiles * groups))))
+    chunks2 = max(1, min(col_tiles, 2 * sms // row_tiles))
+    return col_tiles * MATCH_TILE, chunks1, chunks2
+
+
+_SMS = {}
+
+
+def _sm_count(dev):
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
 def lradon_match(d0, v0, d1, v1, proj_num, exhaustive=True):
-    """``lradon_match_plain`` through the CUDA kernel: no similarity plane
+    """``lradon_match_plain`` through the CUDA kernels: no similarity plane
     is written to memory."""
     if d0.device.type == 'cpu':
         return lradon_match_plain(d0, v0, d1, v1, proj_num, exhaustive)
@@ -481,9 +556,11 @@ def lradon_match(d0, v0, d1, v1, proj_num, exhaustive=True):
     dlen = int(d0.shape[1] * d0.shape[2])
     perms = _variant_perms(int(proj_num), int(d0.shape[2]), dev)
     nvar = int(perms.shape[0]) if exhaustive else 1
-    gmax = torch.zeros(nvar, dtype=torch.int32, device=dev)
-    rowkeys = torch.empty((2, K1), dtype=torch.int64, device=dev)
-    colkey = torch.zeros(K0, dtype=torch.int64, device=dev)
+    K0p, chunks1, chunks2 = _match_plan(K0, K1, nvar, _sm_count(dev))
+    d0t = torch.empty((dlen, K0p), dtype=torch.float32, device=dev)
+    gmax = torch.empty(nvar, dtype=torch.int32, device=dev)
+    rowkeys = torch.empty((chunks2, 2, K1), dtype=torch.int64, device=dev)
+    colkey = torch.empty(K0, dtype=torch.int64, device=dev)
     i0 = torch.empty(K1, dtype=torch.int32, device=dev)
     top = torch.empty(K1, dtype=torch.float32, device=dev)
     conf = torch.empty(K1, dtype=torch.float32, device=dev)
@@ -492,10 +569,10 @@ def lradon_match(d0, v0, d1, v1, proj_num, exhaustive=True):
     with torch.cuda.device(dev):
         err = _match_lib().lradon_match_f32(
             d0.data_ptr(), v0.data_ptr(), d1.data_ptr(), v1.data_ptr(),
-            perms.data_ptr(), nvar, gmax.data_ptr(), rowkeys[0].data_ptr(),
-            rowkeys[1].data_ptr(), colkey.data_ptr(), i0.data_ptr(),
+            perms.data_ptr(), nvar, d0t.data_ptr(), gmax.data_ptr(),
+            rowkeys.data_ptr(), colkey.data_ptr(), i0.data_ptr(),
             top.data_ptr(), conf.data_ptr(), mutual.data_ptr(),
-            best_rot.data_ptr(), K0, K1, dlen, _stream(d0))
+            best_rot.data_ptr(), K0, K1, dlen, chunks1, chunks2, _stream(d0))
     if err != 0:
         raise RuntimeError(f'lradon_match launch failed: CUDA error {err}')
     device_mod.count_launch('lradon_match', (K1, K0, nvar))

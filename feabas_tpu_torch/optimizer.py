@@ -941,7 +941,12 @@ class SLM:
 
     def optimize_elastic(self, **kwargs):
         """Linear solve plus residue reweighting passes for all-linear
-        systems; nonlinear materials need Newton-Raphson (not ported)."""
+        systems; nonlinear materials need Newton-Raphson (not ported).
+        Every other keyword (``groupings``, ``chances``, tolerances) goes on
+        to ``optimize_linear``: ``chances`` stops the general path's CG after
+        that many iterations without progress, as in the JAX package,
+        whose fused ENG solve (the port's only path) ignores it too;
+        ``groupings`` raises there until the grouped solve is ported."""
         if not self.is_linear:
             raise NotImplementedError(
                 'nonlinear materials: feabas_tpu.optimizer.SLM.'

@@ -355,14 +355,15 @@ class Stitcher:
         kwargs.setdefault('residue_mode', 'huber')
         kwargs.setdefault('residue_len', 3)
         if kwargs.pop('use_groupings', False) and self.groupings is not None:
-            raise NotImplementedError(
-                'grouped elastic solves: the groupings path of '
-                'feabas_tpu.optimizer.SLM.optimize_linear is not ported yet')
+            # SLM.optimize_linear raises for groupings (not ported yet)
+            uid2idx = {id(m): i for i, m in enumerate(self.meshes)}
+            kwargs['groupings'] = np.asarray(
+                [self.groupings[uid2idx[id(m)]] for m in slm.meshes])
         cost = slm.optimize_elastic(
             **{k: v for k, v in kwargs.items()
                if k in ('stiffness_lambda', 'crosslink_lambda', 'residue_mode',
                         'residue_len', 'tol', 'atol', 'maxiter',
-                        'max_residue_passes')})
+                        'max_residue_passes', 'groupings', 'chances')})
         self.last_solve_converged = getattr(slm, 'last_solve_converged', True)
         return cost
 
@@ -377,8 +378,14 @@ class Stitcher:
         return self.groupings
 
     def optimize_affine(self, **kwargs):
+        """One affine per tile group (or per tile), starting from the
+        translation stage's placement."""
         slm = getattr(self, '_slm', None) or self.initialize_optimizer()
-        return slm.optimize_affine_cascade(**kwargs)
+        use_group = kwargs.get('use_group', True) and self.groupings is not None
+        return slm.optimize_affine_cascade(
+            start_gear=const.MESH_GEAR_MOVING,
+            target_gear=const.MESH_GEAR_MOVING,
+            groupings=self.groupings if use_group else None)
 
     def optimize_group_intersection(self, **kwargs):
         """Relax only inter-group interfaces: tiles with no links to other
@@ -541,8 +548,9 @@ def subprocess_match_list_of_overlaps(loader_spec, overlaps, margin,
                                       matcher_config, device=None):
     """Match a batch of overlap pairs. Returns a list of ((i, j),
     Match|None, photometric|None, error|None), matches in tile-local
-    pixel coordinates. Host IO failures are contained per overlap; device
-    errors propagate."""
+    pixel coordinates. A failure of one overlap's crops, photometrics or
+    offsets is recorded in its error slot; errors of the batched match
+    itself propagate."""
     from feabas_tpu_torch.matcher import match_pairs_batched
     loader = get_loader_from_json(loader_spec)
     out = []
@@ -561,38 +569,40 @@ def subprocess_match_list_of_overlaps(loader_spec, overlaps, margin,
             crop_j, _ = intersect_bbox(ovl_m, bbox_j)
             img_i = loader.crop(crop_i, fileid=i)
             img_j = loader.crop(crop_j, fileid=j)
-        except (OSError, ValueError) as e:
+            mc = dict(matcher_config)
+            # stage prior: crop_j's origin in crop_i's frame
+            mc.setdefault('stage_prior', (float(crop_j[0] - crop_i[0]),
+                                          float(crop_j[1] - crop_i[1])))
+            maskout = mc.pop('maskout_val', None)
+            if maskout is not None:
+                mc['mask0'] = img_i != maskout
+                mc['mask1'] = img_j != maskout
+            mc.pop('compute_photometric', None)
+            jobs.append((img_i, img_j, mc))
+            ctx.append(((i, j), bbox_i, bbox_j, ovl, crop_i, crop_j))
+        except Exception as e:  # one overlap's failure stays its own
             out.append(((i, j), None, None, f'{type(e).__name__}: {e}'))
-            continue
-        mc = dict(matcher_config)
-        # stage prior: crop_j's origin in crop_i's frame
-        mc.setdefault('stage_prior', (float(crop_j[0] - crop_i[0]),
-                                      float(crop_j[1] - crop_i[1])))
-        maskout = mc.pop('maskout_val', None)
-        if maskout is not None:
-            mc['mask0'] = img_i != maskout
-            mc['mask1'] = img_j != maskout
-        mc.pop('compute_photometric', None)
-        jobs.append((img_i, img_j, mc))
-        ctx.append(((i, j), bbox_i, bbox_j, ovl, crop_i, crop_j))
     matches = match_pairs_batched(jobs, device=device)
     for match, (key, bbox_i, bbox_j, ovl, crop_i, crop_j) in zip(matches, ctx):
         i, j = key
-        photometric = None
-        if matcher_config.get('compute_photometric', False):
-            ov_i, _ = intersect_bbox(ovl, crop_i)
-            a = loader.crop(ov_i, fileid=i).astype(np.float64)
-            b = loader.crop(ov_i, fileid=j).astype(np.float64)
-            sel = (a > 0) & (b > 0)
-            if sel.sum() > 16:
-                photometric = (float(a[sel].mean()), float(a[sel].std()),
-                               float(b[sel].mean()), float(b[sel].std()))
-        if match is not None:
-            off_i = np.asarray(crop_i[:2]) - bbox_i[:2]
-            off_j = np.asarray(crop_j[:2]) - bbox_j[:2]
-            match = Match(match.xy0 + off_i, match.xy1 + off_j,
-                          match.weight, match.strain)
-        out.append((key, match, photometric, None))
+        try:
+            photometric = None
+            if matcher_config.get('compute_photometric', False):
+                ov_i, _ = intersect_bbox(ovl, crop_i)
+                a = loader.crop(ov_i, fileid=i).astype(np.float64)
+                b = loader.crop(ov_i, fileid=j).astype(np.float64)
+                sel = (a > 0) & (b > 0)
+                if sel.sum() > 16:
+                    photometric = (float(a[sel].mean()), float(a[sel].std()),
+                                   float(b[sel].mean()), float(b[sel].std()))
+            if match is not None:
+                off_i = np.asarray(crop_i[:2]) - bbox_i[:2]
+                off_j = np.asarray(crop_j[:2]) - bbox_j[:2]
+                match = Match(match.xy0 + off_i, match.xy1 + off_j,
+                              match.weight, match.strain)
+            out.append((key, match, photometric, None))
+        except Exception as e:
+            out.append((key, None, None, f'{type(e).__name__}: {e}'))
     return out
 
 

@@ -134,7 +134,10 @@ def test_peak_window_follows_the_xla_rule(size):
 
 # ----------------------- stencil table and variants ----------------------- #
 
-@pytest.mark.parametrize('geom', [(6, 8, 3, 15), (4, 6, 1, 9.5)])
+GEOMS = [(6, 8, 3, 15), (4, 6, 1, 9.5)]
+
+
+@pytest.mark.parametrize('geom', GEOMS)
 def test_stencil_table_matches_jax(geom):
     D, offs, Rp = lradon._desc_params(*geom)
     Dj, offs_j, Rp_j = jlradon._desc_params(*geom)
@@ -144,9 +147,132 @@ def test_stencil_table_matches_jax(geom):
                                            offs_j, Rp_j))
     assert W.shape == Wj.shape == (4, geom[0] * geom[1], (2 * Rp + 1) ** 2)
     assert W.dtype == np.float32 and np.abs(W - Wj).max() <= 1e-7
-    Wd, Wt = lradon._stencil_tensors(geom[0], geom[1], geom[2], D, offs, Rp,
-                                     torch.device('cpu'))
-    assert torch.equal(Wt, Wd.permute(2, 0, 1).reshape(Wd.shape[2], -1))
+    Wd, off, wts = lradon._stencil_tensors(geom[0], geom[1], geom[2], D,
+                                           offs, Rp, torch.device('cpu'))
+    assert torch.equal(Wd, torch.from_numpy(W))
+    want_off, want_wts = lradon._stencil_taps(W[0])
+    assert np.array_equal(off.numpy(), want_off)
+    assert np.array_equal(wts.numpy(), want_wts)
+
+
+@pytest.mark.parametrize('geom', GEOMS + [(6, 8, 3, 30), (6, 8, 3, 45)])
+def test_corner_planes_are_one_plane_shifted(geom):
+    """Corner plane (cy, cx) is plane (0, 0) shifted by (cx, cy) pixels,
+    and plane (0, 0) is zero on the patch's last row and column: the
+    kernel's one-plane form rests on this. It holds exactly in the f32
+    table both versions use; in f64 the same taps differ by at most one
+    ulp (a tap position x + cx rounds apart from x)."""
+    D, offs, Rp = lradon._desc_params(*geom)
+    Dp = 2 * Rp + 1
+    for W, atol in ((lradon._stencil_table(
+            geom[0], geom[1], geom[2], D, offs, Rp), 0.0),
+            (lradon._stencil_table64(
+                geom[0], geom[1], geom[2], D, offs, Rp), 1e-15)):
+        W = W.reshape(2, 2, -1, Dp, Dp)
+        W0 = W[0, 0]
+        assert not W0[:, -1, :].any() and not W0[:, :, -1].any()
+        for cy in (0, 1):
+            for cx in (0, 1):
+                shifted = np.zeros_like(W0)
+                shifted[:, cy:, cx:] = W0[:, :Dp - cy, :Dp - cx]
+                assert np.array_equal(W[cy, cx] != 0, shifted != 0)
+                assert np.abs(W[cy, cx] - shifted).max() <= atol
+
+
+@pytest.mark.parametrize('geom', GEOMS + [(6, 8, 3, 45)])
+def test_sparse_taps_rebuild_the_corner_plane(geom):
+    """The kernel's tap table: bin q's non-zero taps of plane (0, 0) in
+    ascending p, padded with (0, 0.0) to the longest bin, rebuild the
+    plane exactly."""
+    D, offs, Rp = lradon._desc_params(*geom)
+    W0 = lradon._stencil_table(geom[0], geom[1], geom[2], D, offs, Rp)[0]
+    off, wts = lradon._stencil_taps(W0)
+    counts = (W0 != 0).sum(1)
+    assert off.dtype == np.int16 and wts.dtype == np.float32
+    assert off.shape == wts.shape == (counts.max(), W0.shape[0])
+    dense = np.zeros_like(W0)
+    np.add.at(dense, (np.broadcast_to(np.arange(W0.shape[0]), off.shape),
+                      off.astype(np.int64)), wts)
+    assert np.array_equal(dense, W0)
+    for q, n in enumerate(counts):
+        assert (np.diff(off[:n, q]) > 0).all()
+        assert not off[n:, q].any() and not wts[n:, q].any()
+    with pytest.raises(ValueError, match='16 bits'):
+        lradon._stencil_taps(np.zeros((2, 1 << 15 | 1), np.float32))
+
+
+def _blended_descriptors(img, z, f, off, wts, Rp, proj_num):
+    """The kernel's form in f64: each keypoint's patch blended by its
+    fractional offset (reads clamped into the image), times the sparse
+    plane (0, 0), then the normalisation."""
+    h, w = img.shape
+    Dp, pad = 2 * Rp + 1, Rp + 1
+    ar = np.arange(Dp)
+    out = []
+    for (zx, zy), (fx, fy) in zip(z, f):
+        ys = np.clip(zy - pad + ar, 0, h - 1)
+        ys1 = np.clip(zy - pad + ar + 1, 0, h - 1)
+        xs = np.clip(zx - pad + ar, 0, w - 1)
+        xs1 = np.clip(zx - pad + ar + 1, 0, w - 1)
+        bl = ((1 - fx) * (1 - fy) * img[np.ix_(ys, xs)]
+              + fx * (1 - fy) * img[np.ix_(ys, xs1)]
+              + (1 - fx) * fy * img[np.ix_(ys1, xs)]
+              + fx * fy * img[np.ix_(ys1, xs1)]).ravel()
+        d = (wts * bl[off.astype(np.int64)]).sum(0)
+        d = d - d.mean()
+        out.append(d / max(np.linalg.norm(d), 1e-6))
+    return np.asarray(out).reshape(len(out), proj_num, -1)
+
+
+@pytest.mark.parametrize('geom', GEOMS)
+def test_blended_patch_form_equals_the_dense_form(geom):
+    """sum_c wc_c (W_c . patch) == W_0 . blend(patch) in f64 (within 1e-10)
+    on seeded keypoints, every border and corner included, against the
+    plain version's dense product run in f64."""
+    D, offs, Rp = lradon._desc_params(*geom)
+    W64 = lradon._stencil_table64(geom[0], geom[1], geom[2], D, offs, Rp)
+    off, wts = lradon._stencil_taps(W64[0])
+    rng = np.random.default_rng(9)
+    h, w = 70, 90
+    img = rng.uniform(0, 255, (h, w))
+    xy = rng.uniform(0, 1, (60, 2)) * [w - 1, h - 1]
+    e = 1.0 - 2.0 ** -20
+    xy[:12] = [(0, 0), (w - 1, 0), (0, h - 1), (w - 1, h - 1), (w / 2, 0),
+               (0, h / 2), (e, e), (w - 2 + e, h - 2 + e), (5 + e, 7),
+               (5, 7 + e), (1, 1), (w - 2, h - 2)]
+    z0 = np.floor(xy)
+    z = z0.astype(np.int64) + 1
+    f = xy - z0
+    want = lradon.lradon_patch_plain(
+        torch.from_numpy(img), torch.from_numpy(z), torch.from_numpy(f),
+        torch.from_numpy(W64), geom[0], Rp).numpy()
+    got = _blended_descriptors(img, z, f, off, wts, Rp, geom[0])
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() < 1e-10
+
+
+def test_match_plan_covers_every_column_tile_once():
+    """The match kernels' grid: K0 padded to whole tiles, pass 1 and pass 2
+    split over columns into chunks that cover every column tile once, in
+    order, none empty."""
+    T = lradon.MATCH_TILE
+    for K0, K1, nvar in ((5000, 5000, 12), (4096, 64, 12), (3001, 100, 12),
+                         (1000, 777, 1), (1, 1, 12), (300, 200, 8)):
+        K0p, c1, c2 = lradon._match_plan(K0, K1, nvar, 132)
+        tiles = K0p // T
+        assert K0p >= K0 and K0p - K0 < T and K0p % T == 0
+        for chunks in (c1, c2):
+            assert 1 <= chunks <= tiles
+            # csrc/lradon_match.cu chunk_tiles
+            spans = [(tiles * c // chunks, tiles * (c + 1) // chunks)
+                     for c in range(chunks)]
+            assert spans[0][0] == 0 and spans[-1][1] == tiles
+            assert all(a < b for a, b in spans)
+            assert all(spans[i][1] == spans[i + 1][0]
+                       for i in range(chunks - 1))
+    # the on-path shape fills the card in pass 1 without a split, and
+    # pass 2 splits into 6 chunks of 6-7 column tiles
+    assert lradon._match_plan(5000, 5000, 12, 132) == (5120, 1, 6)
 
 
 def test_variants_match_jax_and_the_kernel_permutations():
@@ -367,10 +493,11 @@ def _smoke():
 PEAK_CASES = ['2048^2 size 10', '2048^2 size 10, mask', '1x1', '7x300',
               'size 3', 'size 7', 'plateau']
 PATCH_CASES = ['K 5000', 'K 64, borders and corners', 'K 4096, 3000x2000',
-               'radius 30, groups of 4', 'radius 45, one per block']
+               'radius 30, groups of 4', 'radius 45, one per block',
+               '4 x 6 bins, width 1, radius 9.5']
 MATCH_CASES = ['5000 x 5000', '64 x 4096', 'side 0 masked', 'duplicates',
                'not exhaustive', 'variant 0', 'variant 1..P-1',
-               'variant P..2P-1']
+               'variant P..2P-1', 'dlen 24 (4 x 6)', '100 x 3001']
 
 
 @pytest.mark.cuda
