@@ -7,11 +7,13 @@ Phases (each prints its lines; any failure exits non-zero):
   2. build of the hand-written kernels from feabas_tpu_torch/csrc, one
      nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, at every
-     shape the three paths below launch it with, with both times from CUDA
+     shape the three paths below launch it with (the montage blend's, in
+     phase 4 on the blocks that path blends), with both times from CUDA
      events and each kernel's bound (the larger of its FLOP over 67 TFLOP/s
      and its bytes over 3.35 TB/s) and share of it:
      the DoG (sigma 1.25, 2.5 and 3.5, whole planes and halo tiles) and
-     blur (the pooled bands' mask term, the 4096^2 low band), the edges of
+     blur (the pooled bands' mask term, the 4096^2 low band), each also
+     beside a replicate-pad ``F.conv2d`` library call, the edges of
      both code paths of the DoG kernel (a 1x1 plane, 3x700, 24x24 at sigma
      3.5, 129x130 tiles, the mask term's largest radius), and the mesh
      raster, bit-equal with equal coverage flags, on the align path's
@@ -20,9 +22,13 @@ Phases (each prints its lines; any failure exits non-zero):
      resident source, a tie of two identical rows, which the first must
      win, and the edges of its design (see ``check_raster``), with its
      device time per launch and what its tile cull removes; then the
-     batch upload, staged against pageable; then the three kernels of the
-     thumbnail path, each also beside one PyTorch library call of the same
-     function (``check_lradon``): the peak response (bit-equal; 2048^2 at
+     batch upload, staged against pageable; then the montage blend,
+     bit-equal with the expected covered flag, on the edges of its design
+     (``montage_cases``: a 4096^2 LINEAR block, ragged blocks, empty
+     cells, the identical-tile tie, a dense mesh, K = K_CAP), with its
+     device time per launch, rows kept per cell and samples per pixel;
+     then the three kernels of the thumbnail path, each also beside one
+     PyTorch library call of the same function (``check_lradon``): the peak response (bit-equal; 2048^2 at
      window 10 with and without a mask, a 1x1 and a 7x300 plane, windows 3
      and 7, plateaus), the LRadon descriptors (<= 1e-5; 5000 keypoints on
      2048^2, keypoints on every border and corner with fractional offsets
@@ -38,7 +44,11 @@ Phases (each prints its lines; any failure exits non-zero):
      (10% overlap, 3 px stage jitter, made on the card from a seed) goes
      through ``feabas_tpu_torch.scripts.stitch_main`` matching,
      optimization and rendering; matches, placements and the render are
-     checked against the ground truth;
+     checked against the ground truth, and the montage blend must launch
+     at least once per output block; after the counts are read, each block
+     the path blended is rebuilt from its work dir (``stitch_blocks``),
+     must have the shapes launched, and is held bit-equal to the plain
+     version and timed as in phase 3;
   5. the align slice: 8 sections of 8192x8192 uint8 at 4 nm (a seeded
      texture moved by a cumulative N(0, 24 px) drift and a smooth warp,
      made on the card) go through ``feabas_tpu_torch.scripts.align_main``
@@ -58,7 +68,7 @@ Phases (each prints its lines; any failure exits non-zero):
      angle, the aligned thumbnails against section 0.
 Each slice resets the kernels' launch counts just before it and reads
 them just after (in total and by shape), and fails if a kernel of its
-path never launched. Then one JSON line lists each of the six kernels with
+path never launched. Then one JSON line lists each of the seven kernels with
 its launches (in all and by path), its worst error, and the times, bound
 and library time of the checked shape the paths launched most, then all its
 phase-3 checks; the line before
@@ -67,8 +77,9 @@ last is nvidia-smi's card line; the last line is one JSON object
 
 ``--phases`` (a comma list of kernels, stitch, align, thumbnail) runs a
 part of it, for work on one path; the kernels line and the ok line are
-printed only by the whole run. ``--profile`` wraps each thumbnail stage in
-one ``torch.profiler`` pass and prints its device time by kernel.
+printed only by the whole run. ``--profile`` wraps each stitch and
+thumbnail stage in one ``torch.profiler`` pass and prints its device time
+by kernel.
 """
 
 import json
@@ -98,6 +109,7 @@ KERNELS = {
     'peak_detect': ('peak_detect', 'feabas_tpu/ops/lradon.py:48'),
     'lradon_patch': ('lradon_patch', 'feabas_tpu/ops/lradon.py:207'),
     'lradon_match': ('lradon_match', 'feabas_tpu/ops/lradon.py:301'),
+    'montage_blend': ('montage_blend', 'feabas_tpu/ops/montage_render.py:62'),
 }
 KERNEL_SOURCES = sorted({src for src, _ in KERNELS.values()})
 
@@ -149,6 +161,33 @@ def dog_bound(shape, in_bytes, sigma, is_dog):
     return bound(flop, px * (in_bytes + 4))
 
 
+# the library blur sums in another order than the kernel and its plain
+# version (f32, TF32 off): it computes the same function to this bound
+LIBRARY_ATOL = 1e-2
+
+
+def blur_library(sigma, dev, is_dog):
+    """K1's function through PyTorch's library: a 'replicate' ``F.pad``
+    (the kernel's nearest edges) and two ``F.conv2d`` with the 1-D taps,
+    rows then columns (cuDNN TF32 is off, ``device.py``); the DoG as
+    f0 - blur(f0) with f0 = blur(x)."""
+    import torch
+    import torch.nn.functional as F
+    from feabas_tpu_torch.ops.dog import gaussian_kernel1d
+    k = torch.as_tensor(gaussian_kernel1d(sigma), device=dev)
+    r = (k.numel() - 1) // 2
+    kx, ky = k.reshape(1, 1, 1, -1), k.reshape(1, 1, -1, 1)
+
+    def blur(x):
+        y = F.pad(x.to(torch.float32)[:, None], (r, r, r, r), mode='replicate')
+        return F.conv2d(F.conv2d(y, kx), ky)[:, 0]
+
+    def dog(x):
+        f0 = blur(x)
+        return f0 - blur(f0)
+    return dog if is_dog else blur
+
+
 def kernel_row(name, shape, what, err, ms, pms, bnd, library_ms=None):
     return {'name': name, 'shape': list(shape), 'what': what,
             'max_abs_err': err, 'ms': ms, 'plain_ms': pms,
@@ -175,6 +214,9 @@ def log_rows(rows, err_unit=''):
             if 'device_us' in r:
                 line += (f' device_us={r["device_us"]:.2f} share(device '
                          f'time)={r["bound_us"] / r["device_us"]:.1%}')
+        if 'kept_rows_per_cell' in r:
+            line += (f' kept_rows_per_cell={r["kept_rows_per_cell"]:.2f} '
+                     f'covered_per_px={r["covered_per_px"]:.3f}')
         if r.get('library_ms') is not None:
             line += f' library_ms={r["library_ms"]:.4f}'
         if 'close_rows' in r:
@@ -198,18 +240,27 @@ def check_kernels(dev):
         x = torch.rand(shape, generator=g, device=dev) * 255
         return x.to(torch.uint8) if dtype == torch.uint8 else x
 
-    def check(shape, dtype, sigma, is_dog, what='', iters=20):
+    def check(shape, dtype, sigma, is_dog, what='', iters=20, library=True):
         x = rand_stack(shape, dtype)
         kernel = dog.dog_filter if is_dog else dog.gaussian_blur
         plain = dog.dog_filter_plain if is_dog else dog.gaussian_blur_plain
-        err = float((kernel(x, sigma) - plain(x, sigma)).abs().max())
+        want = plain(x, sigma)
+        err = float((kernel(x, sigma) - want).abs().max())
         ms = cuda_time(lambda: kernel(x, sigma), iters)
         pms = cuda_time(lambda: plain(x, sigma), iters)
+        lms = None
+        if library:
+            lib = blur_library(sigma, dev, is_dog)
+            lerr = float((lib(x) - want).abs().max())
+            if not lerr <= LIBRARY_ATOL:
+                raise RuntimeError(f'the library blur {shape} sigma {sigma}: '
+                                   f'max_abs_err {lerr} > {LIBRARY_ATOL}')
+            lms = cuda_time(lambda: lib(x), iters)
         name = 'dog_filter' if is_dog else 'gaussian_blur'
         label = f'{str(dtype).replace("torch.", "")} sigma {sigma:.3g}' + what
         rows.append(kernel_row(name, shape, label, err, ms, pms,
                                dog_bound(shape, x.element_size(), sigma,
-                                         is_dog)))
+                                         is_dog), lms))
 
     # the stacks the stitch and align runs below launch (launches_by_shape).
     # Stitch: match blocks of 128^2, 96^2, 64^2 and 192^2 (f32 after the
@@ -244,13 +295,14 @@ def check_kernels(dev):
     # of more rows than a block has threads, a packed stack of 24^2
     # planes, tiles that do not divide 129x130, and the mask term's
     # largest radius (sigma 3.5 * sqrt 2: r = 20)
-    check((1, 1, 1), torch.float32, 2.5, True, ', 1x1')
-    check((1, 3, 700), torch.uint8, 2.5, True, ', 3x700')
-    check((1, 4000, 3), torch.float32, 2.5, True, ', 4000x3')
-    check((4, 24, 24), torch.float32, 3.5, True, ', 24x24')
-    check((2, 129, 130), torch.float32, 2.5, True, ', tiles 129x130')
-    check((2, 129, 130), torch.float32, 3.5 * 2 ** 0.5, False,
-          ', tiles 129x130')
+    for args in (((1, 1, 1), torch.float32, 2.5, True, ', 1x1'),
+                 ((1, 3, 700), torch.uint8, 2.5, True, ', 3x700'),
+                 ((1, 4000, 3), torch.float32, 2.5, True, ', 4000x3'),
+                 ((4, 24, 24), torch.float32, 3.5, True, ', 24x24'),
+                 ((2, 129, 130), torch.float32, 2.5, True, ', tiles 129x130'),
+                 ((2, 129, 130), torch.float32, 3.5 * 2 ** 0.5, False,
+                  ', tiles 129x130')):
+        check(*args, library=False)
     # the in-program coarse seed's masked pooled band (1, h, w): the
     # masked DoG runs the DoG kernel and the blur kernel; held against the
     # CPU, timed alone (its plain time is the CPU's, not recorded)
@@ -430,7 +482,7 @@ def check_raster(dev, texture):
     mesh = _section_mesh(8192, 600, 8.0, 2048.0)
     loader = StreamLoader(img)
     eng = _engine_of(mesh, dev)
-    tile_h = render.kernel_tile_h(dev)
+    tile_h = render.kernel_tile_h()
     rows = []
 
     def t(a):
@@ -635,6 +687,315 @@ def check_raster(dev, texture):
     return rows
 
 
+
+# ------------------- phase 3: the stitch path's montage blend ------------------- #
+
+# FLOP of the montage blend, from what the function needs. Per table row
+# that survives the cell cull, at each pixel of its cell, the inside test
+# (two affines of two products and two sums, their sum, three comparisons
+# and the weight's): 13. Per (pixel, covering tile): the source coordinate
+# (two affines: 8) rounded to 1/32 px (6), the bounds test (4), the
+# bilinear base and fractions (10), the sample (11), gain and offset (2),
+# the border weight (8) and the blend (3): 52; PYRAMID adds the low band's
+# sample, gain and offset, the compare and the high band: 15. Per output
+# pixel the normalisation, the fill and the rounding: 7.
+MONTAGE_ROW_FLOP = 13
+MONTAGE_COVER_FLOP = 52
+MONTAGE_PYRAMID_FLOP = 15
+MONTAGE_OUT_FLOP = 7
+
+
+class TileStack:
+    """In-memory tiles at world positions, read as the montage engine reads
+    a section's loader (through ``dal.TileView``)."""
+    dtype = 'uint8'
+    number_of_channels = 1
+    default_fillval = 0
+
+    def __init__(self, tiles, origins):
+        import numpy as np
+        self.tiles = tiles
+        self.bboxes = np.asarray([(x, y, x + t.shape[1], y + t.shape[0])
+                                  for t, (x, y) in zip(tiles, origins)],
+                                 np.float64)
+
+    def crop(self, bbox, fileid=None, return_empty=False, **kwargs):
+        x0, y0 = self.bboxes[fileid, :2]
+        return self.tiles[fileid][int(bbox[1] - y0):int(bbox[3] - y0),
+                                  int(bbox[0] - x0):int(bbox[2] - x0)]
+
+
+def tile_meshes(sizes, origins, mesh_size, bd_width=None, cartesian=None,
+                shear=5e-4):
+    """Tile meshes as the stitcher builds them (``Mesh.from_boarder_bbox``,
+    INITIAL tile-local; ``Mesh.from_bbox`` where ``cartesian`` is given),
+    MOVING at ``origins`` with a slight shear."""
+    import numpy as np
+    from feabas_tpu_torch.mesh import Mesh
+    out = []
+    for k, ((w, h), (x, y)) in enumerate(zip(sizes, origins)):
+        if cartesian is None:
+            m = Mesh.from_boarder_bbox((0, 0, w, h), bd_width=bd_width or np.inf,
+                                       mesh_size=mesh_size, resolution=4, uid=k)
+        else:
+            m = Mesh.from_bbox((0, 0, w, h), cartesian=cartesian,
+                               mesh_size=mesh_size, resolution=4, uid=k)
+        v = m.vertices('INITIAL')
+        moved = v + np.asarray([x, y]) + shear * (v - v.mean(axis=0))[:, ::-1]
+        c = moved.mean(axis=0, keepdims=True)
+        m.set_vertices(moved - c, 'MOVING', offset=c)
+        out.append(m)
+    return out
+
+
+def montage_block(dev, tiles, origins, meshes, bbox, blend, fillval=0.0,
+                  transfers=None):
+    """The montage engine's inputs for one output block of the section
+    made of ``tiles`` at ``origins`` under ``meshes``:
+    ``(montage_blend args, H, W)``."""
+    from feabas_tpu_torch.stitcher import MontageRenderer
+    mr = MontageRenderer(meshes, TileStack(tiles, origins), device=dev,
+                         blend=blend, tile_transfers=transfers)
+    eng = mr._montage_device_engine()
+    out = eng.block_inputs(bbox, mr._index.query(bbox), blend, fillval)
+    if out is None or out is NotImplemented:
+        raise RuntimeError(f'block {bbox}: no device blend ({out})')
+    return out
+
+
+def montage_cases(dev):
+    """[(name, thunk)] of the montage blend's phase-3 cases, the edges of
+    its design. A thunk makes the case on ``dev``: a dict with the
+    wrapper's ``args``, ``covered`` (the flag it must give) and, for some,
+    ``post`` (a further check of the kernel's output)."""
+    import torch
+    from feabas_tpu_torch.ops import montage_render as mrd
+    grid = {}
+
+    def section():
+        # phase 4's 2x3 grid, tile meshes as its optimization builds them
+        # (low strain: mesh_size 300, border band 300 px = the median
+        # overlap width), at the true positions, corner at (1, 1)
+        if not grid:
+            world, tiles, true_bb, _ = make_grid(dev)
+            origins = true_bb[:, :2] - true_bb[:, :2].min(axis=0) + 1.0
+            grid.update(world=world, tiles=tiles, origins=origins,
+                        meshes=tile_meshes([(TILE_W, TILE_H)] * len(tiles),
+                                           origins, 300, bd_width=300))
+        return grid
+
+    def block(bbox, blend, fillval=0.0, out_kind='u8'):
+        def make():
+            g = section()
+            args, _, _ = montage_block(dev, g['tiles'], g['origins'],
+                                       g['meshes'], bbox, blend, fillval)
+            return {'args': args[:9] + (out_kind,) + args[10:],
+                    'covered': True}
+        return make
+
+    def nothing():
+        args = block((0, 0, 4096, 4096), 'PYRAMID')()['args']
+        cands = torch.full_like(args[5], -1)
+        return {'args': args[:5] + (cands, 17.0) + args[7:], 'covered': False}
+
+    def tie():
+        # two tiles of one geometry and different images, both low bands
+        # the first's: the first must win the high band everywhere, so the
+        # pair renders exactly as the first tile alone
+        w = section()['world']
+        a, b = w[100:612, 200:712], w[1000:1512, 3000:3512]
+        meshes = tile_meshes([(512, 512)] * 2, [(20.5, 10.25)] * 2, 100)
+        args, _, _ = montage_block(dev, [a, b], [(0, 0), (0, 0)], meshes,
+                                   (0, 0, 576, 576), 'PYRAMID')
+        srcs, lows, gmap, tables, aux, cands = args[:6]
+        if not bool((cands[:, 1] == 1).any()):
+            raise RuntimeError('tie: no cell holds both tiles')
+        both = args[:1] + (lows[[0, 0]],) + args[2:9] + ('f32',) + args[10:]
+
+        def alone(i):
+            one = torch.where(cands == 0, 0, -1)[:, :1].contiguous()
+            return mrd.montage_blend_plain(
+                srcs[i:i + 1], lows[:1], gmap[:1], tables[:1], aux[:1], one,
+                0.0, *args[7:9], 'f32', True)[0]
+
+        def post(got):
+            if not torch.equal(got[0], alone(0)):
+                raise RuntimeError('tie: the first tile did not win')
+            if torch.equal(got[0], alone(1)):
+                raise RuntimeError('tie: both tiles render alike')
+        return {'args': both, 'covered': True, 'post': post}
+
+    def dense():
+        # one 1024^2 tile on a 40-px cartesian mesh: more than 1000 rows,
+        # streamed through shared memory in chunks of 256
+        w = section()['world']
+        meshes = tile_meshes([(1024, 1024)], [(-3.5, 7.25)], 40,
+                             cartesian=True)
+        args, _, _ = montage_block(dev, [w[:1024, :1024]], [(0, 0)], meshes,
+                                   (0, 0, 1024, 1024), 'PYRAMID')
+        if args[3].shape[1] < 1000:
+            raise RuntimeError(f'dense mesh: {args[3].shape[1]} rows')
+        return {'args': args, 'covered': True}
+
+    def kcap():
+        # K_CAP tiles of 64^2 over one corner: its cell holds all of them
+        # (and the section, at K_CAP tiles, takes the resident stack)
+        w = section()['world']
+        n = mrd.K_CAP
+        origins = [(0.37 * i, 0.21 * i) for i in range(n)]
+        tiles = [w[7 * i:7 * i + 64, 11 * i:11 * i + 64] for i in range(n)]
+        meshes = tile_meshes([(64, 64)] * n, origins, 40)
+        args, _, _ = montage_block(dev, tiles, origins, meshes,
+                                   (0, 0, 256, 192), 'PYRAMID',
+                                   transfers=[(1.0 + 0.01 * i, i % 5 - 2.0)
+                                              for i in range(n)])
+        if args[5].shape[1] != n:
+            raise RuntimeError(f'K = {args[5].shape[1]}, not {n}')
+        return {'args': args, 'covered': True}
+
+    return [('4096^2 LINEAR', block((0, 0, 4096, 4096), 'LINEAR')),
+            ('ragged 1338 x 1000, PYRAMID',
+             block((3000.5, 2000.25, 4337.5, 2999.25), 'PYRAMID')),
+            ('ragged 1338 x 1000, LINEAR, f32 out',
+             block((3000.5, 2000.25, 4337.5, 2999.25), 'LINEAR',
+                   out_kind='f32')),
+            ('cells without a tile, fill 17',
+             block((-1500, -1000, 548, 1048), 'PYRAMID', fillval=17.0)),
+            ('no tile in any cell, fill 17', nothing),
+            ('identical tiles, the first wins', tie),
+            ('dense mesh, R >= 1000', dense),
+            ('K = K_CAP', kcap)]
+
+
+def montage_compare(case):
+    """One launch of the montage blend on a case of ``montage_cases``
+    against the plain version: bit-equal output and covered flag, the
+    flag as the case expects. Returns the output."""
+    import torch
+    from feabas_tpu_torch.ops import montage_render as mrd
+    args = case['args']
+    got = mrd.montage_blend(*args)
+    want = mrd.montage_blend_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and got[0].dtype == want[0].dtype
+            and got[1] == want[1] == case['covered']):
+        diff = (got[0].to(torch.float64) - want[0].to(torch.float64)).abs()
+        raise RuntimeError(
+            f'montage_blend: max diff {float(diff.max())}, '
+            f'{float((diff > 0).float().mean()):.2e} of pixels differ, '
+            f'covered {got[1]} vs plain {want[1]}, expected {case["covered"]}')
+    if case.get('post') is not None:
+        case['post'](got)
+    return got
+
+
+def montage_bound(args):
+    """Bound of one block from its inputs: the output, one source byte per
+    (pixel, covering tile) (two with PYRAMID) and the tables, each once;
+    the FLOP of the rows the cell cull keeps, the covered samples and the
+    output (MONTAGE_*_FLOP)."""
+    from feabas_tpu_torch.ops import montage_render as mrd
+    srcs, lows, gmap, tables, aux, cands, fillval, ncy, ncx, out_kind, \
+        pyramid = args
+    px = ncy * ncx * mrd.CELL ** 2
+    kept = int(mrd.cell_cull_plain(tables, cands, ncx).sum())
+    cov = mrd.covered_pixels_plain(tables, cands, ncx)
+    nbytes = (px * (1 if out_kind == 'u8' else 4) + cov * (2 if pyramid else 1)
+              + 4 * (tables.numel() + aux.numel()) + 8 * (cands.numel()
+                                                          + gmap.numel()))
+    flop = (kept * mrd.CELL ** 2 * MONTAGE_ROW_FLOP + px * MONTAGE_OUT_FLOP
+            + cov * (MONTAGE_COVER_FLOP
+                     + (MONTAGE_PYRAMID_FLOP if pyramid else 0)))
+    return bound(flop, nbytes), kept, cov
+
+
+def montage_row(dev, name, case, path=False):
+    """One row of the montage blend: ``case`` (see ``montage_cases``) held
+    bit-equal to the plain version, then timed: call ms, device us per
+    launch from a CUDA-graph replay, plain ms and bound (none of PyTorch's
+    library calls rasterizes and blends tiles). A block of the stitch path
+    (``path``) is timed longer than an edge."""
+    import torch
+    from feabas_tpu_torch.ops import montage_render as mrd
+    args = case['args']
+    montage_compare(case)
+    iters, warm = (10, 0.1) if path else (3, 0.01)
+    ms = cuda_time(lambda: mrd.montage_blend(*args), iters, warm)
+    pms = cuda_time(lambda: mrd.montage_blend_plain(*args), 2 if path else 1,
+                    warm)
+    run, shape, dt = mrd._prepare(*args)
+    into = (torch.empty(shape, dtype=dt, device=dev),
+            torch.empty(1, dtype=torch.bool, device=dev))
+    us = graph_time(lambda: run(*into), 20 if path else 5)
+    bnd, kept, cov = montage_bound(args)
+    C, K = args[5].shape
+    row = kernel_row('montage_blend', (C, K, args[3].shape[1]), name, 0.0,
+                     ms, pms, bnd)
+    row.update(edge=not path, device_us=us, kept_rows_per_cell=kept / C,
+               covered_per_px=cov / (C * mrd.CELL ** 2))
+    torch.cuda.synchronize()
+    return row
+
+
+def check_montage(dev):
+    """Phase 3, the montage blend on its edges: every case of
+    ``montage_cases`` bit-equal to the plain version with the expected
+    covered flag, each timed (``montage_row``). The stitch path's own
+    blocks are held so in phase 4 (``montage_path_rows``)."""
+    rows = [montage_row(dev, name, make()) for name, make in montage_cases(dev)]
+    log_rows(rows, ' LSB')
+    return rows
+
+
+def stitch_blocks(wd):
+    """The montage blend's inputs for each output block that the stitch
+    CLI's rendering stage blended on work dir ``wd``, rebuilt as that stage
+    built them: the section's tform, the render settings, the plan of
+    output blocks and the engine calls of
+    ``MontageRenderer.render_tile_list``. Yields (file name, bbox, blend,
+    ``montage_blend`` args, H, W)."""
+    from feabas_tpu_torch import config
+    from feabas_tpu_torch.stitcher import MontageRenderer
+    rconf = config.stitch_configs().get('rendering', {})
+    mr = MontageRenderer.from_h5(
+        os.path.join(wd, 'stitch', 'tform', 's0001.h5'),
+        loader_config=rconf.get('loader_settings') or {},
+        **(rconf.get('render_settings') or {}))
+    eng = mr._montage_device_engine()
+    blend = str(mr._blend).upper()
+    names = rconf.get('filename_settings') or {}
+    for fname, bbox in mr.plan_render_series(
+            tile_size=tuple(rconf.get('tile_size', (4096, 4096))),
+            pattern=names.get('pattern', '_tr{ROW_IND}-tc{COL_IND}.png'),
+            one_based=names.get('one_based', True), prefix=mr.name or 'section'):
+        hits = mr._index.query(bbox)
+        inputs = eng.block_inputs(bbox, hits, blend,
+                                  float(mr.loader.default_fillval)) \
+            if hits.size else None
+        if inputs is not None and inputs is not NotImplemented:
+            yield (fname, bbox, blend) + inputs
+
+
+def montage_path_rows(dev, wd, launched):
+    """The montage blend on every block of ``stitch_blocks``, each held
+    bit-equal to the plain version and timed (``montage_row``). Fails
+    unless those blocks have the (C, K, R) shapes ``launched`` ({'CxKxR':
+    launches}), as many times each."""
+    rows, shapes = [], {}
+    for _, bbox, blend, args, _, _ in stitch_blocks(wd):
+        key = 'x'.join(map(str, (*args[5].shape, args[3].shape[1])))
+        shapes[key] = shapes.get(key, 0) + 1
+        rows.append(montage_row(
+            dev, f'stitch block at ({bbox[0]}, {bbox[1]}), {blend}',
+            {'args': args, 'covered': True}, path=True))
+        del args
+    if shapes != launched:
+        raise RuntimeError(f'the stitch blocks rebuilt have shapes {shapes}, '
+                           f'the rendering stage launched {launched}')
+    log_rows(rows, ' LSB')
+    return rows
+
+
 def make_texture(dev, H, W, seed=SEED, blur=2.0):
     """Band-limited uint8 texture (H, W) on the card: seeded normal noise,
     Gaussian blur (sigma ``blur`` px), mean 128, std 40."""
@@ -711,6 +1072,8 @@ def setup_workdir(root, tiles, stage_bb):
                       'loader_settings': {'apply_CLAHE': False,
                                           'inverse': False}}})
     os.environ['FEABAS_TPU_CONFIG_DIR'] = cfg
+    from feabas_tpu_torch import config
+    config.clear_config_caches()
     return wd
 
 
@@ -734,13 +1097,31 @@ def read_rendered(out_dir, bbox):
     return out
 
 
-def run_slice(dev):
-    """Phase 4: the stitch path at full size through the stitch CLI."""
+def stitch_stages(profile=False):
+    """Seconds of the stitch CLI's matching, optimization and rendering on
+    the work dir ``setup_workdir`` made, each stage ended by a synchronize;
+    with ``profile`` each in one torch.profiler pass (``_profiled``)."""
+    import torch
+    from feabas_tpu_torch.scripts import stitch_main
+    stage_s = {}
+    for mode in ('matching', 'optimization', 'rendering'):
+        t = time.perf_counter()
+        _profiled(profile, f'stitch.{mode}',
+                  lambda: stitch_main.main(['--mode', mode]))
+        torch.cuda.synchronize()
+        stage_s[mode] = time.perf_counter() - t
+    return stage_s
+
+
+def run_slice(dev, profile=False):
+    """Phase 4: the stitch path at full size through the stitch CLI, then
+    the montage blend held against its plain version on each block the
+    path blended. Returns (launches, launches by shape, stage seconds,
+    the blend's rows)."""
     import numpy as np
     import torch
     import cv2
     from feabas_tpu_torch import device as device_mod
-    from feabas_tpu_torch.scripts import stitch_main
     from feabas_tpu_torch.stitcher import Stitcher
 
     t0 = time.perf_counter()
@@ -752,12 +1133,7 @@ def run_slice(dev):
             f'world {world.shape}, set-up {time.perf_counter() - t0:.2f} s')
         torch.cuda.reset_peak_memory_stats()
         device_mod.reset_launch_counts()
-        stage_s = {}
-        for mode in ('matching', 'optimization', 'rendering'):
-            t = time.perf_counter()
-            stitch_main.main(['--mode', mode])
-            torch.cuda.synchronize()
-            stage_s[mode] = time.perf_counter() - t
+        stage_s = stitch_stages(profile)
         launches = device_mod.launch_counts()
         by_shape = device_mod.launch_counts_by_shape()
         peak = torch.cuda.max_memory_allocated()
@@ -791,8 +1167,9 @@ def run_slice(dev):
         py, px = (world.shape[0] - ps) // 2, (world.shape[1] - ps) // 2
         ey = py - true_bb[:, 1].min() + 1
         ex = px - true_bb[:, 0].min() + 1
+        out_dir = os.path.join(wd, 'stitched_sections', 'mip0', 's0001')
         win = read_rendered(
-            os.path.join(wd, 'stitched_sections', 'mip0', 's0001'),
+            out_dir,
             (int(ex - slack), int(ey - slack), int(ex + ps + slack),
              int(ey + ps + slack)))
         res = cv2.matchTemplate(win.astype(np.float32),
@@ -801,15 +1178,23 @@ def run_slice(dev):
         cc = float(res.max())
         if not cc > 0.9:
             raise RuntimeError(f'render cc {cc} <= 0.9')
-        for name in ('dog_filter', 'gaussian_blur'):
+        for name in ('dog_filter', 'gaussian_blur', 'montage_blend'):
             if launches[name] <= 0:
                 raise RuntimeError(f'{name} was not launched by the slice')
+        blocks = len([f for f in os.listdir(out_dir) if f.endswith('.png')])
+        if launches['montage_blend'] < blocks:
+            raise RuntimeError(f'{launches["montage_blend"]} montage_blend '
+                               f'launches for {blocks} output blocks')
+        log(f'[slice] montage_blend launches by (C, K, R): '
+            f'{by_shape["montage_blend"]} for {blocks} output blocks')
         if any(m == 'jax' or m.startswith('jax.') for m in sys.modules):
             raise RuntimeError('jax was imported')
         log(f'[slice] {len(st.matches)} matches (all overlaps), worst median '
             f'match error {worst:.4f} px, worst placement error {place:.4f} '
             f'px, render cc {cc:.5f}')
-        return launches, by_shape, stage_s
+        # after the counts were read: these launches compare, not count
+        rows = montage_path_rows(dev, wd, by_shape['montage_blend'])
+        return launches, by_shape, stage_s, rows
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1587,7 +1972,7 @@ def _profiled(profile, label, fn):
         '(anonymous namespace)::' + k in e.key for k in (
             'dog_kernel', 'raster<', 'peak_kernel', 'patch_kernel',
             'prep_kernel', 'variant_max_kernel', 'reduce_kernel<',
-            'finish_kernel'))]
+            'finish_kernel', 'blend_kernel<'))]
 
     def fmt(es):
         return '; '.join(f'{e.key[:48]} {e.self_device_time_total / 1e3:.2f} '
@@ -1759,7 +2144,8 @@ def parse_args(argv=None):
     p.add_argument('--phases', default=','.join(PHASES),
                    help='comma list of ' + ', '.join(PHASES))
     p.add_argument('--profile', action='store_true',
-                   help='one torch.profiler pass per thumbnail stage')
+                   help='one torch.profiler pass per stitch and thumbnail '
+                   'stage')
     args = p.parse_args(argv)
     args.phases = [x for x in args.phases.split(',') if x]
     if set(args.phases) - set(PHASES):
@@ -1791,10 +2177,14 @@ def main(argv=None):
     if 'kernels' in args.phases:
         rows += check_kernels(dev)
         rows += check_raster(dev, make_texture(dev, 8192, 8192).cpu().numpy())
+        rows += check_montage(dev)
         rows += check_lradon(dev)
-    paths = {'stitch': run_slice, 'align': run_align,
+    paths = {'stitch': lambda d: run_slice(d, profile=args.profile),
+             'align': run_align,
              'thumbnail': lambda d: run_thumbnail(d, profile=args.profile)}
     runs = {p: fn(dev) for p, fn in paths.items() if p in args.phases}
+    if 'stitch' in runs:
+        rows += runs['stitch'][3]
     if set(args.phases) != set(PHASES):
         for path, r in runs.items():
             log(f'[{path}] launches by shape ' + json.dumps(r[1]))
@@ -1825,13 +2215,15 @@ def main(argv=None):
             'bound_ms': main_row['bound_us'] / 1e3,
             'bound_us': main_row['bound_us'],
             'bound_by': main_row['bound_by'],
-            # the DoG, blur and raster have none: conv2d pads with zeros,
-            # not 'nearest', and nothing in PyTorch rasterizes a mesh
+            # the DoG and blur's: a replicate pad and two conv2d
+            # (blur_library); the raster and the montage blend have none:
+            # nothing in PyTorch rasterizes a mesh
             'library_ms': main_row['library_ms'],
             'checks': [{k: r[k] for k in (
                 'shape', 'what', 'max_abs_err', 'ms', 'plain_ms', 'bound_us',
                 'bound_by', 'library_ms', 'close_rows', 'device_us', 'K',
-                'real_per_cell', 'kept_per_tile') if k in r}
+                'real_per_cell', 'kept_per_tile', 'kept_rows_per_cell',
+                'covered_per_px') if k in r}
                 for r in checks]})
     log(json.dumps({'kernels': entries}))
     log(card)

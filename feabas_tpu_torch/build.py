@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, under ``feabas_tpu_torch/_build/``
 (git-ignored), named by a hash of the source so an edited kernel always
-rebuilds. The library loads with ``ctypes``; callers set ``argtypes``.
-Nothing here runs at import time.
+rebuilds. The library loads with ``ctypes``, its C functions declared by
+``bind``. Nothing here runs at import time.
 """
 
 import ctypes
@@ -64,3 +64,16 @@ def build(name):
 def load(name):
     """Build (if needed) and ``ctypes``-load ``csrc/<name>.cu``."""
     return ctypes.CDLL(build(name))
+
+
+def bind(name, signatures):
+    """``load`` ``csrc/<name>.cu`` and declare its C functions:
+    ``signatures`` maps each function's name to its ``ctypes`` argument
+    types; every one returns an int (a CUDA error code, or a constant of
+    the source)."""
+    lib = load(name)
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    return lib

@@ -24,7 +24,8 @@ torch.backends.cudnn.allow_tf32 = False
 DEVICE_ENV = 'FEABAS_TORCH_DEVICE'
 
 _LAUNCHES = {'dog_filter': 0, 'gaussian_blur': 0, 'mesh_raster': 0,
-             'peak_detect': 0, 'lradon_patch': 0, 'lradon_match': 0}
+             'peak_detect': 0, 'lradon_patch': 0, 'lradon_match': 0,
+             'montage_blend': 0}
 # the same launches, by the shape the wrapper gave its kernel
 _BY_SHAPE = {k: {} for k in _LAUNCHES}
 
@@ -42,6 +43,21 @@ def get_device(name=None):
         raise RuntimeError(f'device {name!r} requested but CUDA is not '
                            'available')
     return dev
+
+
+def launch_on(index, fn, *args):
+    """``fn(*args, stream)``, a kernel's C launcher, with CUDA device
+    ``index`` current and the raw handle of its current stream last;
+    returns the launcher's CUDA error code."""
+    get = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+
+    def stream():
+        return get(index) if get is not None \
+            else torch.cuda.current_stream(index).cuda_stream
+    if torch.cuda.current_device() == index:
+        return fn(*args, stream())
+    with torch.cuda.device(index):
+        return fn(*args, stream())
 
 
 def count_launch(kernel, shape=None):

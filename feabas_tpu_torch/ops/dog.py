@@ -63,14 +63,12 @@ MAX_RADIUS = 24                       # csrc/dog_filter.cu kMaxRadius
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = build.load('dog_filter')
         # x, out, taps (host); radius, n, h, w; stream
         args = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                 + [ctypes.c_void_p])
-        for fn in ('dog_filter_f32', 'dog_filter_u8', 'gaussian_blur_f32'):
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.dog_filter_max_radius.restype = ctypes.c_int
+        lib = build.bind('dog_filter', {
+            'dog_filter_f32': args, 'dog_filter_u8': args,
+            'gaussian_blur_f32': args, 'dog_filter_max_radius': []})
         if lib.dog_filter_max_radius() != MAX_RADIUS:
             raise RuntimeError('csrc/dog_filter.cu kMaxRadius != '
                                f'{MAX_RADIUS}')

@@ -77,14 +77,11 @@ def peak_response_plain(f, mask=None, size=10):
 
 def _peak_lib():
     if 'peak_detect' not in _LIBS:
-        lib = build.load('peak_detect')
-        # f, mask, resp; h, w, size; stream
-        lib.peak_detect_f32.argtypes = ([ctypes.c_void_p] * 3
-                                        + [ctypes.c_int] * 3
-                                        + [ctypes.c_void_p])
-        lib.peak_detect_f32.restype = ctypes.c_int
-        lib.peak_detect_max_size.argtypes = []
-        lib.peak_detect_max_size.restype = ctypes.c_int
+        lib = build.bind('peak_detect', {
+            # f, mask, resp; h, w, size; stream
+            'peak_detect_f32': ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                                + [ctypes.c_void_p]),
+            'peak_detect_max_size': []})
         if lib.peak_detect_max_size() != MAX_PEAK_SIZE:
             raise RuntimeError('csrc/peak_detect.cu kMaxSize != '
                                f'{MAX_PEAK_SIZE}')
@@ -310,14 +307,13 @@ def lradon_patch_plain(img, z, f, W, proj_num, Rp):
 
 def _patch_lib():
     if 'lradon_patch' not in _LIBS:
-        lib = build.load('lradon_patch')
-        # img, h, w, z, frac, tap_off, tap_w, S, out, K, Dp, PB, pad, stream
-        lib.lradon_patch_f32.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.lradon_patch_f32.restype = ctypes.c_int
-        _LIBS['lradon_patch'] = lib
+        _LIBS['lradon_patch'] = build.bind('lradon_patch', {
+            # img, h, w, z, frac, tap_off, tap_w, S, out, K, Dp, PB, pad,
+            # stream
+            'lradon_patch_f32': (
+                [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p])})
     return _LIBS['lradon_patch']
 
 
@@ -491,16 +487,14 @@ MATCH_VARIANTS_PER_BLOCK = 2          # csrc/lradon_match.cu kVar
 
 def _match_lib():
     if 'lradon_match' not in _LIBS:
-        lib = build.load('lradon_match')
-        # d0, v0, d1, v1, perms, nvar, d0t, gmax, rowkeys, colkey, i0, top,
-        # conf, mutual, best_rot, K0, K1, dlen, chunks1, chunks2, stream
-        lib.lradon_match_f32.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 9
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.lradon_match_f32.restype = ctypes.c_int
-        for fn in ('lradon_match_tile', 'lradon_match_variants_per_block'):
-            getattr(lib, fn).argtypes = []
-            getattr(lib, fn).restype = ctypes.c_int
+        lib = build.bind('lradon_match', {
+            # d0, v0, d1, v1, perms, nvar, d0t, gmax, rowkeys, colkey, i0,
+            # top, conf, mutual, best_rot, K0, K1, dlen, chunks1, chunks2,
+            # stream
+            'lradon_match_f32': (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 9
+                + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+            'lradon_match_tile': [], 'lradon_match_variants_per_block': []})
         if (lib.lradon_match_tile(), lib.lradon_match_variants_per_block()) \
                 != (MATCH_TILE, MATCH_VARIANTS_PER_BLOCK):
             raise RuntimeError('csrc/lradon_match.cu kBN, kVar != '

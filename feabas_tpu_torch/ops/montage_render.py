@@ -11,16 +11,23 @@ accumulates sum(w*val)/sum(w); PYRAMID blends a low band (a
 mask-normalized blur of each tile, ``pack_low_stack``) linearly and takes
 the high band from the dominant tile.
 
-The JAX package sends a block with more than 128 triangle rows per tile to
-the host path, because its TPU program unrolls the raster loop; here the
-loop is a plain loop over the table rows, so that cap is dropped.
+``montage_blend`` is the hand-written kernel ``csrc/montage_blend.cu`` on a
+CUDA tensor and its plain PyTorch version, ``montage_blend_plain``, on a CPU
+tensor. The JAX package sends a block with more than 128 triangle rows per
+tile to the host path, because its TPU program unrolls the raster loop;
+here the kernel streams any number of rows, so that cap is dropped.
 """
+
+import ctypes
 
 import numpy as np
 import torch
 
+from feabas_tpu_torch import build
 from feabas_tpu_torch import constant as const
+from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch.ops.filters import gaussian_blur
+from feabas_tpu_torch.ops.render import corner_keep
 from feabas_tpu_torch.ops.warp import bilinear_sample_packed, pack_u8_quads
 
 CELL = 64
@@ -29,58 +36,74 @@ K_CAP = 64
 # whole-section packed stacks up to this many bytes stay device-resident
 RESIDENT_STACK_CAP = 4 * 1024 ** 3
 RESIDENT_STACK_MIN_TILES = 64
+_EPS = 1e-9
+_OUT_KINDS = {'u8': 0, 'f32': 1}
+_LIBS = {}
 
 
-def montage_blend(srcs, lows, gmap, tables, aux, cands, fillval, ncy, ncx,
-                  out_kind='u8', pyramid=False):
-    """Blend one output block from per-tile tables + sources.
+# ------------------------------ plain version ------------------------------ #
 
-    Args:
-        srcs: (N, Hs, Ws) int32 packed-quad tile images (pack_tile_stack).
-        lows: the PYRAMID low-band stack (``pack_low_stack``); ``srcs``
-            when pyramid is False (unused).
-        gmap: (T,) int64 block-local tile slot -> row of ``srcs``.
-        tables: (T, R, 14) f32 per-tile triangle tables in block-local
-            coordinates, source in TILE-LOCAL pixels (padding rows never
-            inside, weight -inf).
-        aux: (T, 5) f32 per tile: [tw, th, margin, gain, offset].
-        cands: (C, K) int64 tile slots per cell, -1 padded; C = ncy*ncx.
-        fillval: fill of uncovered pixels.
-    Returns:
-        (out (ncy*CELL, ncx*CELL), covered_any bool)
-    """
+def _raster_plain(tab, px, py, rows=None):
+    """(score, sx, sy) of one candidate tile per cell: ``tab`` (C, R, 14)
+    its table rows, px (C, 1, CELL) and py (C, CELL, 1) the cells' pixel
+    coordinates, ``rows`` (C, R) bool the rows each cell may use (all
+    where None). Every product and sum is its own f32 op."""
+    C, R = tab.shape[:2]
+    shape = (C, CELL, CELL)
+    score = torch.full(shape, -torch.inf, dtype=torch.float32,
+                       device=tab.device)
+    sx = torch.zeros(shape, dtype=torch.float32, device=tab.device)
+    sy = sx
+    for j in range(R):
+        row = tab[:, j, :, None, None]            # (C, 14, 1, 1)
+        l1 = row[:, 0] * px + row[:, 1] * py + row[:, 2]
+        l2 = row[:, 3] * px + row[:, 4] * py + row[:, 5]
+        inside = (l1 >= -_EPS) & (l2 >= -_EPS) & (l1 + l2 <= 1.0 + _EPS)
+        if rows is not None:
+            inside = inside & rows[:, j, None, None]
+        take = inside & (row[:, 12] > score)
+        score = torch.where(take, row[:, 12], score)
+        sx = torch.where(take, row[:, 6] * px + row[:, 7] * py + row[:, 8], sx)
+        sy = torch.where(take, row[:, 9] * px + row[:, 10] * py + row[:, 11], sy)
+    return score, sx, sy
+
+
+def _affine_plain(a, x, b, y, c):
+    """a * x + b * y + c as ``_raster_plain`` rounds it: three f32 ops."""
+    return a * x + b * y + c
+
+
+def _cell_grid(cell_ids, ncx, dev):
+    """px (C, 1, CELL) and py (C, CELL, 1) of cells ``cell_ids``."""
+    ar = torch.arange(CELL, dtype=torch.float32, device=dev)
+    cy = (cell_ids // ncx) * CELL
+    cx = (cell_ids % ncx) * CELL
+    return (cx.to(torch.float32)[:, None, None] + ar[None, None, :],
+            cy.to(torch.float32)[:, None, None] + ar[None, :, None])
+
+
+def montage_blend_plain(srcs, lows, gmap, tables, aux, cands, fillval, ncy,
+                        ncx, out_kind='u8', pyramid=False, rows=None):
+    """Plain PyTorch version of ``montage_blend`` (any device). ``rows``
+    (ncy*ncx, K, R) bool, where given, limits each cell's candidates to
+    those table rows (``cell_cull_plain``)."""
     dev = tables.device
-    R = tables.shape[1]
     # only cells with a candidate tile do work; the rest stay fillval
     cell_ids = torch.nonzero((cands >= 0).any(dim=1)).reshape(-1)
     cands = cands[cell_ids]
+    if rows is not None:
+        rows = rows[cell_ids]
     C, K = cands.shape
-    cy = (cell_ids // ncx) * CELL
-    cx = (cell_ids % ncx) * CELL
-    ar = torch.arange(CELL, dtype=torch.float32, device=dev)
-    px = cx.to(torch.float32)[:, None, None] + ar[None, None, :]
-    py = cy.to(torch.float32)[:, None, None] + ar[None, :, None]
-    shape = (C, CELL, CELL)
-    zero = torch.zeros(shape, dtype=torch.float32, device=dev)
+    px, py = _cell_grid(cell_ids, ncx, dev)
+    zero = torch.zeros((C, CELL, CELL), dtype=torch.float32, device=dev)
     acc, wacc, best_w, best_hi = zero, zero, zero, zero
     for k in range(K):
         idx = cands[:, k]
         live = idx >= 0
         i = torch.clamp(idx, min=0)
-        tab = tables[i]                               # (C, R, 14)
         a = aux[i][:, :, None, None]                  # (C, 5, 1, 1)
-        score = torch.full(shape, -torch.inf, dtype=torch.float32, device=dev)
-        sx = zero
-        sy = zero
-        for j in range(R):
-            row = tab[:, j, :, None, None]            # (C, 14, 1, 1)
-            l1 = row[:, 0] * px + row[:, 1] * py + row[:, 2]
-            l2 = row[:, 3] * px + row[:, 4] * py + row[:, 5]
-            inside = (l1 >= -1e-9) & (l2 >= -1e-9) & (l1 + l2 <= 1.0 + 1e-9)
-            take = inside & (row[:, 12] > score)
-            score = torch.where(take, row[:, 12], score)
-            sx = torch.where(take, row[:, 6] * px + row[:, 7] * py + row[:, 8], sx)
-            sy = torch.where(take, row[:, 9] * px + row[:, 10] * py + row[:, 11], sy)
+        score, sx, sy = _raster_plain(tables[i], px, py,
+                                      None if rows is None else rows[:, k])
         covered = (score != -torch.inf) & live[:, None, None]
         # cv2 INTER_LINEAR's 1/32-px fixed-point grid (host parity)
         sxq = torch.round(sx * 32.0) * (1.0 / 32.0)
@@ -112,6 +135,165 @@ def montage_blend(srcs, lows, gmap, tables, aux, cands, fillval, ncy, ncx,
     if out_kind == 'u8':
         out = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
     return out, covered_any
+
+
+def cell_cull_plain(tables, cands, ncx):
+    """The kernel's per-cell row cull, in plain PyTorch: (C, K, R) bool,
+    which table rows of each cell's candidate tiles survive (none of a -1
+    candidate). A row goes where the raster's corner rule
+    (``render.corner_keep``, on l1 and l2 as ``_raster_plain`` spells them:
+    three rounded f32 ops) puts it inside at no pixel of the cell, or where
+    its weight is -inf (it never wins). A dropped row changes no pixel. The
+    blend does not call this; tests and the chip check's counts do."""
+    C, K = cands.shape
+    dev = tables.device
+    cell = torch.arange(C, device=dev)
+    xs = ((cell % ncx) * CELL).to(torch.float32)[:, None]
+    ys = ((cell // ncx) * CELL).to(torch.float32)[:, None]
+    corners = [(x, y) for y in (ys, ys + (CELL - 1)) for x in (xs, xs + (CELL - 1))]
+    keep = torch.zeros((C, K, tables.shape[1]), dtype=torch.bool, device=dev)
+    for k in range(K):
+        idx = cands[:, k]
+        tab = tables[torch.clamp(idx, min=0)]          # (C, R, 14)
+        keep[:, k] = ((idx >= 0)[:, None] & (tab[..., 12] > -torch.inf)
+                      & corner_keep(tab, corners, _affine_plain))
+    return keep
+
+
+def covered_pixels_plain(tables, cands, ncx):
+    """(pixel, candidate) pairs of a block that some table row covers: the
+    samples its blend needs. Tests and the chip check's bound count them."""
+    live = torch.nonzero((cands >= 0).any(dim=1)).reshape(-1)
+    px, py = _cell_grid(live, ncx, tables.device)
+    n = 0
+    for k in range(cands.shape[1]):
+        idx = cands[live, k]
+        score, _, _ = _raster_plain(tables[torch.clamp(idx, min=0)], px, py)
+        n += int(((score != -torch.inf) & (idx >= 0)[:, None, None]).sum())
+    return n
+
+
+# --------------------------------- kernel --------------------------------- #
+
+def _lib():
+    """The kernel's library, built and bound at its first launch."""
+    if 'montage_blend' not in _LIBS:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib = build.bind('montage_blend', {
+            # srcs, lows, H, W, gmap, tables, R, aux, cands, K, ncy, ncx,
+            # fillval, pyramid, out_kind, out, covered, stream
+            'montage_blend': [P, P, I, I, P, P, I, P, P, I, I, I,
+                              ctypes.c_float, I, I, P, P, P],
+            'montage_blend_cell': []})
+        if lib.montage_blend_cell() != CELL:
+            raise RuntimeError(f'csrc/montage_blend.cu kCell != {CELL}')
+        _LIBS['montage_blend'] = lib
+    return _LIBS['montage_blend']
+
+
+def _need(t, name, dtype, shape, dev):
+    if (t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous() or t.device != dev):
+        raise ValueError(f'{name} must be a contiguous {tuple(shape)} {dtype} '
+                         f'tensor on {dev}, got {tuple(t.shape)} {t.dtype} '
+                         f'on {t.device}')
+
+
+def _prepare(srcs, lows, gmap, tables, aux, cands, fillval, ncy, ncx,
+             out_kind='u8', pyramid=False):
+    """Check one block for the kernel. Returns (run, out shape, out dtype):
+    ``run(out, covered)`` enqueues one launch on the current stream into an
+    (ncy*CELL, ncx*CELL) tensor of that dtype and a (1,) bool tensor, and
+    counts it."""
+    dev = tables.device
+    if tables.dim() != 3 or srcs.dim() != 3 or cands.dim() != 2:
+        raise ValueError('expected tables (T, R, 14), srcs (N, H, W) and '
+                         f'cands (C, K), got {tuple(tables.shape)}, '
+                         f'{tuple(srcs.shape)}, {tuple(cands.shape)}')
+    T, R = tables.shape[:2]
+    N, H, W = srcs.shape
+    C, K = cands.shape
+    _need(tables, 'tables', torch.float32, (T, R, 14), dev)
+    _need(srcs, 'srcs', torch.int32, (N, H, W), dev)
+    if pyramid:
+        _need(lows, 'lows', torch.int32, (N, H, W), dev)
+    _need(gmap, 'gmap', torch.int64, (T,), dev)
+    _need(aux, 'aux', torch.float32, (T, 5), dev)
+    _need(cands, 'cands', torch.int64, (ncy * ncx, K), dev)
+    if out_kind not in _OUT_KINDS:
+        raise ValueError(f'out_kind {out_kind!r} not in {list(_OUT_KINDS)}')
+    if H < 2 or W < 2 or tables.data_ptr() % 8:
+        raise ValueError(f'sources ({H}, {W}) smaller than 2 x 2, or tables '
+                         'not 8-byte aligned')
+    # the kernel reads table rows and stack planes at these indices as
+    # they are: one reduction and one read for both
+    lims = torch.stack([
+        *(torch.aminmax(cands) if cands.numel() else cands.new_tensor([-1, -1])),
+        *(torch.aminmax(gmap) if gmap.numel() else gmap.new_tensor([0, 0]))])
+    c_lo, c_hi, g_lo, g_hi = lims.tolist()
+    if c_lo < -1 or c_hi >= T or g_lo < 0 or g_hi >= N:
+        raise ValueError(f'cands in [{c_lo}, {c_hi}] outside [-1, {T}) or '
+                         f'gmap in [{g_lo}, {g_hi}] outside [0, {N})')
+    if dev.type != 'cuda':
+        raise ValueError(f'the montage_blend kernel needs CUDA tensors, got '
+                         f'{dev}')
+    lib = _lib()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    shape = (ncy * CELL, ncx * CELL)
+    dt = torch.uint8 if out_kind == 'u8' else torch.float32
+    args = (srcs.data_ptr(), lows.data_ptr() if pyramid else None, H, W,
+            gmap.data_ptr(), tables.data_ptr(), R, aux.data_ptr(),
+            cands.data_ptr(), K, ncy, ncx, float(fillval), int(bool(pyramid)),
+            _OUT_KINDS[out_kind])
+
+    def run(out, covered):
+        if (out.dtype != dt or tuple(out.shape) != shape
+                or covered.dtype != torch.bool or covered.numel() != 1
+                or out.device != dev or covered.device != dev
+                or not out.is_contiguous()):
+            raise ValueError(f'outputs must be a contiguous {shape} {dt} '
+                             f'tensor and a (1,) bool tensor on {dev}')
+        err = device_mod.launch_on(index, lib.montage_blend, *args,
+                                   out.data_ptr(), covered.data_ptr())
+        if err != 0:
+            raise RuntimeError(f'montage_blend launch failed: CUDA error {err}')
+        device_mod.count_launch('montage_blend', (C, K, R))
+
+    run.tensors = (srcs, lows, gmap, tables, aux, cands)   # alive with run
+    return run, shape, dt
+
+
+def montage_blend(srcs, lows, gmap, tables, aux, cands, fillval, ncy, ncx,
+                  out_kind='u8', pyramid=False):
+    """Blend one output block from per-tile tables + sources.
+
+    Args:
+        srcs: (N, Hs, Ws) int32 packed-quad tile images (pack_tile_stack).
+        lows: the PYRAMID low-band stack (``pack_low_stack``); ``srcs``
+            when pyramid is False (unused).
+        gmap: (T,) int64 block-local tile slot -> row of ``srcs``.
+        tables: (T, R, 14) f32 per-tile triangle tables in block-local
+            coordinates, source in TILE-LOCAL pixels (padding rows never
+            inside, weight -inf).
+        aux: (T, 5) f32 per tile: [tw, th, margin, gain, offset].
+        cands: (C, K) int64 tile slots per cell, -1 padded; C = ncy*ncx;
+            every other entry is below T, and every gmap entry below N.
+        fillval: fill of uncovered pixels.
+        out_kind: 'u8' or 'f32'.
+    Returns:
+        (out (ncy*CELL, ncx*CELL), covered_any bool)
+    On a CPU tensor this is ``montage_blend_plain``; on a CUDA tensor one
+    launch of the kernel (or an error), whose covered flag is read once.
+    """
+    if tables.device.type == 'cpu':
+        return montage_blend_plain(srcs, lows, gmap, tables, aux, cands,
+                                   fillval, ncy, ncx, out_kind, pyramid)
+    run, shape, dt = _prepare(srcs, lows, gmap, tables, aux, cands, fillval,
+                              ncy, ncx, out_kind, pyramid)
+    out = torch.empty(shape, dtype=dt, device=tables.device)
+    covered = torch.empty(1, dtype=torch.bool, device=tables.device)
+    run(out, covered)
+    return out, bool(covered.item())
 
 
 def pack_tile_stack(srcs_u8):
@@ -269,11 +451,10 @@ class MontageDeviceEngine:
         return pack_low_stack(packed, torch.as_tensor(twth, device=self.device),
                               float(self._mr._pyramid_sigma))
 
-    def render_block(self, bbox, hits, blend, fillval):
-        """LINEAR/PYRAMID blend of one block on the device: an array, None
-        (nothing covered) or NotImplemented (the host path is needed)."""
-        if not self.supported(blend):
-            return NotImplemented
+    def block_inputs(self, bbox, hits, blend, fillval):
+        """``montage_blend``'s arguments for one block (tiles ``hits``) and
+        the block's (H, W): (args, H, W); None when no tile touches a cell,
+        NotImplemented when a cell touches more than K_CAP tiles."""
         mr = self._mr
         pyramid = blend == 'PYRAMID'
         xbase = int(np.floor(bbox[0]))
@@ -338,12 +519,23 @@ class MontageDeviceEngine:
             packed = pack_tile_stack(torch.as_tensor(srcs, device=dev))
             lows = self._low_of(packed, aux[:, :2]) if pyramid else packed
             gmap = np.arange(len(hits), dtype=np.int64)
-        out, covered = montage_blend(
-            packed, lows, torch.as_tensor(gmap, device=dev),
-            torch.as_tensor(tables, device=dev),
-            torch.as_tensor(aux, device=dev),
-            torch.as_tensor(cands, device=dev), float(fillval),
-            ncy, ncx, out_kind='u8', pyramid=pyramid)
+        args = (packed, lows, torch.as_tensor(gmap, device=dev),
+                torch.as_tensor(tables, device=dev),
+                torch.as_tensor(aux, device=dev),
+                torch.as_tensor(cands, device=dev), float(fillval), ncy, ncx,
+                'u8', pyramid)
+        return args, H, W
+
+    def render_block(self, bbox, hits, blend, fillval):
+        """LINEAR/PYRAMID blend of one block on the device: an array, None
+        (nothing covered) or NotImplemented (the host path is needed)."""
+        if not self.supported(blend):
+            return NotImplemented
+        inputs = self.block_inputs(bbox, hits, blend, fillval)
+        if inputs is None or inputs is NotImplemented:
+            return inputs
+        args, H, W = inputs
+        out, covered = montage_blend(*args)
         if not covered:
             return None
         return out[:H, :W].cpu().numpy()

@@ -251,20 +251,35 @@ def raster_blocks_plain(src, tables, cands, fillval, h, w, geodesic,
 
 # --------------------------------- kernel --------------------------------- #
 
-def tile_cull_plain(tables, cands, h, w, tile_h):
-    """The kernel's tile cull, in plain PyTorch: which candidate rows
-    survive in each tile of ``_CELL`` x ``tile_h`` px (``tile_h`` divides
-    ``_CELL``; tiles are clipped to the block). Returns (B, tiles_y,
-    tiles_x, n) bool over the cell's K candidates, or over the Tp table
-    rows for a flat table.
+def corner_keep(rows, corners, affine=_affine):
+    """The cull rule of the raster and montage kernels: which triangle rows
+    (..., 14) may be inside at some pixel of a rectangle, from its corner
+    pixels ``corners`` [(x, y)] (tensors that broadcast against the rows).
 
-    l1 and l2 as ``_affine`` spells them are monotone in x and in y
-    (rounding to nearest is monotone), so their extremes over a tile lie
-    at its four corner pixels. A row is dropped when its largest l1 or l2
-    is below -eps, or when its smallest l1 plus its smallest l2, which no
-    pixel's rounded l1 + l2 falls below, exceeds 1 + eps: the per-pixel
-    test then rejects it at every pixel of the tile. The raster does not
-    call this; tests and the chip check's counts do."""
+    l1 and l2 as ``affine(a, x, b, y, c)`` spells them (each kernel's own
+    rounding) are monotone in x and in y (rounding to nearest is
+    monotone), so their extremes over the rectangle lie at its corners. A
+    row is dropped when its largest l1 or l2 is below -eps, or when its
+    smallest l1 plus its smallest l2, which no pixel's rounded l1 + l2
+    falls below, exceeds 1 + eps: the per-pixel test then rejects it at
+    every pixel of the rectangle."""
+    def extremes(j):
+        at = torch.stack([affine(rows[..., j], x, rows[..., j + 1], y,
+                                 rows[..., j + 2]) for x, y in corners])
+        return at.amax(dim=0), at.amin(dim=0)
+
+    hi1, lo1 = extremes(0)
+    hi2, lo2 = extremes(3)
+    return (hi1 >= -_EPS) & (hi2 >= -_EPS) & (lo1 + lo2 <= 1.0 + _EPS)
+
+
+def tile_cull_plain(tables, cands, h, w, tile_h):
+    """The kernel's tile cull (``corner_keep``), in plain PyTorch: which
+    candidate rows survive in each tile of ``_CELL`` x ``tile_h`` px
+    (``tile_h`` divides ``_CELL``; tiles are clipped to the block). Returns
+    (B, tiles_y, tiles_x, n) bool over the cell's K candidates, or over the
+    Tp table rows for a flat table. The raster does not call this; tests
+    and the chip check's counts do."""
     B = tables.shape[0]
     dev = tables.device
     nty, ntx = -(-h // tile_h), -(-w // _CELL)
@@ -278,49 +293,29 @@ def tile_cull_plain(tables, cands, h, w, tile_h):
         cell = ((ty0 // _CELL) * (w // _CELL))[:, None] + tx0[None] // _CELL
         idx = cands.to(torch.int64)[:, cell]             # (B, nty, ntx, K)
         rows = tables[torch.arange(B, device=dev)[:, None, None, None], idx]
-
-    def extremes(j):
-        at = torch.stack([
-            _affine(rows[..., j], x.to(torch.float32)[None, None, :, None],
-                    rows[..., j + 1], y.to(torch.float32)[None, :, None, None],
-                    rows[..., j + 2])
-            for y in (ty0, ty1) for x in (tx0, tx1)])
-        return at.amax(dim=0), at.amin(dim=0)
-
-    hi1, lo1 = extremes(0)
-    hi2, lo2 = extremes(3)
-    return (hi1 >= -_EPS) & (hi2 >= -_EPS) & (lo1 + lo2 <= 1.0 + _EPS)
+    return corner_keep(rows, [(x.to(torch.float32)[None, None, :, None],
+                               y.to(torch.float32)[None, :, None, None])
+                              for y in (ty0, ty1) for x in (tx0, tx1)])
 
 
-def _lib(dev):
-    """(library, device index, raw current-stream lookup) of ``dev``, built
-    and bound at the first launch on it."""
-    ent = _LIBS.get(dev)
-    if ent is None:
-        lib = build.load('mesh_raster')
+def _lib():
+    """The kernel's library, built and bound at its first launch."""
+    if 'mesh_raster' not in _LIBS:
         P, I = ctypes.c_void_p, ctypes.c_int
-        # tables, Tp, cands, K, cell, ncx, src, src_bstride, src_stride,
-        # src_kind, src_hw, src_h, src_w, fillval, B, h, w, geodesic,
-        # out_kind, out, covered, stream
-        lib.mesh_raster.argtypes = [P, I, P, I, I, I, P, ctypes.c_longlong,
-                                    I, I, P, I, I, ctypes.c_float, I, I, I,
-                                    I, I, P, P, P]
-        lib.mesh_raster.restype = I
-        lib.mesh_raster_tile_h.restype = I
-        index = dev.index if dev.index is not None \
-            else torch.cuda.current_device()
-        raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
-        if raw is None:
-            def raw(i):
-                return torch.cuda.current_stream(i).cuda_stream
-        ent = _LIBS[dev] = (lib, index, raw)
-    return ent
+        _LIBS['mesh_raster'] = build.bind('mesh_raster', {
+            # tables, Tp, cands, K, cell, ncx, src, src_bstride, src_stride,
+            # src_kind, src_hw, src_h, src_w, fillval, B, h, w, geodesic,
+            # out_kind, out, covered, stream
+            'mesh_raster': [P, I, P, I, I, I, P, ctypes.c_longlong, I, I, P,
+                            I, I, ctypes.c_float, I, I, I, I, I, P, P, P],
+            'mesh_raster_tile_h': []})
+    return _LIBS['mesh_raster']
 
 
-def kernel_tile_h(dev):
-    """Tile height in px of the built kernel on ``dev`` (its tiles are
+def kernel_tile_h():
+    """Tile height in px of the built kernel (its tiles are
     ``_CELL`` px wide), as ``tile_cull_plain`` takes it."""
-    return int(_lib(dev)[0].mesh_raster_tile_h())
+    return int(_lib().mesh_raster_tile_h())
 
 
 def _prepare(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw):
@@ -368,7 +363,8 @@ def _prepare(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw):
         cands = cands.contiguous()
         K, cand_ptr = cands.shape[2], cands.data_ptr()
     code, dt = _OUT_KINDS[out_kind]
-    lib, index, raw_stream = _lib(dev)
+    lib = _lib()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
     args = (tables.data_ptr(), Tp, cand_ptr, K, _CELL, ncx, src.data_ptr(),
             Hs * Ws if per_block else 0, Ws,
             0 if src.dtype == torch.uint8 else 1,
@@ -382,13 +378,8 @@ def _prepare(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw):
                 or not out.is_contiguous()):
             raise ValueError('outputs must be a contiguous (B, h, w) '
                              f'{dt} tensor and a (B,) bool tensor on {dev}')
-        if torch.cuda.current_device() == index:
-            err = lib.mesh_raster(*args, out.data_ptr(), covered.data_ptr(),
-                                  raw_stream(index))
-        else:
-            with torch.cuda.device(index):
-                err = lib.mesh_raster(*args, out.data_ptr(),
-                                      covered.data_ptr(), raw_stream(index))
+        err = device_mod.launch_on(index, lib.mesh_raster, *args,
+                                   out.data_ptr(), covered.data_ptr())
         if err != 0:
             raise RuntimeError(f'mesh_raster launch failed: CUDA error {err}')
         device_mod.count_launch('mesh_raster', (B, h, w))
