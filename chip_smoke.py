@@ -13,7 +13,9 @@ Phases (each prints its lines; any failure exits non-zero):
      and its bytes over 3.35 TB/s) and share of it:
      the DoG (sigma 1.25, 2.5 and 3.5, whole planes and halo tiles) and
      blur (the pooled bands' mask term, the 4096^2 low band), each also
-     beside a replicate-pad ``F.conv2d`` library call, the edges of
+     beside a replicate-pad ``F.conv2d`` library call (and, at (128, 64,
+     64) and (1, 2048, 2048) sigma 3.5 and the blur of (4, 4096, 4096),
+     its device time per call from a CUDA-graph replay), the edges of
      both code paths of the DoG kernel (a 1x1 plane, 3x700, 24x24 at sigma
      3.5, 129x130 tiles, the mask term's largest radius), and the mesh
      raster, bit-equal with equal coverage flags, on the align path's
@@ -25,12 +27,16 @@ Phases (each prints its lines; any failure exits non-zero):
      batch upload, staged against pageable; then the montage blend,
      bit-equal with the expected covered flag, on the edges of its design
      (``montage_cases``: a 4096^2 LINEAR block, ragged blocks, empty
-     cells, the identical-tile tie, a dense mesh, K = K_CAP), with its
+     cells, the identical-tile tie, a dense mesh, K = K_CAP, a tile at half
+     size turned by 30 degrees, one cell, a cell count that is no multiple
+     of the kernel's persistent grid), after its registers, spills and
+     resident blocks a SM as the runtime reports them, with its
      device time per launch, rows kept per cell and samples per pixel;
      then the three kernels of the thumbnail path, each also beside one
      PyTorch library call of the same function (``check_lradon``): the peak response (bit-equal; 2048^2 at
-     window 10 with and without a mask, a 1x1 and a 7x300 plane, windows 3
-     and 7, plateaus), the LRadon descriptors (<= 1e-5; 5000 keypoints on
+     window 10 with and without a mask, a 1x1 and a 7x300 plane, windows
+     1, 2, 3, 7, 31 and 32, plateaus, a 2049 x 2047 plane with a mask),
+     the LRadon descriptors (<= 1e-5; 5000 keypoints on
      2048^2, keypoints on every border and corner with fractional offsets
      0 and just under 1, a 3000x2000 image, beam radii 30 and 45, 4 x 6
      bins) and the rotation-exhaustive match (indices, best rotation and
@@ -38,8 +44,8 @@ Phases (each prints its lines; any failure exits non-zero):
      closer than 1e-5, which are counted; 5000 x 5000 x 12 variants,
      64 x 4096, one side masked, duplicated descriptors, no rotation
      search, pairs whose best variant is 0, in 1..P-1 and in P..2P-1,
-     4 x 6 descriptors, 100 x 3001); the descriptor and match rows also
-     with their device time per call from a CUDA-graph replay;
+     4 x 6 descriptors, 100 x 3001); each of these rows also with its
+     device time per call from a CUDA-graph replay;
   4. the stitch slice: a synthetic 2x3 grid of 3000x4000 uint8 tiles
      (10% overlap, 3 px stage jitter, made on the card from a seed) goes
      through ``feabas_tpu_torch.scripts.stitch_main`` matching,
@@ -240,13 +246,17 @@ def check_kernels(dev):
         x = torch.rand(shape, generator=g, device=dev) * 255
         return x.to(torch.uint8) if dtype == torch.uint8 else x
 
-    def check(shape, dtype, sigma, is_dog, what='', iters=20, library=True):
+    def check(shape, dtype, sigma, is_dog, what='', iters=20, library=True,
+              device=False):
         x = rand_stack(shape, dtype)
         kernel = dog.dog_filter if is_dog else dog.gaussian_blur
         plain = dog.dog_filter_plain if is_dog else dog.gaussian_blur_plain
         want = plain(x, sigma)
         err = float((kernel(x, sigma) - want).abs().max())
         ms = cuda_time(lambda: kernel(x, sigma), iters)
+        # a call near the host floor is mostly host time: the device's
+        # share of it, from a CUDA-graph replay
+        us = graph_time(lambda: kernel(x, sigma), iters) if device else None
         pms = cuda_time(lambda: plain(x, sigma), iters)
         lms = None
         if library:
@@ -261,6 +271,8 @@ def check_kernels(dev):
         rows.append(kernel_row(name, shape, label, err, ms, pms,
                                dog_bound(shape, x.element_size(), sigma,
                                          is_dog), lms))
+        if us is not None:
+            rows[-1]['device_us'] = us
 
     # the stacks the stitch and align runs below launch (launches_by_shape).
     # Stitch: match blocks of 128^2, 96^2, 64^2 and 192^2 (f32 after the
@@ -278,14 +290,15 @@ def check_kernels(dev):
         check(shape, torch.float32, 1.25, True, ', pooled band')
         check(shape, torch.float32, 1.25 * 2 ** 0.5, False, ', pooled band')
     for n in (1, 2, 4):
-        check((n, 4096, 4096), torch.float32, 4.0, False, ', tiles', iters=5)
+        check((n, 4096, 4096), torch.float32, 4.0, False, ', tiles', iters=5,
+              device=n == 4)
     check((512, 96, 96), torch.float32, 3.5, True)
     check((8192, 24, 24), torch.float32, 3.5, True, ', halo > plane')
-    check((1, 2048, 2048), torch.float32, 3.5, True, ', tiles')
+    check((1, 2048, 2048), torch.float32, 3.5, True, ', tiles', device=True)
     # thumbnail (sigma 3.5): the detector's whole 2048^2 thumbnail (above)
     # and the refinement's blocks of 192^2 and 64^2
     check((128, 192, 192), torch.float32, 3.5, True, ', tiles')
-    check((128, 64, 64), torch.float32, 3.5, True)
+    check((128, 64, 64), torch.float32, 3.5, True, device=True)
     # reference stacks kept from earlier runs: 8 pairs x 128 blocks of
     # 128^2, 512^2 uint8 blocks, and the low band of all 6 tiles at once
     check((1024, 128, 128), torch.float32, 2.5, True)
@@ -726,10 +739,11 @@ class TileStack:
 
 
 def tile_meshes(sizes, origins, mesh_size, bd_width=None, cartesian=None,
-                shear=5e-4):
+                shear=5e-4, scale=1.0, turn=0.0):
     """Tile meshes as the stitcher builds them (``Mesh.from_boarder_bbox``,
     INITIAL tile-local; ``Mesh.from_bbox`` where ``cartesian`` is given),
-    MOVING at ``origins`` with a slight shear."""
+    MOVING at ``origins`` with a slight shear, then scaled by ``scale`` and
+    turned by ``turn`` degrees about the tile's centre."""
     import numpy as np
     from feabas_tpu_torch.mesh import Mesh
     out = []
@@ -743,6 +757,11 @@ def tile_meshes(sizes, origins, mesh_size, bd_width=None, cartesian=None,
         v = m.vertices('INITIAL')
         moved = v + np.asarray([x, y]) + shear * (v - v.mean(axis=0))[:, ::-1]
         c = moved.mean(axis=0, keepdims=True)
+        if scale != 1.0 or turn != 0.0:
+            a = np.deg2rad(turn)
+            rot = scale * np.array([[np.cos(a), -np.sin(a)],
+                                    [np.sin(a), np.cos(a)]])
+            moved = (moved - c) @ rot.T + c
         m.set_vertices(moved - c, 'MOVING', offset=c)
         out.append(m)
     return out
@@ -853,6 +872,29 @@ def montage_cases(dev):
             raise RuntimeError(f'K = {args[5].shape[1]}, not {n}')
         return {'args': args, 'covered': True}
 
+    def turned():
+        # one 1024^2 tile shown at half size and turned by 30 degrees: a
+        # warp's 32 adjacent pixels sample 64 source pixels along a slant
+        w = section()['world']
+        meshes = tile_meshes([(1024, 1024)], [(0.0, 0.0)], 100, scale=0.5,
+                             turn=30.0)
+        args, _, _ = montage_block(dev, [w[2000:3024, 1000:2024]], [(0, 0)],
+                                   meshes, (0, 0, 1024, 1024), 'PYRAMID')
+        return {'args': args, 'covered': True}
+
+    def ragged_grid():
+        # 20 x 17 cells, 680 half-cell units: more than one pass of the
+        # kernel's persistent grid and not a multiple of it
+        mk = block((700.25, 500.5, 1980, 1588), 'PYRAMID')
+        case = mk()
+        attrs = mrd.kernel_attrs(True)
+        grid = (attrs['blocks_per_sm']
+                * torch.cuda.get_device_properties(dev).multi_processor_count)
+        units = 2 * case['args'][5].shape[0]
+        if not (units > grid and units % grid):
+            raise RuntimeError(f'{units} units against a grid of {grid}')
+        return case
+
     return [('4096^2 LINEAR', block((0, 0, 4096, 4096), 'LINEAR')),
             ('ragged 1338 x 1000, PYRAMID',
              block((3000.5, 2000.25, 4337.5, 2999.25), 'PYRAMID')),
@@ -864,7 +906,10 @@ def montage_cases(dev):
             ('no tile in any cell, fill 17', nothing),
             ('identical tiles, the first wins', tie),
             ('dense mesh, R >= 1000', dense),
-            ('K = K_CAP', kcap)]
+            ('K = K_CAP', kcap),
+            ('tile scaled by 0.5, turned by 30 degrees', turned),
+            ('one cell, 64 x 64', block((2500, 1500, 2564, 1564), 'PYRAMID')),
+            ('cells not a multiple of the grid', ragged_grid)]
 
 
 def montage_compare(case):
@@ -942,6 +987,11 @@ def check_montage(dev):
     ``montage_cases`` bit-equal to the plain version with the expected
     covered flag, each timed (``montage_row``). The stitch path's own
     blocks are held so in phase 4 (``montage_path_rows``)."""
+    from feabas_tpu_torch.ops import montage_render as mrd
+    for pyr in (False, True):
+        for kind in ('u8', 'f32'):
+            log(f'[kernel] montage_blend {"PYRAMID" if pyr else "LINEAR"} '
+                f'{kind}: {mrd.kernel_attrs(pyr, kind)}')
     rows = [montage_row(dev, name, make()) for name, make in montage_cases(dev)]
     log_rows(rows, ' LSB')
     return rows
@@ -1554,7 +1604,16 @@ def lradon_cases(dev, kernel):
                 ('7x300', plane(7, 300, 10, mask=True)),
                 ('size 3', plane(200, 333, 3)),
                 ('size 7', plane(200, 333, 7, mask=True)),
-                ('plateau', plane(512, 640, 10, levels=2))]
+                ('plateau', plane(512, 640, 10, levels=2)),
+                # the kernel's window edges (1, 2 and its widest, 31 and
+                # 32) and a plane whose width is no multiple of 4 (4-byte
+                # loads) and whose sides are no multiple of the tile
+                ('size 1', plane(300, 260, 1)),
+                ('size 2', plane(300, 260, 2, mask=True)),
+                ('size 31', plane(300, 260, 31)),
+                ('size 32', plane(300, 260, 32, mask=True)),
+                ('2049 x 2047 size 10, mask', plane(2049, 2047, 10,
+                                                    mask=True))]
 
     if kernel == 'lradon_patch':
         def keypoints(h, w, K, border=False, timed=False, radius=15,
@@ -1829,12 +1888,11 @@ def check_lradon(dev):
                          2 * args[4] if args[5] else 1)
             row = kernel_row(kernel, shape, name, err, ms, pms,
                              _lradon_bound(kernel, args), lib)
-            if kernel != 'peak_detect':
-                # a call near the host floor is mostly host time: the
-                # device's share of it, from a CUDA-graph replay
-                row['device_us'] = graph_time(
-                    lambda: wrappers[kernel](*args), 20 if timed else 5)
-                row['first_ms'] = FIRST_MS.get((kernel, name))
+            # a call near the host floor is mostly host time: the device's
+            # share of it, from a CUDA-graph replay
+            row['device_us'] = graph_time(
+                lambda: wrappers[kernel](*args), 20 if timed else 5)
+            row['first_ms'] = FIRST_MS.get((kernel, name))
             row['edge'] = not case.get('on_path', timed)
             if close is not None:
                 row['close_rows'] = close

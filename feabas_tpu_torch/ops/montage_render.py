@@ -68,6 +68,31 @@ def _raster_plain(tab, px, py, rows=None):
     return score, sx, sy
 
 
+def winner_rows_plain(tab, px, py, rows=None):
+    """The kernel's raster of one candidate tile per cell, in plain PyTorch
+    (``_raster_plain``'s arguments): (row, weight), each (C, CELL, CELL),
+    the table row each pixel takes (the first inside row of the largest
+    weight, whose affine ``_raster_plain`` evaluates) and its weight; -1
+    and -inf where no row covers the pixel. The kernel's blend recomputes
+    (sx, sy) from that row's affine with ``_raster_plain``'s rounded ops."""
+    C, R = tab.shape[:2]
+    shape = (C, CELL, CELL)
+    weight = torch.full(shape, -torch.inf, dtype=torch.float32,
+                        device=tab.device)
+    win = torch.full(shape, -1, dtype=torch.int64, device=tab.device)
+    for j in range(R):
+        row = tab[:, j, :, None, None]            # (C, 14, 1, 1)
+        l1 = row[:, 0] * px + row[:, 1] * py + row[:, 2]
+        l2 = row[:, 3] * px + row[:, 4] * py + row[:, 5]
+        inside = (l1 >= -_EPS) & (l2 >= -_EPS) & (l1 + l2 <= 1.0 + _EPS)
+        if rows is not None:
+            inside = inside & rows[:, j, None, None]
+        take = inside & (row[:, 12] > weight)
+        weight = torch.where(take, row[:, 12], weight)
+        win = torch.where(take, j, win)
+    return win, weight
+
+
 def _affine_plain(a, x, b, y, c):
     """a * x + b * y + c as ``_raster_plain`` rounds it: three f32 ops."""
     return a * x + b * y + c
@@ -184,11 +209,25 @@ def _lib():
             # fillval, pyramid, out_kind, out, covered, stream
             'montage_blend': [P, P, I, I, P, P, I, P, P, I, I, I,
                               ctypes.c_float, I, I, P, P, P],
-            'montage_blend_cell': []})
+            'montage_blend_cell': [],
+            'montage_blend_attrs': [I, I, P]})
         if lib.montage_blend_cell() != CELL:
             raise RuntimeError(f'csrc/montage_blend.cu kCell != {CELL}')
         _LIBS['montage_blend'] = lib
     return _LIBS['montage_blend']
+
+
+def kernel_attrs(pyramid, out_kind='u8'):
+    """What the card's runtime reports for one instantiation of the
+    kernel: {'registers', 'local_bytes' (spills), 'shared_bytes',
+    'blocks_per_sm'} (256-thread blocks resident on one SM)."""
+    out = (ctypes.c_int * 4)()
+    err = _lib().montage_blend_attrs(int(bool(pyramid)), _OUT_KINDS[out_kind],
+                                     out)
+    if err != 0:
+        raise RuntimeError(f'montage_blend_attrs failed: CUDA error {err}')
+    return dict(zip(('registers', 'local_bytes', 'shared_bytes',
+                     'blocks_per_sm'), out))
 
 
 def _need(t, name, dtype, shape, dev):

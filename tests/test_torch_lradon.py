@@ -491,7 +491,8 @@ def _smoke():
 
 
 PEAK_CASES = ['2048^2 size 10', '2048^2 size 10, mask', '1x1', '7x300',
-              'size 3', 'size 7', 'plateau']
+              'size 3', 'size 7', 'plateau', 'size 1', 'size 2', 'size 31',
+              'size 32', '2049 x 2047 size 10, mask']
 PATCH_CASES = ['K 5000', 'K 64, borders and corners', 'K 4096, 3000x2000',
                'radius 30, groups of 4', 'radius 45, one per block',
                '4 x 6 bins, width 1, radius 9.5']

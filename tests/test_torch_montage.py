@@ -53,13 +53,37 @@ def _block(scene, blend, fillval=0.0, dev='cpu'):
     tiles of one geometry and different images."""
     smoke = _smoke()
     rng = np.random.default_rng(7)
-    if scene == 'dense':
+    if scene in ('dense', 'ragged'):
         origins = [(-20.3, -10.7), (90.6, -5.2), (-15.4, 80.1), (95.2, 85.9)]
         tiles = [texture(rng, 150, 180) for _ in origins]
         meshes = smoke.tile_meshes([(180, 150)] * 4, origins, 20,
                                    cartesian=True, shear=2e-3)
         transfers = [(1.0, 0.0), (1.1, -3.0), (0.9, 5.0), (1.05, 2.5)]
-        bbox = (-60.5, -50.3, 272.2, 299.6)
+        bbox = ((-60.5, -50.3, 272.2, 299.6) if scene == 'dense'
+                else (30.25, 20.5, 230.75, 171.5))
+    elif scene == 'mesh':
+        # one 320^2 tile on a 12-px cartesian mesh: more than 1000 rows
+        origins = [(-3.5, 7.25)]
+        tiles = [texture(rng, 320, 320)]
+        meshes = smoke.tile_meshes([(320, 320)], origins, 12, cartesian=True)
+        transfers = None
+        bbox = (0, 0, 320, 320)
+    elif scene == 'kcap':
+        # K_CAP tiles of 64^2 over one corner, each its own gain / offset
+        n = mrd.K_CAP
+        origins = [(0.37 * i, 0.21 * i) for i in range(n)]
+        tiles = [texture(rng, 64, 64) for _ in range(n)]
+        meshes = smoke.tile_meshes([(64, 64)] * n, origins, 40)
+        transfers = [(1.0 + 0.01 * i, i % 5 - 2.0) for i in range(n)]
+        bbox = (0, 0, 192, 128)
+    elif scene == 'turned':
+        # a tile shown at half size and turned by 30 degrees
+        origins = [(0.0, 0.0)]
+        tiles = [texture(rng, 256, 256)]
+        meshes = smoke.tile_meshes([(256, 256)], origins, 40, scale=0.5,
+                                   turn=30.0)
+        transfers = None
+        bbox = (0, 0, 256, 256)
     else:
         origins = [(0, 0), (0, 0)]
         tiles = [texture(rng, 96, 128) for _ in origins]
@@ -111,6 +135,79 @@ def test_plain_matches_jax(scene, fillval, blend):
     assert diff.max() <= 1 and (diff > 0).mean() < 0.01
     if fillval:
         assert (got == 17).sum() > 64 * 64
+
+
+def _raster_from_winners(tab, px, py, rows=None):
+    """``mrd._raster_plain`` as the kernel splits it: each pixel's winning
+    row (``winner_rows_plain``), then (sx, sy) recomputed from that row's
+    affine with the same rounded ops."""
+    win, score = mrd.winner_rows_plain(tab, px, py, rows)
+    C = tab.shape[0]
+    # (C, 6, CELL, CELL): the winning row's affine at each pixel
+    m = torch.gather(
+        tab[:, :, 6:12], 1,
+        torch.clamp(win, min=0).reshape(C, -1, 1).expand(-1, -1, 6)
+    ).reshape(C, mrd.CELL, mrd.CELL, 6).permute(0, 3, 1, 2)
+    sx = mrd._affine_plain(m[:, 0], px, m[:, 1], py, m[:, 2])
+    sy = mrd._affine_plain(m[:, 3], px, m[:, 4], py, m[:, 5])
+    return score, sx, sy
+
+
+@pytest.mark.parametrize('scene', ['dense', 'ragged', 'tie', 'kcap'])
+@pytest.mark.parametrize('blend', ['LINEAR', 'PYRAMID'])
+def test_blend_from_winner_rows_matches_jax(scene, blend, monkeypatch):
+    """The kernel's split (each pixel's winning table row, then the source
+    recomputed from that row's affine: ``winner_rows_plain``) blends as
+    the JAX program does, to the rule of ``test_plain_matches_jax``, on
+    blocks of up to K_CAP candidates a cell. (The JAX program unrolls
+    every table row, so the 1000-row scene is held to the plain version
+    alone, below, as is the turned tile.)"""
+    args, _, _ = _block(scene, blend, 17.0 if scene == 'ragged' else 0.0)
+    if scene == 'kcap':
+        assert args[5].shape[1] == mrd.K_CAP
+    monkeypatch.setattr(mrd, '_raster_plain', _raster_from_winners)
+    got, cov = mrd.montage_blend_plain(*args)
+    want, cov_j = _jax(args)
+    assert cov == cov_j
+    diff = np.abs(got.numpy().astype(int) - want.astype(int))
+    assert diff.max() <= 1 and (diff > 0).mean() < 0.01
+
+
+@pytest.mark.parametrize('scene', ['dense', 'ragged', 'tie', 'mesh', 'kcap',
+                                   'turned'])
+@pytest.mark.parametrize('blend', ['LINEAR', 'PYRAMID'])
+def test_winner_rows_reproduce_the_plain_blend(scene, blend, monkeypatch):
+    """Sampling from ``winner_rows_plain`` reproduces the plain version bit
+    for bit (f32 output and covered flag); every winning row survives the
+    cell cull (``cell_cull_plain``: the kernel rasters only those) and
+    carries the tile's largest weight (every real row weighs 1 here)."""
+    args, _, _ = _block(scene, blend)
+    tables, cands, ncx = args[3], args[5], args[8]
+    if scene == 'mesh':
+        assert tables.shape[1] >= 1000
+    f32 = args[:9] + ('f32',) + args[10:]
+    want, cov = mrd.montage_blend_plain(*f32)
+    with monkeypatch.context() as m:
+        m.setattr(mrd, '_raster_plain', _raster_from_winners)
+        got, cov_w = mrd.montage_blend_plain(*f32)
+    assert torch.equal(got, want) and cov == cov_w
+    C, K = cands.shape
+    px, py = mrd._cell_grid(torch.arange(C), ncx, 'cpu')
+    rows, weight = (torch.stack(t, dim=1) for t in zip(*(
+        mrd.winner_rows_plain(tables[torch.clamp(cands[:, k], min=0)], px, py)
+        for k in range(K))))
+    live = (cands >= 0)[:, :, None, None]
+    rows = torch.where(live, rows, -1)
+    weight = torch.where(live, weight, -torch.inf)
+    hit = rows >= 0
+    assert bool(hit.any())
+    assert torch.equal(hit, weight > -torch.inf)
+    keep = mrd.cell_cull_plain(tables, cands, ncx)       # (C, K, R)
+    kept = torch.gather(keep, 2, torch.clamp(rows, min=0).reshape(C, K, -1))
+    assert bool(kept.reshape(rows.shape)[hit].all())
+    top = tables[torch.clamp(cands, min=0), :, 12].amax(dim=2)   # (C, K)
+    assert torch.equal(weight[hit], top[:, :, None, None].expand_as(
+        weight)[hit])
 
 
 def test_first_tile_wins_the_high_band():
@@ -266,7 +363,9 @@ def test_chip_check_rebuilds_the_blocks_the_stitch_cli_wrote(tmp_path,
     '4096^2 LINEAR', 'ragged 1338 x 1000, PYRAMID',
     'ragged 1338 x 1000, LINEAR, f32 out', 'cells without a tile, fill 17',
     'no tile in any cell, fill 17', 'identical tiles, the first wins',
-    'dense mesh, R >= 1000', 'K = K_CAP'])
+    'dense mesh, R >= 1000', 'K = K_CAP',
+    'tile scaled by 0.5, turned by 30 degrees', 'one cell, 64 x 64',
+    'cells not a multiple of the grid'])
 def test_kernel_matches_plain_on_card(case):
     """The kernel bit-equal to the plain version with the expected covered
     flag, over chip_smoke.py's phase-3 cases, each launch counted."""
