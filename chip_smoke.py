@@ -7,8 +7,9 @@ Phases (each prints its lines; any failure exits non-zero):
   2. build of the hand-written kernels from feabas_tpu_torch/csrc, one
      nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, at every
-     shape the three paths below launch it with (the montage blend's, in
-     phase 4 on the blocks that path blends), with both times from CUDA
+     shape the four paths below launch it with (the montage blend's, in
+     phase 4 on the blocks that path blends; the general CG operator's,
+     in phase 7 on the systems that path solves), with both times from CUDA
      events and each kernel's bound (the larger of its FLOP over 67 TFLOP/s
      and its bytes over 3.35 TB/s) and share of it:
      the DoG (sigma 1.25, 2.5 and 3.5, whole planes and halo tiles) and
@@ -45,7 +46,12 @@ Phases (each prints its lines; any failure exits non-zero):
      64 x 4096, one side masked, duplicated descriptors, no rotation
      search, pairs whose best variant is 0, in 1..P-1 and in P..2P-1,
      4 x 6 descriptors, 100 x 3001); each of these rows also with its
-     device time per call from a CUDA-graph replay;
+     device time per call from a CUDA-graph replay; then the general CG
+     operator (``check_fem``) on a synthetic pair of cartesian meshes of
+     1000 x 1000 vertices in all (2M DOF) with 1e5 links, within 1e-5 of
+     max|y| of its plain version and bit-equal to itself, in both of its
+     link modes, beside one ``torch.sparse.mm`` of the assembled matrix
+     (its phase-7 path systems in phase 7);
   4. the stitch slice: a synthetic 2x3 grid of 3000x4000 uint8 tiles
      (10% overlap, 3 px stage jitter, made on the card from a seed) goes
      through ``feabas_tpu_torch.scripts.stitch_main`` matching,
@@ -71,17 +77,28 @@ Phases (each prints its lines; any failure exits non-zero):
      thumbnails) with the default feature settings; all 9 pairs must
      match, feature and refined matches are held against the analytic
      motion, each pair's best rotation variant against its relative
-     angle, the aligned thumbnails against section 0.
+     angle, the aligned thumbnails against section 0;
+  7. the nonlinear align slice: the first 4 sections of phase 5's stack,
+     each with a material mask at mip 4 (512^2), sections 1 and 2 with a
+     seeded band of the shipped nonlinear 'wrinkle' material (label 50,
+     24 mask px wide), go through the align CLI as in phase 5; matches are
+     checked against the analytic truth, the window must not take the
+     stacked solve (Newton-Raphson does), the tforms must hold no flipped
+     triangle, the render must overlay section 0, and the general CG
+     operator must launch in matching and in optimization; after the
+     counts are read, the path's window and the match pair of sections 1
+     and 2 are rebuilt from the work dir and the operator is held against
+     its plain version and timed on each, as in phase 3.
 Each slice resets the kernels' launch counts just before it and reads
 them just after (in total and by shape), and fails if a kernel of its
-path never launched. Then one JSON line lists each of the seven kernels with
+path never launched. Then one JSON line lists each of the eight kernels with
 its launches (in all and by path), its worst error, and the times, bound
 and library time of the checked shape the paths launched most, then all its
 phase-3 checks; the line before
 last is nvidia-smi's card line; the last line is one JSON object
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 
-``--phases`` (a comma list of kernels, stitch, align, thumbnail) runs a
+``--phases`` (a comma list of kernels, stitch, align, thumbnail, nonlinear) runs a
 part of it, for work on one path; the kernels line and the ok line are
 printed only by the whole run. ``--profile`` wraps each stitch and
 thumbnail stage in one ``torch.profiler`` pass and prints its device time
@@ -96,6 +113,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
@@ -116,6 +134,7 @@ KERNELS = {
     'lradon_patch': ('lradon_patch', 'feabas_tpu/ops/lradon.py:207'),
     'lradon_match': ('lradon_match', 'feabas_tpu/ops/lradon.py:301'),
     'montage_blend': ('montage_blend', 'feabas_tpu/ops/montage_render.py:62'),
+    'fem_operator': ('fem_operator', 'feabas_tpu/optimizer.py:1192'),
 }
 KERNEL_SOURCES = sorted({src for src, _ in KERNELS.values()})
 
@@ -294,6 +313,10 @@ def check_kernels(dev):
               device=n == 4)
     check((512, 96, 96), torch.float32, 3.5, True)
     check((8192, 24, 24), torch.float32, 3.5, True, ', halo > plane')
+    # nonlinear align (phase 7): the classic match loop's stacks of 128
+    # blocks
+    check((128, 96, 96), torch.float32, 3.5, True)
+    check((128, 24, 24), torch.float32, 3.5, True, ', halo > plane')
     check((1, 2048, 2048), torch.float32, 3.5, True, ', tiles', device=True)
     # thumbnail (sigma 3.5): the detector's whole 2048^2 thumbnail (above)
     # and the refinement's blocks of 192^2 and 64^2
@@ -1271,30 +1294,31 @@ def _section_disp(z, drift, x, y, xp):
             drift[z][1] + z * WARP_AMP * xp.cos(w * x))
 
 
-def make_stack(dev):
-    """STACK_S sections on the card: section z at mip0 pixel p shows the
-    seeded base texture at p + margin + d_z(p). Returns (sections as host
-    uint8 arrays, drift (S, 2))."""
+def make_stack(dev, n=STACK_S):
+    """``n`` sections on the card: section z at mip0 pixel p shows the
+    seeded base texture at p + margin + d_z(p) (the first sections of any
+    ``n`` are the same). Returns (sections as host uint8 arrays, drift
+    (n, 2))."""
     import numpy as np
     import torch
     from feabas_tpu_torch.ops.warp import bilinear_sample
     rng = np.random.default_rng(SEED)
-    steps = rng.normal(0, DRIFT_STD, (STACK_S, 2))
+    steps = rng.normal(0, DRIFT_STD, (n, 2))
     steps[0] = 0.0
     drift = np.cumsum(steps, axis=0)
-    reach = np.abs(drift).max() + (STACK_S - 1) * WARP_AMP
+    reach = np.abs(drift).max() + (n - 1) * WARP_AMP
     if not reach < SECTION_MARGIN - 2:
         raise RuntimeError(f'drift reach {reach} px exceeds the margin')
-    n = SECTION + 2 * SECTION_MARGIN
+    side = SECTION + 2 * SECTION_MARGIN
     # sigma 16 px at mip0: 4 px at the working resolution, where the
     # section matcher's DoG (sigma 3.5) looks
-    base = make_texture(dev, n, n, seed=SEED + 1,
+    base = make_texture(dev, side, side, seed=SEED + 1,
                         blur=4.0 * ALIGN_SCALE).to(torch.float32)
     gy, gx = torch.meshgrid(
         torch.arange(SECTION, dtype=torch.float32, device=dev),
         torch.arange(SECTION, dtype=torch.float32, device=dev), indexing='ij')
     sections = []
-    for z in range(STACK_S):
+    for z in range(n):
         dx, dy = _section_disp(z, drift, gx, gy, torch)
         img = bilinear_sample(base, gx + SECTION_MARGIN + dx,
                               gy + SECTION_MARGIN + dy)
@@ -1363,6 +1387,46 @@ def _match_truth_error(match, z0, z1, drift):
         p0 = target - np.stack([dx0, dy0], -1)
     xy0 = (p0 - (ALIGN_SCALE - 1) / 2) / ALIGN_SCALE
     return np.linalg.norm(match.xy0 - xy0, axis=-1)
+
+
+def align_pair_checks(wd, names, drift):
+    """Matches per neighbouring pair and their median error against the
+    analytic truth; fails below 50 matches or at a median of 1 px or
+    more. Returns (counts, median errors)."""
+    import numpy as np
+    from feabas_tpu_torch import aligner
+    errs, counts = [], []
+    for z in range(1, len(names)):
+        m = aligner.read_matches_from_h5(os.path.join(
+            wd, 'align', 'matches', aligner.match_name(names[z - 1],
+                                                      names[z])))
+        counts.append(m.xy0.shape[0])
+        errs.append(float(np.median(_match_truth_error(m, z - 1, z, drift))))
+    if min(counts) < 50:
+        raise RuntimeError(f'matches per pair {counts}: fewer than 50')
+    if not max(errs) < 1.0:
+        raise RuntimeError(f'median match errors {errs} px: one >= 1')
+    return counts, errs
+
+
+def align_overlay_ccs(wd, names):
+    """cc of each rendered section against section 0 on a 2048^2 window at
+    the canvas center, over the pixels both cover."""
+    import numpy as np
+    from feabas_tpu_torch.dal import StaticImageLoader
+    with open(os.path.join(wd, 'align', 'tform', 'canvas.json')) as f:
+        canvas = json.load(f)['mip0']
+    cx, cy = (canvas[0] + canvas[2]) // 2, (canvas[1] + canvas[3]) // 2
+    win = (cx - 1024, cy - 1024, cx + 1024, cy + 1024)
+    out = os.path.join(wd, 'aligned_stack', 'mip0')
+    rendered = [StaticImageLoader.from_coordinate_file(os.path.join(
+        out, f'{z:05d}_{n}', 'metadata.txt')).crop(win).astype(np.float64)
+        for z, n in enumerate(names)]
+    ccs = []
+    for img in rendered[1:]:
+        ok = (rendered[0] > 0) & (img > 0)
+        ccs.append(float(np.corrcoef(rendered[0][ok], img[ok])[0, 1]))
+    return ccs
 
 
 def run_align(dev):
@@ -1434,19 +1498,8 @@ def run_align(dev):
         log('[align] stage seconds ' + json.dumps(
             {k: round(v, 3) for k, v in stage_s.items()})
             + f'; max_memory_allocated {peak} B; launches {launches}')
-        errs, counts = [], []
-        for z in range(1, STACK_S):
-            m = aligner.read_matches_from_h5(os.path.join(
-                wd, 'align', 'matches', aligner.match_name(names[z - 1],
-                                                          names[z])))
-            counts.append(m.xy0.shape[0])
-            errs.append(float(np.median(_match_truth_error(m, z - 1, z,
-                                                           drift))))
+        counts, errs = align_pair_checks(wd, names, drift)
         worst = max(errs)
-        if min(counts) < 50:
-            raise RuntimeError(f'matches per pair {counts}: fewer than 50')
-        if not worst < 1.0:
-            raise RuntimeError(f'median match error {worst} px >= 1')
         if not (stacked and all(stacked)):
             raise RuntimeError(f'window solves {stacked}: not all stacked')
         for n in names:
@@ -1454,20 +1507,7 @@ def run_align(dev):
                 raise RuntimeError(f'no tform for {n}')
         if not os.path.exists(os.path.join(wd, 'align', 'residues.csv')):
             raise RuntimeError('no residues.csv')
-        # the rendered sections overlay section 0 on an interior window
-        from feabas_tpu_torch.dal import StaticImageLoader
-        with open(os.path.join(wd, 'align', 'tform', 'canvas.json')) as f:
-            canvas = json.load(f)['mip0']
-        cx, cy = (canvas[0] + canvas[2]) // 2, (canvas[1] + canvas[3]) // 2
-        win = (cx - 1024, cy - 1024, cx + 1024, cy + 1024)
-        out = os.path.join(wd, 'aligned_stack', 'mip0')
-        rendered = [StaticImageLoader.from_coordinate_file(os.path.join(
-            out, f'{z:05d}_{n}', 'metadata.txt')).crop(win).astype(np.float64)
-            for z, n in enumerate(names)]
-        ccs = []
-        for img in rendered[1:]:
-            ok = (rendered[0] > 0) & (img > 0)
-            ccs.append(float(np.corrcoef(rendered[0][ok], img[ok])[0, 1]))
+        ccs = align_overlay_ccs(wd, names)
         if not min(ccs) > 0.85:
             raise RuntimeError(f'rendered overlay cc {ccs}, median match '
                                f'errors {errs}')
@@ -1495,6 +1535,325 @@ def run_align(dev):
         render.raster_blocks = raster
         render.DeviceRenderEngine.render_blocks = engine_render
         state.render_batch_to_device = upload
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# --------------- phase 3 and 7: the general CG operator (K5/K6) --------------- #
+
+FEM_RTOL = 1e-5         # f32 sums in another order: of max|y|
+FEM_LIBRARY_RTOL = 1e-4  # the library's CSR product sums otherwise again
+
+
+def fem_bound(nv, nt, nl):
+    """The operator's least time: what the function needs, each once (f32
+    data, int32 indices): Ke, tris, the link indices and barycentrics,
+    weight, free, x and y; 26 FLOP an element corner (two rows of 6 FMAs
+    and their sums), 30 a link for its weighted residual once, 4 a link
+    entry, 8 a vertex. The kernel's own CSR tables are its design's cost,
+    not the function's, and are not counted."""
+    nbytes = 4 * (nt * 36 + nt * 3 + 6 * nl + 6 * nl + nl
+                  + nv + 2 * nv + 2 * nv)
+    flop = nt * 3 * 26 + nl * 30 + 6 * nl * 4 + nv * 8
+    return bound(flop, nbytes)
+
+
+def operator_csr(Ke, tables, weight, free, lam_s, lam_c):
+    """free * (lam_s K + lam_c C^T W^2 C) assembled as one (2 NV, 2 NV)
+    CSR matrix on the card (DOF 2 v + c), for ``torch.sparse.mm``."""
+    import torch
+    t, nv = tables, tables['nv']
+    tris = t['tris'].long()
+    dof = torch.stack([2 * tris, 2 * tris + 1], -1).reshape(-1, 6)
+    rows = [dof[:, :, None].expand(-1, 6, 6).reshape(-1)]
+    cols = [dof[:, None, :].expand(-1, 6, 6).reshape(-1)]
+    vals = [(Ke * lam_s).reshape(-1)]
+    vid = torch.cat([t['idx1'], t['idx0']], 1).long()
+    coef = torch.cat([t['bary1'], -t['bary0']], 1)
+    cc = (coef[:, :, None] * coef[:, None, :]
+          * (weight ** 2 * lam_c)[:, None, None]).reshape(-1)
+    for c in (0, 1):
+        d = 2 * vid + c
+        rows.append(d[:, :, None].expand(-1, 6, 6).reshape(-1))
+        cols.append(d[:, None, :].expand(-1, 6, 6).reshape(-1))
+        vals.append(cc)
+    rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    vals = vals * free.reshape(-1).repeat_interleave(2)[rows]
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', UserWarning)   # CSR is 'beta'
+        return torch.sparse_coo_tensor(
+            torch.stack([rows, cols]), vals, (2 * nv, 2 * nv),
+            check_invariants=False).coalesce().to_sparse_csr()
+
+
+def fem_row(name, x, Ke, tables, weight, free, lam_s, lam_c):
+    """The kernel against ``elastic_operator_plain`` on the card: within
+    FEM_RTOL of max|y|, bit-equal to itself across two launches; call ms
+    (CUDA events), device us (CUDA-graph replay), the plain version's ms
+    and one ``torch.sparse.mm`` of the assembled matrix (assembled outside
+    the timed window)."""
+    import torch
+    from feabas_tpu_torch.ops import fem
+    args = (x, Ke, tables, weight, free, lam_s, lam_c)
+    want = fem.elastic_operator_plain(*args)
+    scale = float(want.abs().max())
+
+    def run():
+        return fem.elastic_operator(*args)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise RuntimeError(f'fem_operator {name}: two launches differ')
+    err = float((got - want).abs().max())
+    if not err <= FEM_RTOL * scale:
+        raise RuntimeError(f'fem_operator {name}: max_abs_err {err} > '
+                           f'{FEM_RTOL} x {scale}')
+    ms, dev_us = cuda_time(run), graph_time(run)
+    pms = cuda_time(lambda: fem.elastic_operator_plain(*args))
+    A = operator_csr(Ke, tables, weight, free, lam_s, lam_c)
+    xf = x.reshape(-1, 1)
+    lerr = float((torch.sparse.mm(A, xf).reshape(-1, 2) - want).abs().max())
+    if not lerr <= FEM_LIBRARY_RTOL * scale:
+        raise RuntimeError(f'fem_operator {name}: the library product is off '
+                           f'by {lerr} > {FEM_LIBRARY_RTOL} x {scale}')
+    lms = cuda_time(lambda: torch.sparse.mm(A, xf))
+    del A
+    nv, nt, nl = x.shape[0], Ke.shape[0], weight.shape[0]
+    row = kernel_row('fem_operator', (nv, nt, nl), name, err, ms, pms,
+                     fem_bound(nv, nt, nl), lms)
+    row['device_us'] = dev_us
+    log_rows([row])
+    log(f'[kernel] fem_operator {(nv, nt, nl)} {name}: max|y| {scale:.4g}')
+    return row
+
+
+def _cartesian(nx, ny, pitch, x0):
+    """(verts, tris) of an nx x ny vertex grid, alternating diagonals."""
+    import numpy as np
+    xs, ys = np.meshgrid(np.arange(nx), np.arange(ny))
+    v = np.stack([xs.ravel(), ys.ravel()], -1) * pitch + [x0, 0.0]
+    j, i = np.meshgrid(np.arange(ny - 1), np.arange(nx - 1), indexing='ij')
+    a = (j * nx + i).ravel()
+    flip = ((i + j) % 2).ravel()[:, None] == 1
+    t0 = np.where(flip, np.stack([a, a + 1, a + nx + 1], -1),
+                  np.stack([a, a + 1, a + nx], -1))
+    t1 = np.where(flip, np.stack([a, a + nx + 1, a + nx], -1),
+                  np.stack([a + 1, a + nx + 1, a + nx], -1))
+    return v, np.concatenate([t0, t1])
+
+
+def check_fem(dev):
+    """Phase 3, the general CG operator on a synthetic system: a pair of
+    1000 x 500-vertex cartesian meshes (1000 x 1000 vertices, 2M DOF, the
+    first locked) and 1e5 links, each between the same place on both
+    meshes (``fem_row``). The phase-7 path's systems are held so in
+    ``fem_path_rows``."""
+    import numpy as np
+    import torch
+    from feabas_tpu_torch.ops import fem
+    rng = np.random.default_rng(SEED)
+    v0, t0 = _cartesian(1000, 500, 10.0, 0.0)
+    v1, t1 = _cartesian(1000, 500, 10.0, 2.5)
+    verts = np.concatenate([v0, v1])
+    tris = np.concatenate([t0, t1 + len(v0)])
+    nl = 100000
+    l0 = np.sort(rng.integers(0, len(t0), nl))
+    b0 = rng.dirichlet(np.ones(3), nl)
+    b1 = rng.dirichlet(np.ones(3), nl)
+    tables = fem.operator_tables_to(fem.build_operator_tables(
+        tris, len(verts), tris[l0], b0, tris[l0 + len(t0)], b1),
+        dev, torch.float32)
+    B, a2 = fem.shape_matrices(torch.as_tensor(verts[tris], dtype=torch.float32,
+                                               device=dev))
+    Ke = fem.eng_element_stiffness(
+        B, a2, torch.ones(len(tris), device=dev),
+        torch.full((len(tris),), 0.3, device=dev)).contiguous()
+    del B, a2
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((len(verts), 2), generator=g, device=dev)
+    weight = torch.rand(nl, generator=g, device=dev)
+    free = torch.ones((len(verts), 1), device=dev)
+    free[:len(v0)] = 0.0
+    return [fem_row('synthetic pair, 2M DOF, 1e5 links', x, Ke, tables,
+                    weight, free, 0.37, 1.0)]
+
+
+def fem_system_row(dev, name, slm, lam):
+    """``fem_row`` on the general path's operator of ``slm`` as
+    ``optimize_linear`` builds it (element terms at the MOVING gear,
+    balanced lambdas), on a seeded x."""
+    import torch
+    from feabas_tpu_torch import constant as const
+    sys_d = slm._build_system(shape_gear=const.MESH_GEAR_FIXED)
+    u = slm._tensor(slm._gather_positions(const.MESH_GEAR_MOVING)
+                    - slm._gather_positions(const.MESH_GEAR_FIXED))
+    terms = slm._element_terms(sys_d['groups'], u)
+    lam_s, lam_c = slm._balance_lambdas(sys_d, terms, -abs(lam), -1.0)
+    Ke, tables = slm._operator_inputs(sys_d, terms)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((sys_d['nv'], 2), generator=g, device=dev)
+    return fem_row(name, x, Ke, tables, sys_d['links'][4], sys_d['free'],
+                   lam_s, lam_c)
+
+
+def fem_path_rows(dev, wd, names, launched):
+    """The operator on the phase-7 path's own systems, rebuilt from its work
+    dir: the optimization window (every section, its tforms and matches as
+    ``Stack.initialize_SLM`` loads them, the first section locked) and the match pair of sections 1 and 2 at the working resolution (the
+    saved matches as its link). Logs whether the path launched each
+    (NV, NT, L) shape (``launched``: {'NVxNTxL': launches})."""
+    from feabas_tpu_torch import aligner, config
+    from feabas_tpu_torch.mesh import Mesh
+    from feabas_tpu_torch.optimizer import SLM
+    rows = []
+    stack = aligner.Stack(section_list=names,
+                          mesh_dir=os.path.join(wd, 'align', 'mesh'),
+                          tform_dir=os.path.join(wd, 'align', 'tform'),
+                          match_dir=os.path.join(wd, 'align', 'matches'),
+                          resolution=config.montage_resolution(), device=dev)
+    slm = stack.initialize_SLM(names)
+    for k, m in enumerate(slm.meshes):
+        m.locked = k == 0
+    rows.append(fem_system_row(dev, f'phase-7 window of {len(names)} '
+                               'sections', slm, 1.0))
+    res = config.align_resolution()
+    for a, b in zip(names[:-1], names[1:]):
+        pair = []
+        for k, n in enumerate((a, b)):
+            m = Mesh.from_h5(os.path.join(wd, 'align', 'mesh', n + '.h5'))
+            m.change_resolution(res)
+            m.uid, m.locked = float(k), k == 0
+            pair.append(m)
+        match = aligner.read_matches_from_h5(os.path.join(
+            wd, 'align', 'matches', aligner.match_name(a, b)),
+            target_resolution=res)
+        slm = SLM(pair, device=dev)
+        slm.add_link_from_coordinates(0.0, 1.0, match.xy0, match.xy1,
+                                      weight=match.weight)
+        rows.append(fem_system_row(dev, f'phase-7 match pair {a}-{b}', slm,
+                                   0.35))
+    for r in rows:
+        key = 'x'.join(map(str, r['shape']))
+        log(f'[nonlinear] fem_operator {key} ({r["what"]}): launched '
+            f'{launched.get(key, 0)} times by the path')
+    return rows
+
+
+# phase 7: the nonlinear align slice
+NL_S = 4
+WRINKLE_LABEL = 50                     # the shipped 'wrinkle' material
+WRINKLE_PX = 24                        # band width, mask px at mip 4
+MASK_MIP = 4
+
+
+def write_wrinkle_masks(wd, names, size=SECTION >> MASK_MIP):
+    """A material mask PNG at mip 4 for each section: label 0 over the
+    section, and on sections 1 and 2 a band of label 50 about WRINKLE_PX
+    wide along a seeded line through the middle third."""
+    import cv2
+    import numpy as np
+    rng = np.random.default_rng(SEED + 7)
+    d = os.path.join(wd, 'align', 'material_masks')
+    os.makedirs(d, exist_ok=True)
+    yy, xx = np.mgrid[:size, :size] + 0.5
+    for z, n in enumerate(names):
+        mask = np.zeros((size, size), np.uint8)
+        if z in (1, 2):
+            a = rng.uniform(0, np.pi)
+            c = size / 2 + rng.uniform(-size / 6, size / 6, 2)
+            dist = (xx - c[0]) * np.cos(a) + (yy - c[1]) * np.sin(a)
+            mask[np.abs(dist) < WRINKLE_PX / 2] = WRINKLE_LABEL
+        if not cv2.imwrite(os.path.join(d, n + '.png'), mask):
+            raise OSError(f'could not write the mask of {n}')
+
+
+def run_nonlinear(dev):
+    """Phase 7: the first NL_S sections of the phase-5 stack, sections 1 and
+    2 carrying a band of the nonlinear 'wrinkle' material in their masks,
+    through the align CLI (meshing, matching, optimization, rendering);
+    then the general CG operator held against its plain version on the
+    path's window and one match pair (``fem_path_rows``). Returns
+    (launches, launches by shape, stage seconds, the operator's rows)."""
+    import numpy as np
+    import torch
+    from feabas_tpu_torch import aligner
+    from feabas_tpu_torch import device as device_mod
+    from feabas_tpu_torch.mesh import Mesh
+    from feabas_tpu_torch.scripts import align_main
+
+    t0 = time.perf_counter()
+    sections, drift = make_stack(dev, NL_S)
+    root = tempfile.mkdtemp(prefix='feabas_chip_nonlinear_')
+    stacked = []
+    solve = aligner.Stack._sharded_window_solve
+
+    def solve_spy(self, *a, **k):
+        stacked.append(solve(self, *a, **k) and self.last_window_sharded)
+        return stacked[-1]
+
+    aligner.Stack._sharded_window_solve = solve_spy
+    try:
+        wd, names = setup_align_workdir(root, sections)
+        del sections
+        write_wrinkle_masks(wd, names)
+        log(f'[nonlinear] {NL_S} sections of {SECTION}x{SECTION} uint8, '
+            f'wrinkle bands in {names[1]} and {names[2]}, set-up '
+            f'{time.perf_counter() - t0:.2f} s')
+        device_mod.reset_launch_counts()
+        stage_s, by_stage = {}, {}
+        for mode in ('meshing', 'matching', 'optimization', 'rendering'):
+            t = time.perf_counter()
+            align_main.main(['--mode', mode])
+            torch.cuda.synchronize()
+            stage_s[mode] = time.perf_counter() - t
+            by_stage[mode] = device_mod.launch_counts_by_shape()['fem_operator']
+        launches = device_mod.launch_counts()
+        by_shape = device_mod.launch_counts_by_shape()
+        n_match = sum(by_stage['matching'].values())
+        n_opt = sum(by_stage['optimization'].values()) - n_match
+        log('[nonlinear] stage seconds ' + json.dumps(
+            {k: round(v, 3) for k, v in stage_s.items()})
+            + f'; fem_operator launches: matching {n_match}, optimization '
+            f'{n_opt}; launches {launches}')
+        counts, errs = align_pair_checks(wd, names, drift)
+        if not stacked or any(stacked):
+            raise RuntimeError(f'window solves {stacked}: the stacked solve '
+                               'took a window of nonlinear sections')
+        flips = {}
+        for n in names:
+            t = Mesh.from_h5(os.path.join(wd, 'align', 'tform', n + '.h5'))
+            flips[n] = int(t.flipped_triangles('MOVING').size)
+        if any(flips.values()):
+            raise RuntimeError(f'flipped triangles in the tforms: {flips}')
+        wrinkled = Mesh.from_h5(os.path.join(wd, 'align', 'mesh',
+                                             names[1] + '.h5'))
+        curves = [g['knots'] is not None for g in wrinkled.element_arrays()]
+        if not any(curves):
+            raise RuntimeError(f'{names[1]}: no element group carries the '
+                               'wrinkle curve')
+        ccs = align_overlay_ccs(wd, names)
+        if not min(ccs) > 0.85:
+            raise RuntimeError(f'rendered overlay cc {ccs}, median match '
+                               f'errors {errs}')
+        if n_match <= 0 or n_opt <= 0:
+            raise RuntimeError(f'fem_operator launched {n_match} times in '
+                               f'matching and {n_opt} in optimization')
+        for name in ('dog_filter', 'mesh_raster'):
+            if launches[name] <= 0:
+                raise RuntimeError(f'{name} was not launched by the '
+                                   'nonlinear align path')
+        if any(m == 'jax' or m.startswith('jax.') for m in sys.modules):
+            raise RuntimeError('jax was imported')
+        log(f'[nonlinear] {len(counts)} pairs matched ({min(counts)}-'
+            f'{max(counts)} matches), median match errors '
+            f'{np.round(errs, 4).tolist()} px, window solves {stacked} '
+            f'(not stacked), element groups of {names[1]} with a curve '
+            f'{curves}, no flipped triangle, overlay cc {min(ccs):.5f}-'
+            f'{max(ccs):.5f}')
+        # after the counts were read: these launches compare, not count
+        rows = fem_path_rows(dev, wd, names, by_shape['fem_operator'])
+        return launches, by_shape, stage_s, rows
+    finally:
+        aligner.Stack._sharded_window_solve = solve
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -2030,7 +2389,7 @@ def _profiled(profile, label, fn):
         '(anonymous namespace)::' + k in e.key for k in (
             'dog_kernel', 'raster<', 'peak_kernel', 'patch_kernel',
             'prep_kernel', 'variant_max_kernel', 'reduce_kernel<',
-            'finish_kernel', 'blend_kernel<'))]
+            'finish_kernel', 'blend_kernel<', 'operator_kernel<'))]
 
     def fmt(es):
         return '; '.join(f'{e.key[:48]} {e.self_device_time_total / 1e3:.2f} '
@@ -2193,7 +2552,7 @@ def run_thumbnail(dev, size=SECTION, profile=False):
         shutil.rmtree(root, ignore_errors=True)
 
 
-PHASES = ('kernels', 'stitch', 'align', 'thumbnail')
+PHASES = ('kernels', 'stitch', 'align', 'thumbnail', 'nonlinear')
 
 
 def parse_args(argv=None):
@@ -2237,12 +2596,15 @@ def main(argv=None):
         rows += check_raster(dev, make_texture(dev, 8192, 8192).cpu().numpy())
         rows += check_montage(dev)
         rows += check_lradon(dev)
+        rows += check_fem(dev)
     paths = {'stitch': lambda d: run_slice(d, profile=args.profile),
              'align': run_align,
-             'thumbnail': lambda d: run_thumbnail(d, profile=args.profile)}
+             'thumbnail': lambda d: run_thumbnail(d, profile=args.profile),
+             'nonlinear': run_nonlinear}
     runs = {p: fn(dev) for p, fn in paths.items() if p in args.phases}
-    if 'stitch' in runs:
-        rows += runs['stitch'][3]
+    for path in ('stitch', 'nonlinear'):
+        if path in runs:
+            rows += runs[path][3]
     if set(args.phases) != set(PHASES):
         for path, r in runs.items():
             log(f'[{path}] launches by shape ' + json.dumps(r[1]))
@@ -2281,7 +2643,8 @@ def main(argv=None):
                 'shape', 'what', 'max_abs_err', 'ms', 'plain_ms', 'bound_us',
                 'bound_by', 'library_ms', 'close_rows', 'device_us', 'K',
                 'real_per_cell', 'kept_per_tile', 'kept_rows_per_cell',
-                'covered_per_px') if k in r}
+                'covered_per_px')
+                if k in r}
                 for r in checks]})
     log(json.dumps({'kernels': entries}))
     log(card)

@@ -25,7 +25,7 @@ DEVICE_ENV = 'FEABAS_TORCH_DEVICE'
 
 _LAUNCHES = {'dog_filter': 0, 'gaussian_blur': 0, 'mesh_raster': 0,
              'peak_detect': 0, 'lradon_patch': 0, 'lradon_match': 0,
-             'montage_blend': 0}
+             'montage_blend': 0, 'fem_operator': 0}
 # the same launches, by the shape the wrapper gave its kernel
 _BY_SHAPE = {k: {} for k in _LAUNCHES}
 

@@ -381,6 +381,40 @@ class Mesh:
         center = out.mean(axis=0, keepdims=True)
         self.set_vertices(out - center, dst, offset=center)
 
+    def anneal(self, gear=(const.MESH_GEAR_MOVING, const.MESH_GEAR_FIXED),
+               mode=const.ANNEAL_COPY_EXACT):
+        """Rebase the dst gear onto the src gear's configuration: COPY_EXACT
+        copies it; GLOBAL_RIGID / GLOBAL_AFFINE fit one transform from dst
+        to src and apply it to dst; CONNECTED_RIGID / CONNECTED_AFFINE fit
+        one per connected component (components of fewer than 3 vertices
+        stay)."""
+        src, dst = gear
+        if mode == const.ANNEAL_COPY_EXACT:
+            self.set_vertices(self.vertices(src).copy(), dst,
+                              offset=self.offset(src))
+            return
+        vw_src = self.vertices_w_offset(src)
+        vw_dst = self.vertices_w_offset(dst)
+        rigid = mode in (const.ANNEAL_GLOBAL_RIGID,
+                         const.ANNEAL_CONNECTED_RIGID)
+        if mode in (const.ANNEAL_CONNECTED_RIGID,
+                    const.ANNEAL_CONNECTED_AFFINE):
+            labels = self.connected_vertices()
+            out = vw_dst.copy()
+            for lbl in np.unique(labels):
+                sel = labels == lbl
+                if sel.sum() < 3:
+                    continue
+                T, T_rigid = sp.fit_affine(vw_src[sel], vw_dst[sel],
+                                           return_rigid=True)
+                out[sel] = sp.apply_affine(vw_dst[sel],
+                                           T_rigid if rigid else T)
+        else:
+            T, T_rigid = sp.fit_affine(vw_src, vw_dst, return_rigid=True)
+            out = sp.apply_affine(vw_dst, T_rigid if rigid else T)
+        center = out.mean(axis=0, keepdims=True)
+        self.set_vertices(out - center, dst, offset=center)
+
     # ------------------------- topology queries ------------------------- #
 
     def _memo(self, gear, key, fn):
@@ -614,8 +648,15 @@ class Mesh:
             mult = mult * float(self._stiffness_multiplier)
         mult = mult * self.soft_factor
         groups = []
-        # triangles are material-sorted; emit contiguous runs per model type
-        boundaries = np.nonzero(np.diff(model))[0] + 1
+        # triangles are material-sorted; emit contiguous runs per model
+        # type and stiffness curve. (The JAX package splits on the model
+        # alone and gives a run the curve of its first triangle's material:
+        # a mesh of the default material and the ENG 'wrinkle' solves with
+        # no curve there.)
+        curve = np.where(np.isin(self._material_ids, list(knots)),
+                         self._material_ids, -2)
+        boundaries = np.nonzero((np.diff(model) != 0)
+                                | (np.diff(curve) != 0))[0] + 1
         starts = np.concatenate([[0], boundaries])
         stops = np.concatenate([boundaries, [self.num_triangles]])
         for s0, s1 in zip(starts, stops):

@@ -1,6 +1,7 @@
 """Matrix-free finite-element operators and PCG (counterpart of
-``feabas_tpu/ops/fem.py``: the ENG elements, the scatter, incidence-gather
-and lattice-stencil matvecs, crosslinks and CG).
+``feabas_tpu/ops/fem.py``: the ENG, SVK and NHK elements and the stiffness
+curve, the scatter, incidence-gather and lattice-stencil matvecs,
+crosslinks, the general CG operator and CG).
 
     A x = lambda_s K(x) + C^T W C x
 
@@ -11,8 +12,13 @@ over (vertex index, barycentric, weight) link arrays. Vertex arrays are
 systems stacked as (P, NV, 2), each with its own stopping state.
 """
 
+import ctypes
+
 import numpy as np
 import torch
+
+from feabas_tpu_torch import build
+from feabas_tpu_torch import device as device_mod
 
 # Voigt selector: [du/dx, dv/dy, du/dy + dv/dx] from the flat gradient
 _VOIGT = np.array([[1, 0, 0, 0],
@@ -76,6 +82,112 @@ def stiffness_matvec(x, Ke, tris):
 
 def stiffness_diag(Ke, tris, nv):
     return scatter_uv(torch.diagonal(Ke, dim1=1, dim2=2), tris, nv)
+
+
+def stiffness_force(x, Ke, tris):
+    """Internal force vector of linear elements (= K x)."""
+    return stiffness_matvec(x, Ke, tris)
+
+
+# ---------------------------- nonlinear elements ---------------------------- #
+
+def deformation_gradient(B, uv):
+    """flat F = B @ uv + flat(I): (NT, 4) = [F11, F12, F21, F22]."""
+    F = torch.einsum('nij,nj->ni', B, uv)
+    return F + torch.tensor([1.0, 0.0, 0.0, 1.0], dtype=B.dtype,
+                            device=B.device)
+
+
+def area_stretch(B, uv):
+    """det F per element: (NT,)."""
+    F = deformation_gradient(B, uv)
+    return F[:, 0] * F[:, 3] - F[:, 1] * F[:, 2]
+
+
+def eng_element_stress(Ke, uv):
+    return torch.einsum('nij,nj->ni', Ke, uv)
+
+
+def svk_element(B, area2, uv, multiplier, poisson):
+    """St. Venant-Kirchhoff tangent stiffness and internal force:
+    (Ke (NT, 6, 6), Pe (NT, 6)). At uv = 0 the tangent is the linear
+    engineering stiffness."""
+    F = deformation_gradient(B, uv)
+    F11, F12, F21, F22 = F.unbind(-1)
+    # Green strain, Voigt [E11, E22, 2 E12]
+    Ev = torch.stack([0.5 * (F11 * F11 + F21 * F21 - 1.0),
+                      0.5 * (F12 * F12 + F22 * F22 - 1.0),
+                      F11 * F12 + F21 * F22], dim=-1)
+    D = _dmat(poisson.to(B.dtype))
+    S = torch.einsum('nij,nj->ni', D, Ev)                # [S11, S22, S12]
+    # BN: dE_voigt = BN @ duv, rows from dE = sym(F^T dF)
+    zero = torch.zeros_like(F11)
+    AF = torch.stack([torch.stack([F11, zero, F21, zero], -1),
+                      torch.stack([zero, F12, zero, F22], -1),
+                      torch.stack([F12, F11, F22, F21], -1)], dim=1)
+    BN = torch.einsum('nij,njk->nik', AF, B)             # (NT, 3, 6)
+    # geometric stiffness: block-diag [[S11, S12], [S12, S22]] per component
+    S11, S22, S12 = S.unbind(-1)
+    Sg = torch.stack([torch.stack([S11, S12, zero, zero], -1),
+                      torch.stack([S12, S22, zero, zero], -1),
+                      torch.stack([zero, zero, S11, S12], -1),
+                      torch.stack([zero, zero, S12, S22], -1)], dim=1)
+    Kmat = torch.einsum('nji,njk,nkl->nil', BN, D, BN)
+    Kgeo = torch.einsum('nji,njk,nkl->nil', B, Sg, B)
+    scale = area2 * multiplier
+    Ke = (Kmat + Kgeo) * scale[:, None, None]
+    Pe = torch.einsum('nji,nj->ni', BN, S) * scale[:, None]
+    return Ke, Pe
+
+
+# flat(F^-T) = _ADJT @ flat(F) / det(F)
+_ADJT = np.array([[0, 0, 0, 1],
+                  [0, 0, -1, 0],
+                  [0, -1, 0, 0],
+                  [1, 0, 0, 0]], dtype=np.float32)
+
+
+def nhk_element(B, area2, uv, multiplier):
+    """Neo-Hookean (mu only, psi = mu/2 (I1 - 2 - 2 ln J)) tangent
+    stiffness and internal force: (Ke (NT, 6, 6), Pe (NT, 6))."""
+    F = deformation_gradient(B, uv)
+    J = F[:, 0] * F[:, 3] - F[:, 1] * F[:, 2]
+    U = torch.as_tensor(_ADJT, dtype=B.dtype, device=B.device)
+    Fu = torch.einsum('ij,nj->ni', U, F)     # flat adj(F)^T = J flat(F^-T)
+    Pf = F - Fu / J[:, None]                 # mu (F - F^-T)
+    I4 = torch.eye(4, dtype=B.dtype, device=B.device)
+    dPdF = (I4[None] - U[None] / J[:, None, None]
+            + Fu[:, :, None] * Fu[:, None, :] / (J ** 2)[:, None, None])
+    scale = 0.5 * area2 * multiplier
+    Ke = torch.einsum('nji,njk,nkl->nil', B, dPdF, B) * scale[:, None, None]
+    Pe = torch.einsum('nji,nj->ni', B, Pf) * scale[:, None]
+    return Ke, Pe
+
+
+def interp(x, xp, fp, left=None, right=None):
+    """Piecewise-linear interpolation by ``jnp.interp``'s rule: the segment
+    is the last knot <= x (a value on a knot takes that knot's value), an
+    interval no wider than the spacing of eps takes its left value, and
+    values left of ``xp[0]`` / right of ``xp[-1]`` take ``left`` /
+    ``right`` (default ``fp[0]`` / ``fp[-1]``)."""
+    n = xp.shape[0]
+    i = torch.clamp(torch.searchsorted(xp.contiguous(), x.contiguous(),
+                                       right=True), 1, n - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    eps = np.finfo(np.float64 if xp.dtype == torch.float64 else np.float32).eps
+    flat = dx.abs() <= float(np.spacing(eps))
+    f = torch.where(flat, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(flat, torch.ones_like(dx),
+                                                     dx)) * df)
+    f = torch.where(x < xp[0], fp[0] if left is None else left, f)
+    return torch.where(x > xp[-1], fp[-1] if right is None else right, f)
+
+
+def stiffness_curve_multiplier(J, knots_x, knots_y):
+    """Per-element nonlinear stiffness factor from a sampled curve."""
+    return interp(J, knots_x, knots_y, left=knots_y[0], right=knots_y[-1])
 
 
 # -------------------------- incidence gather -------------------------- #
@@ -371,6 +483,137 @@ def crosslink_diag(nv, idx0, bary0, idx1, bary1, weight, dtype=torch.float32):
         v = (bary.to(dtype) ** 2 * w2)[:, :, None].expand(-1, -1, 2)
         d.index_add_(0, idx.reshape(-1), v.reshape(-1, 2))
     return d
+
+
+# ------------------------- the general CG operator ------------------------- #
+# y = free * (lam_s K x + lam_c C^T W^2 C x) in one launch of
+# csrc/fem_operator.cu, over any number of element groups concatenated into
+# one (NT, 6, 6) Ke and one (NT, 3) tris, and one flat list of links.
+
+def _csr(vertex_of, nv):
+    """CSR of the entries ``k`` whose vertex is ``vertex_of[k]``: (ptr
+    (NV+1,), entries (K,)), each vertex's entries in ascending order."""
+    vertex_of = np.asarray(vertex_of, np.int64).ravel()
+    ptr = np.zeros(nv + 1, np.int32)
+    ptr[1:] = np.cumsum(np.bincount(vertex_of, minlength=nv))
+    return ptr, np.argsort(vertex_of, kind='stable').astype(np.int32)
+
+
+def build_operator_tables(tris, nv, idx0, bary0, idx1, bary1):
+    """Host tables of ``elastic_operator`` (once per solve): the element
+    corners and link points as given and the kernel's two CSR tables.
+    ``inc_ptr`` / ``inc_ent`` list each vertex's (element, corner) pairs as
+    ``t * 3 + c``; ``lnk_ptr`` / ``lnk_ent`` its link entries as ``(l * 3 +
+    k) * 2 + side``, whose sign is + for side 1 (``idx1``) and - for side
+    0. Numpy arrays; ``operator_tables_to`` moves them to a device."""
+    tris = np.asarray(tris, np.int64).reshape(-1, 3)
+    idx0 = np.asarray(idx0, np.int64).reshape(-1, 3)
+    idx1 = np.asarray(idx1, np.int64).reshape(-1, 3)
+    inc_ptr, inc_ent = _csr(tris, nv)
+    lnk_ptr, lnk_ent = _csr(np.stack([idx0, idx1], -1), nv)
+    return {'nv': int(nv), 'tris': tris.astype(np.int32),
+            'inc_ptr': inc_ptr, 'inc_ent': inc_ent,
+            'idx0': idx0.astype(np.int32),
+            'bary0': np.asarray(bary0, np.float64).reshape(-1, 3),
+            'idx1': idx1.astype(np.int32),
+            'bary1': np.asarray(bary1, np.float64).reshape(-1, 3),
+            'lnk_ptr': lnk_ptr, 'lnk_ent': lnk_ent}
+
+
+_TABLE_SHAPES = {'tris': ('nt', 3), 'inc_ptr': ('nv1',),
+                 'inc_ent': ('nt3',), 'idx0': ('nl', 3), 'bary0': ('nl', 3),
+                 'idx1': ('nl', 3), 'bary1': ('nl', 3), 'lnk_ptr': ('nv1',),
+                 'lnk_ent': ('nl6',)}
+
+
+def operator_tables_to(tables, device, dtype):
+    """``build_operator_tables``' arrays as contiguous tensors on
+    ``device`` (indices int32, barycentric weights ``dtype``), checked
+    once here so that ``elastic_operator`` checks only its other inputs.
+    Adds the counts ``nt`` and ``nl``."""
+    nv, nt, nl = (tables['nv'], tables['tris'].shape[0],
+                  tables['idx0'].shape[0])
+    sizes = {'nt': nt, 'nl': nl, 'nv1': nv + 1, 'nt3': 3 * nt,
+             'nl6': 6 * nl}
+    out = {'nv': nv, 'nt': nt, 'nl': nl}
+    for k, dims in _TABLE_SHAPES.items():
+        a = tables[k]
+        if a.shape != tuple(sizes.get(d, d) for d in dims):
+            raise ValueError(f'operator tables: {k} has shape {a.shape}')
+        dt = dtype if np.issubdtype(a.dtype, np.floating) else torch.int32
+        out[k] = torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                 device=device)
+    return out
+
+
+def elastic_operator_plain(x, Ke, tables, weight, free, lam_s, lam_c):
+    """free * (lam_s K x + lam_c C^T W^2 C x), K through
+    ``stiffness_matvec``, the links through ``crosslink_matvec``."""
+    t = tables
+    y = stiffness_matvec(x, Ke, t['tris'])
+    c = crosslink_matvec(x, t['idx0'], t['bary0'], t['idx1'], t['bary1'],
+                         weight)
+    return free * (lam_s * y + lam_c * c)
+
+
+_LIBS = {}
+
+
+def _operator_lib():
+    if 'fem_operator' not in _LIBS:
+        # x, Ke, tris, inc_ptr, inc_ent, lnk_ptr, lnk_ent, idx0, bary0,
+        # idx1, bary1, weight, free, lam_s, lam_c, y, scratch; nv, nl;
+        # stream
+        args = ([ctypes.c_void_p] * 13 + [ctypes.c_double] * 2
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p])
+        _LIBS['fem_operator'] = build.bind('fem_operator', {
+            'fem_operator_f32': args, 'fem_operator_f64': args})
+    return _LIBS['fem_operator']
+
+
+def elastic_operator(x, Ke, tables, weight, free, lam_s, lam_c):
+    """``elastic_operator_plain`` through the CUDA kernel (f32 or f64).
+    x: (NV, 2); Ke: (NT, 6, 6); tables: ``operator_tables_to``'s, on x's
+    device in x's dtype; weight: (L,); free: (NV, 1). Returns y (NV, 2).
+    A first kernel writes the L weighted link residuals to scratch, the
+    vertex kernel reads them."""
+    if x.device.type == 'cpu':
+        return elastic_operator_plain(x, Ke, tables, weight, free, lam_s,
+                                      lam_c)
+    t = tables
+    nv, nt, nl = t['nv'], t['nt'], t['nl']
+    if t['tris'].device != x.device or t['bary0'].dtype != x.dtype:
+        raise ValueError(f'elastic_operator: the tables must be on '
+                         f'{x.device} in {x.dtype}')
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'elastic_operator: unsupported dtype {x.dtype}')
+    for key, a, shape in (('x', x, (nv, 2)), ('Ke', Ke, (nt, 6, 6)),
+                          ('weight', weight, (nl,)), ('free', free, (nv, 1))):
+        if (a.device != x.device or a.dtype != x.dtype
+                or not a.is_contiguous() or a.shape != shape):
+            raise ValueError(f'elastic_operator: {key} must be a contiguous '
+                             f'{x.dtype} tensor of shape {shape} on '
+                             f'{x.device}')
+    y = torch.empty_like(x)
+    if nv == 0:
+        return y
+    scratch = torch.empty((nl, 2), dtype=x.dtype, device=x.device)
+    fn = 'fem_operator_f32' if x.dtype == torch.float32 else 'fem_operator_f64'
+    index = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    err = device_mod.launch_on(
+        index, getattr(_operator_lib(), fn), x.data_ptr(),
+        Ke.data_ptr(), t['tris'].data_ptr(), t['inc_ptr'].data_ptr(),
+        t['inc_ent'].data_ptr(), t['lnk_ptr'].data_ptr(),
+        t['lnk_ent'].data_ptr(), t['idx0'].data_ptr(), t['bary0'].data_ptr(),
+        t['idx1'].data_ptr(), t['bary1'].data_ptr(), weight.data_ptr(),
+        free.data_ptr(), float(lam_s), float(lam_c), y.data_ptr(),
+        scratch.data_ptr(), nv, nl)
+    if err != 0:
+        raise RuntimeError(f'fem_operator launch failed: CUDA error {err}')
+    device_mod.count_launch('fem_operator', (nv, nt, nl))
+    return y
 
 
 # ------------------------------ PCG solver ------------------------------ #

@@ -1,16 +1,17 @@
 """Spring-linked-mesh optimization (counterpart of
-``feabas_tpu/optimizer.py``, the parts the stitch path reaches).
+``feabas_tpu/optimizer.py``).
 
 `Link` stores point correspondences between two meshes as (triangle,
 barycentric) anchors; `SLM` bundles meshes + links and runs per-mesh
-translation least squares (host) and the fused linear-ENG elastic solve
-(device, matrix-free, ``ops.fem``). The solver dtype and device are
-explicit: ``SLM(meshes, dtype=torch.float32, device=...)``.
-
-Not ported yet (they raise ``NotImplementedError`` naming the JAX
-function): the general non-fused ``optimize_linear`` path and
-Newton-Raphson. The stitch and align paths' default configs reach
-neither.
+translation least squares (host), the affine cascade (host) and the
+elastic solve on the device, matrix-free (``ops.fem``): the fused
+linear-ENG solve, the general path (stiffness curves, SVK and NHK
+elements, positive lambdas, strained meshes with no link, tile groups
+sharing one deformation), whose CG operator is the hand-written kernel
+``ops.fem.elastic_operator``, and Newton-Raphson over it for nonlinear
+materials. ``coarse_mesh_SLM`` relaxes a coarse surrogate system. The
+solver dtype and device are explicit: ``SLM(meshes,
+dtype=torch.float32, device=...)``.
 """
 
 import numpy as np
@@ -247,6 +248,9 @@ class Link:
     def disable(self):
         self._disabled = True
 
+    def enable(self):
+        self._disabled = False
+
     def weight(self):
         return self._weight * self.residue_weight
 
@@ -315,6 +319,23 @@ class Link:
         out[ok, 1] = mtx.dot(dxy[:, 1] * wt)[ok] / wv[ok]
         return out
 
+    def spatial_autocorrelation(self, gear=const.MESH_GEAR_MOVING,
+                                sigma=None):
+        """1 when the residues vary smoothly in space (a coherent offset
+        field), ~0 when they are spatially uncorrelated (noise)."""
+        if self.smooth_matrix(sigma=sigma) is None:
+            return 0.0
+        dxy = self.dxy(gear=gear)
+        dxy_sm = self.dxy_smoothen(gear=gear, sigma=sigma)
+        wt = self.weight()
+        rr = np.sum((dxy - dxy_sm) ** 2, axis=-1) \
+            / np.maximum(np.sum(dxy ** 2, axis=-1)
+                         + np.sum(dxy_sm ** 2, axis=-1), 1e-12)
+        ok = np.isfinite(rr) & (wt > 0)
+        if not ok.any():
+            return 0.0
+        return float(1.0 - np.average(rr[ok], weights=wt[ok]))
+
     def adjust_weight_from_residue(self, gear=const.MESH_GEAR_MOVING,
                                    residue_len=0, residue_mode=None):
         """Robust reweighting: 'huber' damps by residue_len/|r|;
@@ -342,6 +363,9 @@ class Link:
         self.residue_weight = new_w
         kept = float((self.weight() > 0).mean()) if new_w.size else 1.0
         return changed, kept
+
+    def reset_residue_weight(self):
+        self.residue_weight = np.ones(self._tid0.shape[0])
 
     def global_arrays(self, offset0, offset1):
         """(idx0, bary0, idx1, bary1, weight) with global vertex indices."""
@@ -402,11 +426,17 @@ class SLM:
 
     # ------------------------- bookkeeping ------------------------- #
 
+    def add_mesh(self, mesh):
+        self.meshes.append(mesh)
+
     def mesh_by_uid(self, uid):
         for m in self.meshes:
             if m.uid == uid:
                 return m
         raise KeyError(uid)
+
+    def add_link(self, link, check_duplicates=False):
+        self.links.append(link)
 
     def add_link_from_coordinates(self, uid0, uid1, xy0, xy1, weight=None,
                                   gear=(const.MESH_GEAR_INITIAL, const.MESH_GEAR_INITIAL),
@@ -487,6 +517,12 @@ class SLM:
             center = mv.mean(axis=0, keepdims=True)
             parent.set_vertices(mv - center, gear, offset=center)
         return len(parents)
+
+    def prune_links(self, min_matches=1):
+        self.links = [l for l in self.links if l.num_matches >= min_matches]
+
+    def clear_equation_terms(self):
+        self._system = None
 
     def match_residues(self, gear=const.MESH_GEAR_MOVING, quantile=None):
         rr = [l.residues(gear=gear) for l in self.active_links()]
@@ -769,10 +805,11 @@ class SLM:
             def _build(m=m):
                 out = []
                 for g in m.element_arrays(gear=shape_gear):
+                    tris = np.asarray(m.triangles[g['start']:g['stop']])
                     out.append({
                         'model': g['model'],
-                        'tris_local': self._tensor(
-                            m.triangles[g['start']:g['stop']]),
+                        'tris_host': tris,
+                        'tris_local': self._tensor(tris),
                         'B_area': fem.shape_matrices(self._tensor(g['tripts'])),
                         'multiplier': self._tensor(g['multiplier']),
                         'poisson': self._tensor(g['poisson']),
@@ -784,7 +821,8 @@ class SLM:
                              f'torch_element_groups_{self.dtype}_{self.device}',
                              _build)
             for g in cached:
-                groups.append({**g, 'tris': g['tris_local'] + int(offsets[i])})
+                groups.append({**g, 'tris': g['tris_local'] + int(offsets[i]),
+                               'tris_host': g['tris_host'] + int(offsets[i])})
         la = [l.global_arrays(uid2off[l.uids[0]], uid2off[l.uids[1]])
               for l in self.active_links()]
         if la:
@@ -797,6 +835,7 @@ class SLM:
             'free': self._tensor(free),
             'groups': groups,
             'links': tuple(self._tensor(a) for a in links),
+            'links_host': links,
         }
 
     def _rigid_deflation_modes(self, pos_shape):
@@ -855,19 +894,113 @@ class SLM:
                 return False
         return True
 
-    def optimize_linear(self, **kwargs):
-        """One (tangent) elastic solve through the fused linear-ENG path.
+    @staticmethod
+    def _element_terms(groups, u):
+        """Tangent blocks and internal force per element group at the
+        displacement u (NV, 2): a list of (tris, Ke, Pe)."""
+        out = []
+        for g in groups:
+            B, area2 = g['B_area']
+            uv = fem.gather_uv(u, g['tris'])
+            mult = g['multiplier']
+            if g['knots'] is not None:
+                kx, ky = (torch.as_tensor(np.asarray(k), dtype=u.dtype,
+                                          device=u.device)
+                          for k in g['knots'])
+                mult = mult * fem.stiffness_curve_multiplier(
+                    fem.area_stretch(B, uv), kx, ky)
+            if g['model'] == const.MATERIAL_MODEL_ENG:
+                Ke = fem.eng_element_stiffness(B, area2, mult, g['poisson'])
+                Pe = fem.eng_element_stress(Ke, uv)
+            elif g['model'] == const.MATERIAL_MODEL_SVK:
+                Ke, Pe = fem.svk_element(B, area2, uv, mult, g['poisson'])
+            elif g['model'] == const.MATERIAL_MODEL_NHK:
+                Ke, Pe = fem.nhk_element(B, area2, uv, mult)
+            else:
+                raise ValueError(f"unknown material model {g['model']}")
+            out.append((g['tris'], Ke, Pe))
+        return out
 
-        Energy: lam_s/2 u'Ku + lam_c/2 |W C p|^2 over free meshes with
-        trace-balanced (negative) lambdas. Commits only when the solve
-        converged (post-residual below ||b||); otherwise positions stay
-        and ``last_solve_converged`` is False. Returns (cost_before,
-        cost_after) as weighted residue norms.
+    def _balance_lambdas(self, sys_d, terms, lam_s, lam_c):
+        """Negative lambdas -> trace-ratio balance: lam_s = |lam_s / lam_c|
+        tr(C) / tr(K restricted to the crosslinked DOFs), lam_c = 1."""
+        if lam_s >= 0 and lam_c >= 0:
+            return float(lam_s), float(lam_c)
+        ratio = abs(lam_s / lam_c)
+        nv = sys_d['nv']
+        idx0, bary0, idx1, bary1, weight = sys_d['links']
+        dC = fem.crosslink_diag(nv, idx0, bary0, idx1, bary1, weight,
+                                dtype=self.dtype)
+        dK = torch.zeros((nv, 2), dtype=self.dtype, device=self.device)
+        for tris, Ke, _ in terms:
+            dK = dK + fem.stiffness_diag(Ke, tris, nv)
+        tr_c = float(dC.sum())
+        tr_k = float(dK[dC != 0].sum())
+        if tr_c == 0 or tr_k == 0:
+            return 1.0, 1.0
+        return abs(ratio * tr_c / tr_k), 1.0
+
+    def _grouping_dof_map(self, groupings):
+        """DOF map of the grouped solve: meshes of one group (one topology)
+        share one deformation field. Returns (dof_map (NV,), ndof,
+        group_locked (num_meshes,)); a group with any locked member is
+        locked whole."""
+        groupings = np.asarray(groupings).ravel()
+        offsets = np.cumsum([0] + [m.num_vertices for m in self.meshes])
+        dof_map = np.zeros(int(offsets[-1]), np.int64)
+        reps = {}
+        next_dof = 0
+        glocked = {}
+        for m, g in zip(self.meshes, groupings):
+            glocked[g] = glocked.get(g, False) or m.locked
+        for i, (m, g) in enumerate(zip(self.meshes, groupings)):
+            if g not in reps:
+                reps[g] = next_dof
+                next_dof += m.num_vertices
+            elif next_dof - reps[g] < m.num_vertices:
+                raise ValueError('grouped meshes must share topology')
+            dof_map[offsets[i]:offsets[i + 1]] = \
+                reps[g] + np.arange(m.num_vertices)
+        group_locked = np.asarray([glocked[g] for g in groupings], bool)
+        return dof_map, next_dof, group_locked
+
+    def _operator_inputs(self, sys_d, terms):
+        """The general CG operator's element blocks and tables over every
+        element group: (Ke (NT, 6, 6), ``fem.operator_tables_to``'s
+        tables) on the solver's device."""
+        tables = fem.operator_tables_to(fem.build_operator_tables(
+            np.concatenate([g['tris_host'] for g in sys_d['groups']]),
+            sys_d['nv'], *sys_d['links_host'][:4]), self.device, self.dtype)
+        return torch.cat([Ke for _, Ke, _ in terms]).contiguous(), tables
+
+    def _commit(self, pos_start, dx, target_gear):
+        """Write pos_start + dx into target_gear; the weighted residue norm
+        after it."""
+        self._scatter_positions(pos_start + dx, target_gear)
+        r1 = self.match_residues(gear=target_gear)
+        w_all = np.concatenate([l.weight() for l in self.active_links()]) \
+            if self.active_links() else np.zeros(0)
+        return float(np.linalg.norm(r1 * w_all)) if r1.size else 0.0
+
+    def optimize_linear(self, **kwargs):
+        """One (tangent) elastic solve.
+
+        Energy: lam_s/2 u'Ku + lam_c/2 |W C p|^2 over free meshes, u the
+        displacement from the shape-gear geometry, p the world positions;
+        negative lambdas are trace-balanced. All-ENG systems without
+        stiffness curves, with links and negative lambdas, take the fused
+        solve; every other system takes the general path, whose CG
+        operator is ``fem.elastic_operator``. With ``groupings``, meshes of
+        one group share one deformation (the projected system P^T A P).
+        Commits only when the solve converged (post-residual below ||b||);
+        otherwise positions stay and ``last_solve_converged`` is False.
+        Returns (cost_before, cost_after) as weighted residue norms.
         """
         tol = kwargs.get('tol', 1e-7)
         atol = kwargs.get('atol', 0.0)
         maxiter = kwargs.get('maxiter', None)
         maxiter = 10000 if maxiter is None else int(maxiter)
+        chances = kwargs.get('chances', None)
         shape_gear = kwargs.get('shape_gear', const.MESH_GEAR_FIXED)
         target_gear = kwargs.get('target_gear', const.MESH_GEAR_MOVING)
         start_gear = kwargs.get('start_gear', target_gear)
@@ -880,21 +1013,111 @@ class SLM:
         self.last_solve_converged = True
         sys_d = self._build_system(shape_gear=shape_gear)
         groups = sys_d['groups']
-        all_eng = all(g['model'] == const.MATERIAL_MODEL_ENG
-                      and g['knots'] is None for g in groups)
-        if sys_d['links'][4].shape[0] == 0 and self._only_translated(
-                shape_gear, start_gear):
+        n_links = sys_d['links'][4].shape[0]
+        if n_links == 0 and self._only_translated(shape_gear, start_gear):
             # no link ties any mesh and none is strained: the right-hand
             # side is zero and positions stay (sections whose every pair
             # failed to match reach this)
             return 0.0, 0.0
-        if not (all_eng and groups and lam_s < 0 and lam_c < 0
-                and groupings is None and sys_d['links'][4].shape[0] > 0):
-            raise NotImplementedError(
-                'only the fused linear-ENG solve is ported; the general path '
-                'of feabas_tpu.optimizer.SLM.optimize_linear is not')
         pos_start = self._gather_positions(start_gear)
         pos_shape = self._gather_positions(shape_gear)
+        all_eng = all(g['model'] == const.MATERIAL_MODEL_ENG
+                      and g['knots'] is None for g in groups)
+        if (all_eng and groups and lam_s < 0 and lam_c < 0
+                and groupings is None and n_links > 0):
+            return self._fused_eng(sys_d, pos_start, pos_shape, lam_s / lam_c,
+                                   tol, atol, maxiter, target_gear,
+                                   check_converge)
+        u_cur = self._tensor(pos_start - pos_shape)
+        terms = self._element_terms(groups, u_cur)
+        lam_s, lam_c = self._balance_lambdas(sys_d, terms, lam_s, lam_c)
+        idx0, bary0, idx1, bary1, weight = sys_d['links']
+        free = sys_d['free']
+        nv = sys_d['nv']
+        if groupings is not None:
+            dof_map, ndof, group_locked = self._grouping_dof_map(groupings)
+            # group lock discipline: any locked member locks the group
+            offs = sys_d['offsets']
+            free = free.clone()
+            for i, lk in enumerate(group_locked):
+                if lk:
+                    free[offs[i]:offs[i + 1]] = 0.0
+            dof = self._tensor(dof_map)
+        deflate = None if groupings is not None else \
+            self._rigid_deflation_modes(pos_shape)
+        proj = _mode_projector(None if deflate is None
+                               else self._tensor(deflate))
+        Ke, tables = self._operator_inputs(sys_d, terms)
+
+        def matvec_full(x):
+            return proj(fem.elastic_operator(proj(x * free), Ke, tables,
+                                             weight, free, lam_s, lam_c))
+
+        # rhs: -(lam_s P(u) + lam_c C^T W r)
+        b = torch.zeros_like(u_cur)
+        diag = torch.zeros_like(u_cur)
+        for tris, Ke_g, Pe in terms:
+            b = b - fem.scatter_uv(Pe, tris, nv) * lam_s
+            diag = diag + fem.stiffness_diag(Ke_g, tris, nv) * lam_s
+        pos0 = self._tensor(pos_start)
+        r0 = fem.link_eval(pos0, idx1, bary1) - fem.link_eval(pos0, idx0, bary0)
+        rw = r0 * (weight ** 2)[:, None] * lam_c
+        b = fem._link_scatter(b, idx1, bary1, rw, -1.0)
+        b = fem._link_scatter(b, idx0, bary0, rw, 1.0) * free
+        diag = diag + fem.crosslink_diag(nv, idx0, bary0, idx1, bary1, weight,
+                                         dtype=self.dtype) * lam_c
+        cost0 = float(torch.linalg.norm(r0 * weight[:, None]))
+        if groupings is None:
+            b = proj(b)
+            diag = torch.where(free > 0, diag, 1.0)
+            offs = sys_d['offsets']
+            agg = np.repeat(np.arange(len(self.meshes)), np.diff(offs))
+            mesh_free = np.asarray([0.0 if m.locked else 1.0
+                                    for m in self.meshes])
+            precond = _flat_translation_precond(
+                self._tensor(offs), self._tensor(agg),
+                self._tensor(mesh_free), idx0, idx1, weight, lam_c, diag,
+                free)
+            if precond is not None and deflate is not None:
+                inner = precond
+                precond = lambda r: proj(inner(proj(r)))  # noqa: E731
+            dx, n_it, res = fem.cg_solve(matvec_full, b, diag=diag, tol=tol,
+                                         atol=atol, maxiter=maxiter,
+                                         chances=chances, precond=precond)
+            bnorm = float(torch.linalg.norm(b))
+            dx = proj(dx) * free
+        else:
+            # the projected system P^T A P, P the expansion by dof_map
+            def seg(y):
+                return torch.zeros((ndof, 2), dtype=y.dtype,
+                                   device=y.device).index_add_(0, dof, y)
+
+            def matvec_s(xs):
+                return seg(matvec_full(xs[dof]))
+
+            b_s = seg(b)
+            diag_s = seg(diag)
+            diag_s = torch.where(diag_s > 0, diag_s, 1.0)
+            dxs, n_it, res = fem.cg_solve(matvec_s, b_s, diag=diag_s, tol=tol,
+                                          atol=atol, maxiter=maxiter,
+                                          chances=chances)
+            bnorm = float(torch.linalg.norm(b_s))
+            dx = dxs[dof] * free
+        res = float(res)
+        _solver_log().debug('linear solve: %d CG iters, |b|=%.3e, res=%.3e',
+                            int(n_it), bnorm, res)
+        ok = res < bnorm or res <= max(tol * bnorm, atol)
+        if check_converge and not ok:
+            self.last_solve_converged = False
+            return cost0, cost0
+        dx = dx.cpu().numpy().astype(np.float64)
+        return cost0, self._commit(pos_start, dx, target_gear)
+
+    def _fused_eng(self, sys_d, pos_start, pos_shape, lam_ratio, tol, atol,
+                   maxiter, target_gear, check_converge):
+        """The fused linear-ENG solve (``_linear_solve_eng``) of
+        ``optimize_linear``."""
+        groups = sys_d['groups']
         idx0, bary0, idx1, bary1, weight = sys_d['links']
         deflate = self._rigid_deflation_modes(pos_shape)
         offs = sys_d['offsets']
@@ -908,7 +1131,7 @@ class SLM:
             torch.cat([g['poisson'] for g in groups]),
             idx0, bary0, idx1, bary1, weight,
             self._tensor(pos_start), self._tensor(pos_shape), sys_d['free'],
-            abs(lam_s / lam_c), tol, atol, int(maxiter),
+            abs(lam_ratio), tol, atol, int(maxiter),
             offsets_arr=self._tensor(offs), agg=self._tensor(agg),
             mesh_free=self._tensor(mesh_free),
             modes=None if deflate is None else self._tensor(deflate))
@@ -922,12 +1145,86 @@ class SLM:
         if check_converge and not ok:
             self.last_solve_converged = False
             return cost0, cost0
-        self._scatter_positions(pos_start + dx, target_gear)
-        r1 = self.match_residues(gear=target_gear)
-        w_all = np.concatenate([l.weight() for l in self.active_links()]) \
-            if self.active_links() else np.zeros(0)
-        cost1 = float(np.linalg.norm(r1 * w_all)) if r1.size else 0.0
-        return cost0, cost1
+        return cost0, self._commit(pos_start, dx, target_gear)
+
+    def _snapshot_positions(self, gear):
+        return [(m.vertices(gear).copy(), m.offset(gear).copy())
+                for m in self.meshes]
+
+    def _restore_positions(self, snap, gear):
+        for m, (v, off) in zip(self.meshes, snap):
+            m.set_vertices(v, gear, offset=off)
+
+    def _count_flips(self, gear):
+        return sum(int(m.flipped_triangles(gear).size)
+                   for m in self.meshes if not m.locked)
+
+    def optimize_Newton_Raphson(self, **kwargs):
+        """Newton iterations for nonlinear materials: each step re-linearizes
+        at the target gear and runs ``optimize_linear`` from it; the loop
+        stops on a small cost change, a refused (diverged) solve, or after
+        ``max_newtonstep`` steps.
+
+        Flip guard: a step that adds flipped triangles is rolled back and
+        retried with the crosslink lambda times ``crosslink_shrink`` (up to
+        ``shrink_trial`` tries), a stiffer, smaller step. ``residue_mode``
+        / ``residue_len`` reweight the links after each step;
+        ``anneal_mode`` rebases the FIXED gear onto the solution after each
+        step (after relaxing IQR-outlier deformation when
+        ``deform_outlier_constant`` > 0). Returns (cost_before,
+        cost_after)."""
+        max_newtonstep = kwargs.pop('max_newtonstep', 5)
+        crosslink_shrink = float(kwargs.pop('crosslink_shrink', 0.5))
+        shrink_trial = int(kwargs.pop('shrink_trial', 3))
+        deform_outlier_constant = kwargs.pop('deform_outlier_constant', 0)
+        target_gear = kwargs.get('target_gear', const.MESH_GEAR_MOVING)
+        kwargs.setdefault('start_gear', target_gear)
+        residue_mode = kwargs.pop('residue_mode', None)
+        residue_len = kwargs.pop('residue_len', 0)
+        anneal_mode = kwargs.pop('anneal_mode', None)
+        for m in self.meshes:
+            if not m.vertices_initialized(target_gear):
+                m.set_vertices(m.vertices(kwargs['start_gear']), target_gear,
+                               offset=m.offset(kwargs['start_gear']))
+        cost0 = cost1 = None
+        lam_c_base = kwargs.get('crosslink_lambda', self._crosslink_lambda)
+        for _ in range(max(int(max_newtonstep), 1)):
+            pre_flips = self._count_flips(target_gear)
+            snap = self._snapshot_positions(target_gear)
+            lam_c = lam_c_base
+            for _ in range(max(shrink_trial, 1)):
+                c0, c1 = self.optimize_linear(
+                    **{**kwargs, 'start_gear': target_gear,
+                       'crosslink_lambda': lam_c})
+                if self._count_flips(target_gear) <= pre_flips:
+                    break
+                # new flips: roll back and take a stiffer, smaller step
+                self._restore_positions(snap, target_gear)
+                lam_c = lam_c * crosslink_shrink
+            if cost0 is None:
+                cost0 = c0
+            if not getattr(self, 'last_solve_converged', True):
+                break
+            cost1 = c1
+            if residue_mode is not None and residue_len > 0:
+                for l in self.active_links():
+                    l.adjust_weight_from_residue(gear=target_gear,
+                                                 residue_len=residue_len,
+                                                 residue_mode=residue_mode)
+            if anneal_mode is not None:
+                if deform_outlier_constant and deform_outlier_constant > 0:
+                    for m in self.meshes:
+                        if not m.locked:
+                            relax_mesh_most_deformed(
+                                m, iqr_factor=float(deform_outlier_constant),
+                                dtype=self.dtype, device=self.device)
+                for m in self.meshes:
+                    if not m.locked:
+                        m.anneal(gear=(target_gear, const.MESH_GEAR_FIXED),
+                                 mode=anneal_mode)
+            if c0 <= 0 or abs(c0 - c1) <= 1e-4 * max(c0, 1e-12):
+                break
+        return cost0 or 0.0, cost1 or 0.0
 
     @property
     def is_linear(self):
@@ -940,17 +1237,15 @@ class SLM:
         return True
 
     def optimize_elastic(self, **kwargs):
-        """Linear solve plus residue reweighting passes for all-linear
-        systems; nonlinear materials need Newton-Raphson (not ported).
+        """All-linear systems: one ``optimize_linear`` plus up to
+        ``max_residue_passes`` residue reweighting passes, each followed by
+        another solve. Nonlinear materials: ``optimize_Newton_Raphson``.
         Every other keyword (``groupings``, ``chances``, tolerances) goes on
-        to ``optimize_linear``: ``chances`` stops the general path's CG after
-        that many iterations without progress, as in the JAX package,
-        whose fused ENG solve (the port's only path) ignores it too;
-        ``groupings`` raises there until the grouped solve is ported."""
+        to ``optimize_linear``; ``chances`` stops the general path's CG
+        after that many iterations without progress (the fused ENG solve
+        ignores it, as the JAX package's does)."""
         if not self.is_linear:
-            raise NotImplementedError(
-                'nonlinear materials: feabas_tpu.optimizer.SLM.'
-                'optimize_Newton_Raphson is not ported yet')
+            return self.optimize_Newton_Raphson(**kwargs)
         residue_mode = kwargs.pop('residue_mode', None)
         residue_len = kwargs.pop('residue_len', 0)
         max_passes = kwargs.pop('max_residue_passes', 3)
@@ -1034,3 +1329,49 @@ def relax_mesh_most_deformed(mesh, deform_quantile=0.75, iqr_factor=1.5,
     free[np.unique(mesh.triangles[bad_tris])] = True
     relax_mesh(mesh, free_vertices=free, **kwargs)
     return mesh, True
+
+
+def coarse_mesh_SLM(slm, mesh_reduction_factor=0.25, **kwargs):
+    """Relax a coarse surrogate system and map the result onto the fine
+    meshes: each mesh's ``coarse_mesh`` at the MOVING gear, the links
+    re-anchored on them, one ``optimize_elastic``, then each free fine
+    mesh resampled through its coarse mesh's deformation
+    (``transform_mesh``). With reduction 0 each mesh moves by one affine.
+    Operates from the MOVING placement and writes MOVING; returns the max
+    residue after it."""
+    from feabas_tpu_torch.mesh import transform_mesh
+    coarse = []
+    for m in slm.meshes:
+        cm = m.coarse_mesh(mesh_reduction_factor, gear=const.MESH_GEAR_MOVING)
+        cm.locked = m.locked
+        coarse.append(cm)
+    cslm = SLM(coarse, dtype=slm.dtype, device=slm.device)
+    for l in slm.active_links():
+        cslm.add_link_from_coordinates(
+            l.uids[0], l.uids[1],
+            l.xy0(gear=const.MESH_GEAR_MOVING),
+            l.xy1(gear=const.MESH_GEAR_MOVING), weight=l.weight(),
+            gear=(const.MESH_GEAR_INITIAL, const.MESH_GEAR_INITIAL))
+    cslm.optimize_elastic(
+        stiffness_lambda=kwargs.get('stiffness_lambda', -0.35),
+        crosslink_lambda=-1.0,
+        tol=kwargs.get('tol', 1e-6),
+        maxiter=kwargs.get('maxiter', None),
+        residue_mode=kwargs.get('residue_mode', None),
+        residue_len=kwargs.get('residue_len', 0))
+    for m, cm in zip(slm.meshes, coarse):
+        if m.locked:
+            continue
+        # the coarse INITIAL frame is the fine mesh's MOVING frame
+        probe = m.copy()
+        probe.set_vertices(m.vertices(const.MESH_GEAR_MOVING),
+                           const.MESH_GEAR_FIXED,
+                           offset=m.offset(const.MESH_GEAR_MOVING))
+        out = transform_mesh(probe, cm,
+                             gear=(const.MESH_GEAR_FIXED,
+                                   const.MESH_GEAR_MOVING))
+        mv = out.vertices_w_offset(const.MESH_GEAR_MOVING)
+        center = mv.mean(axis=0, keepdims=True)
+        m.set_vertices(mv - center, const.MESH_GEAR_MOVING, offset=center)
+    r = slm.match_residues(gear=const.MESH_GEAR_MOVING)
+    return float(r.max()) if r.size else 0.0

@@ -348,14 +348,15 @@ class Stitcher:
         return slm
 
     def optimize_elastic(self, **kwargs):
-        """Final elastic relaxation."""
+        """Final elastic relaxation. With ``use_groupings``, tiles of one
+        group share one deformation (the grouped solve of
+        ``SLM.optimize_linear``)."""
         slm = getattr(self, '_slm', None) or self.initialize_optimizer()
         kwargs.setdefault('stiffness_lambda', -1.0)
         kwargs.setdefault('crosslink_lambda', -1.0)
         kwargs.setdefault('residue_mode', 'huber')
         kwargs.setdefault('residue_len', 3)
         if kwargs.pop('use_groupings', False) and self.groupings is not None:
-            # SLM.optimize_linear raises for groupings (not ported yet)
             uid2idx = {id(m): i for i, m in enumerate(self.meshes)}
             kwargs['groupings'] = np.asarray(
                 [self.groupings[uid2idx[id(m)]] for m in slm.meshes])

@@ -344,11 +344,14 @@ def test_normalize_transforms_matches_jax(tmp_path):
 
 # ------------------------------- the CLI ------------------------------- #
 
-def _align_workdir(root, device_render=None):
+def _align_workdir(root, device_render=None, wrinkle=False):
     """The test_align_e2e fixture: three 320^2 'stitched' sections,
     cumulatively drifted and warped copies of one texture; with
     ``device_render`` the rendering stage is configured for the device
-    lane (LINEAR remap). Returns (config dir, work dir, names, drift)."""
+    lane (LINEAR remap); with ``wrinkle`` sections 1 and 2 carry a band
+    of the shipped 'wrinkle' material (mask label 50, 32 px wide) in
+    material masks at mip 2. Returns (config dir, work dir, names,
+    drift)."""
     import cv2
     from feabas_tpu import storage
     from feabas_tpu.common import imwrite
@@ -378,8 +381,15 @@ def _align_workdir(root, device_render=None):
         with storage.File(os.path.join(d, 'metadata.txt'), 'w') as f:
             f.write('{ROOT_DIR}\t' + d + '\n{RESOLUTION}\t4\n'
                     f'{name}_tr1-tc1.png\t0\t0\t{w}\t{h}\n')
+        if wrinkle:
+            mask = np.zeros((h // 4, w // 4), np.uint8)
+            if z in (1, 2):
+                c = 30 + 8 * z
+                mask[:, c:c + 8] = 50
+            imwrite(os.path.join(wd, 'align', 'material_masks',
+                                 name + '.png'), mask)
     storage.save_yaml(os.path.join(wd, 'configs', 'alignment_configs.yaml'), {
-        'meshing': {'mesh_size': 30},
+        'meshing': {'mesh_size': 30, 'mask_mip_level': 2},
         'matching': {'working_mip_level': 0,
                      'matcher_config': {'spacings': [100, 50, 25],
                                         'conf_thresh': 0.25, 'sigma': 2.5,
@@ -479,6 +489,93 @@ def test_port_align_cli_matches_jax(tmp_path, monkeypatch, jax_eager_fused):
                             'metadata.txt')
         blk = StaticImageLoader.from_coordinate_file(meta).crop((0, 0, 80, 80))
         assert blk is not None and blk.shape == (80, 80)
+
+
+def _jax_groups_by_curve(monkeypatch):
+    """Give the JAX package's meshes the port's element groups: its runs
+    split where the stiffness curve changes, each with its own material's
+    curve (the JAX package gives a run the curve of its first triangle's
+    material)."""
+    orig = Mesh.element_arrays
+
+    def element_arrays(self, gear=INITIAL):
+        uid2mat = self.material_table.uid_to_material()
+        out = []
+        for g in orig(self, gear=gear):
+            ids = self.material_ids[g['start']:g['stop']]
+            knots = {}
+            for uid in np.unique(ids):
+                mat = uid2mat.get(int(uid)) or self.material_table['default']
+                if mat.stiffness_curve_knots() is not None:
+                    knots[int(uid)] = mat.stiffness_curve_knots()
+            curve = np.where(np.isin(ids, list(knots)), ids, -2)
+            cuts = np.nonzero(np.diff(curve))[0] + 1
+            for a, b in zip(np.r_[0, cuts], np.r_[cuts, ids.size]):
+                out.append({**g, 'start': g['start'] + int(a),
+                            'stop': g['start'] + int(b),
+                            'tripts': g['tripts'][a:b],
+                            'multiplier': g['multiplier'][a:b],
+                            'poisson': g['poisson'][a:b],
+                            'knots': knots.get(int(ids[a]))})
+        return out
+    monkeypatch.setattr(Mesh, 'element_arrays', element_arrays)
+
+
+def test_port_align_cli_with_wrinkle_masks_matches_jax(tmp_path, monkeypatch,
+                                                       jax_eager_fused):
+    """Sections 1 and 2 carry a band of the shipped nonlinear 'wrinkle'
+    material: matching takes the classic loop (the fused schedule refuses
+    stiffness curves) and the window Newton-Raphson in place of the
+    stacked solve, in both packages alike (the JAX package given the
+    port's element groups); matches and tforms agree within 0.1 px."""
+    sys.path.insert(0, os.path.join(REPO, 'scripts'))
+    import align_main as jax_main
+    from feabas_tpu_torch.aligner import (Stack, match_name,
+                                          read_matches_from_h5)
+    from feabas_tpu_torch.mesh import Mesh as PMesh
+    from feabas_tpu_torch.ops import fem
+    from feabas_tpu_torch.scripts import align_main as port_main
+    _jax_groups_by_curve(monkeypatch)
+    calls = [0]
+    op = fem.elastic_operator
+
+    def spy(*a, **k):
+        calls[0] += 1
+        return op(*a, **k)
+    monkeypatch.setattr(fem, 'elastic_operator', spy)
+    cfg_j, wd_j, names, drift = _align_workdir(str(tmp_path / 'jax'),
+                                               wrinkle=True)
+    cfg_p, wd_p, _, _ = _align_workdir(str(tmp_path / 'port'), wrinkle=True)
+    modes = ('meshing', 'matching', 'optimization')
+    _run_cli(jax_main.main, cfg_j, modes, monkeypatch)
+    _run_cli(port_main.main, cfg_p, modes[:2], monkeypatch)
+    in_matching = calls[0]
+    _run_cli(port_main.main, cfg_p, modes[2:], monkeypatch)
+    assert in_matching > 0 and calls[0] > in_matching
+    mesh = PMesh.from_h5(os.path.join(wd_p, 'align', 'mesh',
+                                      names[1] + '.h5'))
+    assert [g['knots'] is not None for g in mesh.element_arrays()] \
+        == [False, True]
+    for a, b in zip(names[:-1], names[1:]):
+        mp = read_matches_from_h5(os.path.join(wd_p, 'align', 'matches',
+                                               match_name(a, b)))
+        mj = read_matches_from_h5(os.path.join(wd_j, 'align', 'matches',
+                                               match_name(a, b)))
+        assert mp.xy0.shape[0] >= 6
+        assert mp.xy0.shape == mj.xy0.shape
+        assert np.abs(mp.xy0 - mj.xy0).max() < 0.1
+        assert np.abs(mp.xy1 - mj.xy1).max() < 0.1
+    for n in names:
+        tp = PMesh.from_h5(os.path.join(wd_p, 'align', 'tform', n + '.h5'))
+        tj = Mesh.from_h5(os.path.join(wd_j, 'align', 'tform', n + '.h5'))
+        assert np.abs(tp.vertices_w_offset(MOVING)
+                      - tj.vertices_w_offset(MOVING)).max() < 0.1, n
+        assert tp.flipped_triangles(MOVING).size == 0
+    stack = Stack(mesh_dir=os.path.join(wd_p, 'align', 'mesh'),
+                  match_dir=os.path.join(wd_p, 'align', 'matches'),
+                  resolution=4, device='cpu')
+    stack.optimize_section_list(names, residue_len=3)
+    assert stack.last_window_sharded is False
 
 
 def test_port_align_cli_refuses_tensorstore_and_chunking(tmp_path,

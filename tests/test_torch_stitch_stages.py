@@ -124,10 +124,13 @@ def _affine_residual(src, dst):
 
 def test_elastic_stage_hands_on_groupings_and_chances(workdir, monkeypatch):
     """``chances`` and, with ``use_groupings``, the groupings in the SLM's
-    mesh order reach ``SLM.optimize_elastic`` in both packages; the port's
-    grouped solve raises naming the JAX function it still lacks."""
+    mesh order reach ``SLM.optimize_elastic`` in both packages; after the
+    translation stage, with the matches of tiles 2 and 3 off by (1.5, -1)
+    px, the grouped solve places every vertex as the JAX package does (f64
+    both, 1e-6 px), each group's tiles moved alike."""
     _, _, true_bboxes, stage_bboxes = _grid()
-    jst, pst = _stitchers(true_bboxes, stage_bboxes, [0, 0, 1, 1])
+    jst, pst = _stitchers(true_bboxes, stage_bboxes, [0, 0, 1, 1],
+                          bias=np.array([1.5, -1.0]))
     seen = {}
     for name, st in (('jax', jst), ('port', pst)):
         slm = st._slm
@@ -143,9 +146,20 @@ def test_elastic_stage_hands_on_groupings_and_chances(workdir, monkeypatch):
     assert np.array_equal(seen['port']['groupings'], [0, 0, 1, 1])
     assert np.array_equal(seen['jax']['groupings'], seen['port']['groupings'])
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError,
-                       match='feabas_tpu.optimizer.SLM.optimize_linear'):
-        pst.optimize_elastic(use_groupings=True)
+    monkeypatch.setattr(pstitcher, 'SOLVER_DTYPE', torch.float64)
+    moving = pconst.MESH_GEAR_MOVING
+    costs = []
+    for st in (jst, pst):
+        st.optimize_translation()
+        after_translation = _placements(st, moving)
+        costs.append(st.optimize_elastic(use_groupings=True, tol=1e-10))
+    assert np.allclose(costs[1], costs[0], rtol=1e-8)
+    for g, w in zip(_placements(pst, moving), _placements(jst, moving)):
+        assert np.abs(g - w).max() < 1e-6
+    du = [m - t for m, t in zip(_placements(pst, moving), after_translation)]
+    assert max(np.abs(d).max() for d in du) > 1e-3
+    for a, b in ((0, 1), (2, 3)):
+        assert np.abs(du[a] - du[b]).max() < 1e-9
 
 
 class _RaisingLoader:

@@ -339,7 +339,8 @@ def test_rotation_limits_equal_the_jax_packages(workdir, deg, resolved):
 
 def test_linkless_solve_keeps_positions_as_jax_does():
     """Sections whose every pair failed to match reach the window solve
-    with no link: positions stay, in both packages."""
+    with no link: positions stay, in both packages; a strained mesh with
+    no link relaxes as the JAX one does (f64 both, 1e-6 px)."""
     from feabas_tpu import optimizer as jopt
     from feabas_tpu.mesh import Mesh
     from feabas_tpu_torch import optimizer as popt
@@ -352,13 +353,17 @@ def test_linkless_solve_keeps_positions_as_jax_does():
         assert slm.optimize_linear(stiffness_lambda=-1.0,
                                    crosslink_lambda=-1.0) == (0.0, 0.0)
         assert np.abs(mesh.vertices_w_offset('MOVING') - before).max() < 1e-6
+    v = m.vertices('MOVING')
+    m.set_vertices(v * [1.1, 1.0], 'MOVING', offset=m.offset('MOVING'))
     strained = state.mesh_from_init_dict(m.get_init_dict())
-    v = strained.vertices('MOVING')
-    strained.set_vertices(v * [1.1, 1.0], 'MOVING',
-                          offset=strained.offset('MOVING'))
-    with pytest.raises(NotImplementedError):
-        popt.SLM([strained]).optimize_linear(stiffness_lambda=-1.0,
-                                             crosslink_lambda=-1.0)
+    costs = [jopt.SLM([m]).optimize_linear(stiffness_lambda=-1.0,
+                                           crosslink_lambda=-1.0, tol=1e-10),
+             popt.SLM([strained], dtype=torch.float64).optimize_linear(
+                 stiffness_lambda=-1.0, crosslink_lambda=-1.0, tol=1e-10)]
+    assert costs[0] == costs[1]
+    got, want = (x.vertices_w_offset('MOVING') for x in (strained, m))
+    assert np.abs(got - want).max() < 1e-6
+    assert np.abs(got - v * [1.1, 1.0] - m.offset('INITIAL')).max() > 1.0
 
 
 @pytest.mark.parametrize('mode,shift', [('feature', (6, 9)),
