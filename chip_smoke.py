@@ -48,10 +48,12 @@ Phases (each prints its lines; any failure exits non-zero):
      4 x 6 descriptors, 100 x 3001); each of these rows also with its
      device time per call from a CUDA-graph replay; then the general CG
      operator (``check_fem``) on a synthetic pair of cartesian meshes of
-     1000 x 1000 vertices in all (2M DOF) with 1e5 links, within 1e-5 of
-     max|y| of its plain version and bit-equal to itself, in both of its
-     link modes, beside one ``torch.sparse.mm`` of the assembled matrix
-     (its phase-7 path systems in phase 7);
+     1000 x 1000 vertices in all (2M DOF) with 1e5 links, at each of its
+     lanes a vertex G (4, 8, 16, 32) within 1e-5 of max|y| of its plain
+     version and bit-equal to itself, with its device time at each G, and
+     at the G its tables chose beside one ``torch.sparse.mm`` of the
+     assembled matrix, with the registers, spills and resident blocks a SM
+     of that instantiation (its phase-7 path systems in phase 7);
   4. the stitch slice: a synthetic 2x3 grid of 3000x4000 uint8 tiles
      (10% overlap, 3 px stage jitter, made on the card from a seed) goes
      through ``feabas_tpu_torch.scripts.stitch_main`` matching,
@@ -86,9 +88,9 @@ Phases (each prints its lines; any failure exits non-zero):
      stacked solve (Newton-Raphson does), the tforms must hold no flipped
      triangle, the render must overlay section 0, and the general CG
      operator must launch in matching and in optimization; after the
-     counts are read, the path's window and the match pair of sections 1
-     and 2 are rebuilt from the work dir and the operator is held against
-     its plain version and timed on each, as in phase 3.
+     counts are read, the operator is held against its plain version and
+     timed, as in phase 3, on a copy of each system (NV, NT, L) the path
+     bound it to, taken as the path bound it.
 Each slice resets the kernels' launch counts just before it and reads
 them just after (in total and by shape), and fails if a kernel of its
 path never launched. Then one JSON line lists each of the eight kernels with
@@ -1542,6 +1544,7 @@ def run_align(dev):
 
 FEM_RTOL = 1e-5         # f32 sums in another order: of max|y|
 FEM_LIBRARY_RTOL = 1e-4  # the library's CSR product sums otherwise again
+FEM_TURNS = 5           # timed turns of the kernel and the library call
 
 
 def fem_bound(nv, nt, nl):
@@ -1586,43 +1589,64 @@ def operator_csr(Ke, tables, weight, free, lam_s, lam_c):
 
 
 def fem_row(name, x, Ke, tables, weight, free, lam_s, lam_c):
-    """The kernel against ``elastic_operator_plain`` on the card: within
-    FEM_RTOL of max|y|, bit-equal to itself across two launches; call ms
-    (CUDA events), device us (CUDA-graph replay), the plain version's ms
-    and one ``torch.sparse.mm`` of the assembled matrix (assembled outside
-    the timed window)."""
+    """The kernel against ``elastic_operator_plain`` on the card, at each G
+    (lanes a vertex): within FEM_RTOL of max|y|, bit-equal to itself
+    across two launches, device us (CUDA-graph replay). At the G the
+    tables chose: call ms of the bound operator, as the general path calls
+    it, and of one ``torch.sparse.mm`` of the assembled matrix (assembled
+    outside the timed window), each the median of FEM_TURNS turns (CUDA
+    events); the kernel's registers, spills and resident blocks a SM; the
+    plain version's ms."""
+    import numpy as np
     import torch
     from feabas_tpu_torch.ops import fem
-    args = (x, Ke, tables, weight, free, lam_s, lam_c)
-    want = fem.elastic_operator_plain(*args)
+    want = fem.elastic_operator_plain(x, Ke, tables, weight, free, lam_s,
+                                      lam_c)
     scale = float(want.abs().max())
-
-    def run():
-        return fem.elastic_operator(*args)
-    got, again = run(), run()
-    torch.cuda.synchronize()
-    if not torch.equal(got, again):
-        raise RuntimeError(f'fem_operator {name}: two launches differ')
-    err = float((got - want).abs().max())
-    if not err <= FEM_RTOL * scale:
-        raise RuntimeError(f'fem_operator {name}: max_abs_err {err} > '
-                           f'{FEM_RTOL} x {scale}')
-    ms, dev_us = cuda_time(run), graph_time(run)
-    pms = cuda_time(lambda: fem.elastic_operator_plain(*args))
+    errs, form_us = [], {}
+    for g in fem.OPERATOR_GROUPS:
+        form = f'G{g}'
+        op = fem.bind_elastic_operator(Ke, dict(tables, group=g), weight,
+                                       free, lam_s, lam_c)
+        got, again = op(x), op(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise RuntimeError(f'fem_operator {name}, {form}: two launches '
+                               'differ')
+        errs.append(float((got - want).abs().max()))
+        if not errs[-1] <= FEM_RTOL * scale:
+            raise RuntimeError(f'fem_operator {name}, {form}: max_abs_err '
+                               f'{errs[-1]} > {FEM_RTOL} x {scale}')
+        form_us[form] = graph_time(lambda: op(x))
+    pms = cuda_time(lambda: fem.elastic_operator_plain(
+        x, Ke, tables, weight, free, lam_s, lam_c))
     A = operator_csr(Ke, tables, weight, free, lam_s, lam_c)
     xf = x.reshape(-1, 1)
     lerr = float((torch.sparse.mm(A, xf).reshape(-1, 2) - want).abs().max())
     if not lerr <= FEM_LIBRARY_RTOL * scale:
         raise RuntimeError(f'fem_operator {name}: the library product is off '
                            f'by {lerr} > {FEM_LIBRARY_RTOL} x {scale}')
-    lms = cuda_time(lambda: torch.sparse.mm(A, xf))
+    # the kernel as the path calls it (bound once a solve, called once an
+    # iteration) and the library call, in turns: at the path's systems both
+    # are host time, which the card's shared host makes noisy; the median
+    # of FEM_TURNS turns each
+    op = fem.bind_elastic_operator(Ke, tables, weight, free, lam_s, lam_c)
+    turns = [(cuda_time(lambda: op(x)), cuda_time(lambda: torch.sparse.mm(
+        A, xf))) for _ in range(FEM_TURNS)]
+    ms, lms = (float(np.median(t)) for t in zip(*turns))
     del A
     nv, nt, nl = x.shape[0], Ke.shape[0], weight.shape[0]
-    row = kernel_row('fem_operator', (nv, nt, nl), name, err, ms, pms,
+    row = kernel_row('fem_operator', (nv, nt, nl), name, max(errs), ms, pms,
                      fem_bound(nv, nt, nl), lms)
-    row['device_us'] = dev_us
+    row['form'] = f'G{tables["group"]}'
+    row['device_us'] = form_us[row['form']]
+    row['form_device_us'] = form_us
+    row.update(fem.operator_kernel_attrs(x.dtype, tables['group']))
     log_rows([row])
-    log(f'[kernel] fem_operator {(nv, nt, nl)} {name}: max|y| {scale:.4g}')
+    log(f'[kernel] fem_operator {(nv, nt, nl)} {name}: max|y| {scale:.4g}; '
+        f'form {row["form"]} ({row["registers"]} registers, '
+        f'{row["local_bytes"]} B spilled, {row["blocks_per_sm"]} blocks a '
+        f'SM); device us by G {json.dumps(form_us)}')
     return row
 
 
@@ -1641,12 +1665,14 @@ def _cartesian(nx, ny, pitch, x0):
     return v, np.concatenate([t0, t1])
 
 
-def check_fem(dev):
-    """Phase 3, the general CG operator on a synthetic system: a pair of
-    1000 x 500-vertex cartesian meshes (1000 x 1000 vertices, 2M DOF, the
-    first locked) and 1e5 links, each between the same place on both
-    meshes (``fem_row``). The phase-7 path's systems are held so in
-    ``fem_path_rows``."""
+FEM_LINKS = 100000      # phase 3's synthetic pair
+
+
+def fem_pair_system(dev, nl=FEM_LINKS):
+    """(x, Ke, tables, weight, free, lam_s, lam_c) of phase 3's synthetic
+    system: a pair of 1000 x 500-vertex cartesian meshes (1000 x 1000
+    vertices, 2M DOF, the first locked) and ``nl`` links, each between the
+    same place on both meshes, seeded; f32 on ``dev``."""
     import numpy as np
     import torch
     from feabas_tpu_torch.ops import fem
@@ -1655,7 +1681,6 @@ def check_fem(dev):
     v1, t1 = _cartesian(1000, 500, 10.0, 2.5)
     verts = np.concatenate([v0, v1])
     tris = np.concatenate([t0, t1 + len(v0)])
-    nl = 100000
     l0 = np.sort(rng.integers(0, len(t0), nl))
     b0 = rng.dirichlet(np.ones(3), nl)
     b1 = rng.dirichlet(np.ones(3), nl)
@@ -1673,68 +1698,31 @@ def check_fem(dev):
     weight = torch.rand(nl, generator=g, device=dev)
     free = torch.ones((len(verts), 1), device=dev)
     free[:len(v0)] = 0.0
-    return [fem_row('synthetic pair, 2M DOF, 1e5 links', x, Ke, tables,
-                    weight, free, 0.37, 1.0)]
+    return x, Ke, tables, weight, free, 0.37, 1.0
 
 
-def fem_system_row(dev, name, slm, lam):
-    """``fem_row`` on the general path's operator of ``slm`` as
-    ``optimize_linear`` builds it (element terms at the MOVING gear,
-    balanced lambdas), on a seeded x."""
+def check_fem(dev):
+    """Phase 3, the general CG operator on the synthetic 2M-DOF pair
+    (``fem_pair_system``, ``fem_row``). The phase-7 path's own systems are
+    held so in ``fem_path_rows``."""
+    return [fem_row('synthetic pair, 2M DOF, 1e5 links',
+                    *fem_pair_system(dev))]
+
+
+def fem_path_rows(dev, systems, launched):
+    """``fem_row`` on each system the phase-7 path bound the operator to
+    (``run_nonlinear`` keeps a copy of the first of each (NV, NT, L) shape,
+    with the lambdas the path gave it), on a seeded x. ``launched``:
+    {'NVxNTxL': the path's launches}."""
     import torch
-    from feabas_tpu_torch import constant as const
-    sys_d = slm._build_system(shape_gear=const.MESH_GEAR_FIXED)
-    u = slm._tensor(slm._gather_positions(const.MESH_GEAR_MOVING)
-                    - slm._gather_positions(const.MESH_GEAR_FIXED))
-    terms = slm._element_terms(sys_d['groups'], u)
-    lam_s, lam_c = slm._balance_lambdas(sys_d, terms, -abs(lam), -1.0)
-    Ke, tables = slm._operator_inputs(sys_d, terms)
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    x = torch.randn((sys_d['nv'], 2), generator=g, device=dev)
-    return fem_row(name, x, Ke, tables, sys_d['links'][4], sys_d['free'],
-                   lam_s, lam_c)
-
-
-def fem_path_rows(dev, wd, names, launched):
-    """The operator on the phase-7 path's own systems, rebuilt from its work
-    dir: the optimization window (every section, its tforms and matches as
-    ``Stack.initialize_SLM`` loads them, the first section locked) and the match pair of sections 1 and 2 at the working resolution (the
-    saved matches as its link). Logs whether the path launched each
-    (NV, NT, L) shape (``launched``: {'NVxNTxL': launches})."""
-    from feabas_tpu_torch import aligner, config
-    from feabas_tpu_torch.mesh import Mesh
-    from feabas_tpu_torch.optimizer import SLM
     rows = []
-    stack = aligner.Stack(section_list=names,
-                          mesh_dir=os.path.join(wd, 'align', 'mesh'),
-                          tform_dir=os.path.join(wd, 'align', 'tform'),
-                          match_dir=os.path.join(wd, 'align', 'matches'),
-                          resolution=config.montage_resolution(), device=dev)
-    slm = stack.initialize_SLM(names)
-    for k, m in enumerate(slm.meshes):
-        m.locked = k == 0
-    rows.append(fem_system_row(dev, f'phase-7 window of {len(names)} '
-                               'sections', slm, 1.0))
-    res = config.align_resolution()
-    for a, b in zip(names[:-1], names[1:]):
-        pair = []
-        for k, n in enumerate((a, b)):
-            m = Mesh.from_h5(os.path.join(wd, 'align', 'mesh', n + '.h5'))
-            m.change_resolution(res)
-            m.uid, m.locked = float(k), k == 0
-            pair.append(m)
-        match = aligner.read_matches_from_h5(os.path.join(
-            wd, 'align', 'matches', aligner.match_name(a, b)),
-            target_resolution=res)
-        slm = SLM(pair, device=dev)
-        slm.add_link_from_coordinates(0.0, 1.0, match.xy0, match.xy1,
-                                      weight=match.weight)
-        rows.append(fem_system_row(dev, f'phase-7 match pair {a}-{b}', slm,
-                                   0.35))
-    for r in rows:
-        key = 'x'.join(map(str, r['shape']))
-        log(f'[nonlinear] fem_operator {key} ({r["what"]}): launched '
-            f'{launched.get(key, 0)} times by the path')
+    for (nv, nt, nl), (stage, *system) in systems.items():
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn((nv, 2), generator=g, device=dev,
+                        dtype=system[0].dtype)
+        key = f'{nv}x{nt}x{nl}'
+        rows.append(fem_row(f'phase-7 {stage} system ({launched.get(key, 0)} '
+                            'launches)', x, *system))
     return rows
 
 
@@ -1770,14 +1758,15 @@ def run_nonlinear(dev):
     """Phase 7: the first NL_S sections of the phase-5 stack, sections 1 and
     2 carrying a band of the nonlinear 'wrinkle' material in their masks,
     through the align CLI (meshing, matching, optimization, rendering);
-    then the general CG operator held against its plain version on the
-    path's window and one match pair (``fem_path_rows``). Returns
+    then the general CG operator held against its plain version on each
+    system shape the path bound it to (``fem_path_rows``). Returns
     (launches, launches by shape, stage seconds, the operator's rows)."""
     import numpy as np
     import torch
     from feabas_tpu_torch import aligner
     from feabas_tpu_torch import device as device_mod
     from feabas_tpu_torch.mesh import Mesh
+    from feabas_tpu_torch.ops import fem
     from feabas_tpu_torch.scripts import align_main
 
     t0 = time.perf_counter()
@@ -1791,6 +1780,21 @@ def run_nonlinear(dev):
         return stacked[-1]
 
     aligner.Stack._sharded_window_solve = solve_spy
+    # a copy of the first system of each shape the path binds the operator
+    # to, and the stage that bound it (copies launch no counted kernel)
+    systems, stage = {}, ['']
+    bind = fem.bind_elastic_operator
+
+    def bind_spy(Ke, tables, weight, free, lam_s, lam_c):
+        key = (tables['nv'], tables['nt'], tables['nl'])
+        if key not in systems:
+            systems[key] = (stage[0], Ke.clone(), {
+                k: v.clone() if torch.is_tensor(v) else v
+                for k, v in tables.items()}, weight.clone(), free.clone(),
+                float(lam_s), float(lam_c))
+        return bind(Ke, tables, weight, free, lam_s, lam_c)
+
+    fem.bind_elastic_operator = bind_spy
     try:
         wd, names = setup_align_workdir(root, sections)
         del sections
@@ -1801,6 +1805,7 @@ def run_nonlinear(dev):
         device_mod.reset_launch_counts()
         stage_s, by_stage = {}, {}
         for mode in ('meshing', 'matching', 'optimization', 'rendering'):
+            stage[0] = mode
             t = time.perf_counter()
             align_main.main(['--mode', mode])
             torch.cuda.synchronize()
@@ -1850,10 +1855,12 @@ def run_nonlinear(dev):
             f'{curves}, no flipped triangle, overlay cc {min(ccs):.5f}-'
             f'{max(ccs):.5f}')
         # after the counts were read: these launches compare, not count
-        rows = fem_path_rows(dev, wd, names, by_shape['fem_operator'])
+        fem.bind_elastic_operator = bind
+        rows = fem_path_rows(dev, systems, by_shape['fem_operator'])
         return launches, by_shape, stage_s, rows
     finally:
         aligner.Stack._sharded_window_solve = solve
+        fem.bind_elastic_operator = bind
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -2643,7 +2650,8 @@ def main(argv=None):
                 'shape', 'what', 'max_abs_err', 'ms', 'plain_ms', 'bound_us',
                 'bound_by', 'library_ms', 'close_rows', 'device_us', 'K',
                 'real_per_cell', 'kept_per_tile', 'kept_rows_per_cell',
-                'covered_per_px')
+                'covered_per_px', 'form', 'form_device_us', 'registers',
+                'local_bytes', 'blocks_per_sm')
                 if k in r}
                 for r in checks]})
     log(json.dumps({'kernels': entries}))

@@ -74,6 +74,20 @@ def scatter_uv(y_e, tris, nv):
     return out.index_add_(0, tris.reshape(-1), y_e.reshape(-1, 2))
 
 
+def fixed_sum(index, n):
+    """vals -> ``zeros(n, ...).index_add_(0, index, vals)`` in a fixed
+    order: each row's entries in ascending position, one segment sum, no
+    atomics, so a CUDA tensor gives the same bits call after call (CUDA's
+    ``index_add_`` does not). The order is sorted once, here, for every
+    call of the returned function."""
+    index = index.reshape(-1).long()
+    order = torch.argsort(index, stable=True)
+    ptr = torch.zeros(n + 1, dtype=torch.int64, device=index.device)
+    ptr[1:] = torch.cumsum(torch.bincount(index, minlength=n), 0)
+    return lambda vals: torch.segment_reduce(vals[order], 'sum', offsets=ptr,
+                                             axis=0)
+
+
 def stiffness_matvec(x, Ke, tris):
     """K @ x for (NV, 2) x."""
     y = torch.einsum('nij,nj->ni', Ke, gather_uv(x, tris))
@@ -487,8 +501,9 @@ def crosslink_diag(nv, idx0, bary0, idx1, bary1, weight, dtype=torch.float32):
 
 # ------------------------- the general CG operator ------------------------- #
 # y = free * (lam_s K x + lam_c C^T W^2 C x) in one launch of
-# csrc/fem_operator.cu, over any number of element groups concatenated into
-# one (NT, 6, 6) Ke and one (NT, 3) tris, and one flat list of links.
+# csrc/fem_operator.cu, over any
+# number of element groups concatenated into one (NT, 6, 6) Ke and one
+# (NT, 3) tris, and one flat list of links.
 
 def _csr(vertex_of, nv):
     """CSR of the entries ``k`` whose vertex is ``vertex_of[k]``: (ptr
@@ -500,12 +515,13 @@ def _csr(vertex_of, nv):
 
 
 def build_operator_tables(tris, nv, idx0, bary0, idx1, bary1):
-    """Host tables of ``elastic_operator`` (once per solve): the element
-    corners and link points as given and the kernel's two CSR tables.
-    ``inc_ptr`` / ``inc_ent`` list each vertex's (element, corner) pairs as
-    ``t * 3 + c``; ``lnk_ptr`` / ``lnk_ent`` its link entries as ``(l * 3 +
-    k) * 2 + side``, whose sign is + for side 1 (``idx1``) and - for side
-    0. Numpy arrays; ``operator_tables_to`` moves them to a device."""
+    """Host tables of ``bind_elastic_operator`` (once per solve): the
+    element corners and link points as given and the kernel's two CSR
+    tables. ``inc_ptr`` / ``inc_ent`` list each vertex's (element, corner)
+    pairs as ``t * 3 + c``; ``lnk_ptr`` / ``lnk_ent`` its link entries as
+    ``(l * 3 + k) * 2 + side``, whose sign is + for side 1 (``idx1``) and -
+    for side 0. Numpy arrays; ``operator_tables_to`` moves them to a
+    device."""
     tris = np.asarray(tris, np.int64).reshape(-1, 3)
     idx0 = np.asarray(idx0, np.int64).reshape(-1, 3)
     idx1 = np.asarray(idx1, np.int64).reshape(-1, 3)
@@ -521,21 +537,36 @@ def build_operator_tables(tris, nv, idx0, bary0, idx1, bary1):
 
 
 _TABLE_SHAPES = {'tris': ('nt', 3), 'inc_ptr': ('nv1',),
-                 'inc_ent': ('nt3',), 'idx0': ('nl', 3), 'bary0': ('nl', 3),
-                 'idx1': ('nl', 3), 'bary1': ('nl', 3), 'lnk_ptr': ('nv1',),
-                 'lnk_ent': ('nl6',)}
+                 'inc_ent': ('nt3',), 'lnk_ptr': ('nv1',),
+                 'lnk_ent': ('nl6',), 'idx0': ('nl', 3), 'bary0': ('nl', 3),
+                 'idx1': ('nl', 3), 'bary1': ('nl', 3)}
+# the kernel's lanes a vertex (csrc/fem_operator.cu instantiates these)
+OPERATOR_GROUPS = (4, 8, 16, 32)
+
+
+def operator_group(nv, nt, nl):
+    """The kernel's lanes a vertex G for a system of ``nv`` vertices, ``nt``
+    elements and ``nl`` links: the smallest power of two, 4 to 32, that is
+    at least the mean CSR entries a vertex (3 NT + 6 L element corners and
+    link entries over NV), so that a lane takes about one of them."""
+    mean = (3 * nt + 6 * nl) / max(nv, 1)
+    return next((g for g in OPERATOR_GROUPS if g >= mean),
+                OPERATOR_GROUPS[-1])
 
 
 def operator_tables_to(tables, device, dtype):
     """``build_operator_tables``' arrays as contiguous tensors on
     ``device`` (indices int32, barycentric weights ``dtype``), checked
-    once here so that ``elastic_operator`` checks only its other inputs.
-    Adds the counts ``nt`` and ``nl``."""
+    once here so that ``bind_elastic_operator`` checks only its other
+    inputs. Adds the counts ``nt`` and ``nl`` and the kernel's lanes a
+    vertex ``group`` (``operator_group``: the same tables always give the
+    same G)."""
     nv, nt, nl = (tables['nv'], tables['tris'].shape[0],
                   tables['idx0'].shape[0])
     sizes = {'nt': nt, 'nl': nl, 'nv1': nv + 1, 'nt3': 3 * nt,
              'nl6': 6 * nl}
-    out = {'nv': nv, 'nt': nt, 'nl': nl}
+    out = {'nv': nv, 'nt': nt, 'nl': nl,
+           'group': operator_group(nv, nt, nl)}
     for k, dims in _TABLE_SHAPES.items():
         a = tables[k]
         if a.shape != tuple(sizes.get(d, d) for d in dims):
@@ -561,59 +592,89 @@ _LIBS = {}
 
 def _operator_lib():
     if 'fem_operator' not in _LIBS:
-        # x, Ke, tris, inc_ptr, inc_ent, lnk_ptr, lnk_ent, idx0, bary0,
-        # idx1, bary1, weight, free, lam_s, lam_c, y, scratch; nv, nl;
-        # stream
-        args = ([ctypes.c_void_p] * 13 + [ctypes.c_double] * 2
-                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                + [ctypes.c_void_p])
+        # x, Ke, the tables' pointers, weight, free, lam_s, lam_c, y; nv,
+        # group; stream
+        args = ([ctypes.c_void_p] * 5 + [ctypes.c_double] * 2
+                + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         _LIBS['fem_operator'] = build.bind('fem_operator', {
-            'fem_operator_f32': args, 'fem_operator_f64': args})
+            'fem_operator_f32': args, 'fem_operator_f64': args,
+            'fem_operator_attrs': [ctypes.c_int] * 2 + [ctypes.c_void_p]})
     return _LIBS['fem_operator']
 
 
-def elastic_operator(x, Ke, tables, weight, free, lam_s, lam_c):
-    """``elastic_operator_plain`` through the CUDA kernel (f32 or f64).
-    x: (NV, 2); Ke: (NT, 6, 6); tables: ``operator_tables_to``'s, on x's
-    device in x's dtype; weight: (L,); free: (NV, 1). Returns y (NV, 2).
-    A first kernel writes the L weighted link residuals to scratch, the
-    vertex kernel reads them."""
-    if x.device.type == 'cpu':
-        return elastic_operator_plain(x, Ke, tables, weight, free, lam_s,
-                                      lam_c)
+def operator_kernel_attrs(dtype, group):
+    """What the card's runtime reports for the operator's kernel at G =
+    ``group`` lanes a vertex: {'registers', 'local_bytes' (spills),
+    'shared_bytes', 'blocks_per_sm'} (its blocks resident on one SM)."""
+    out = (ctypes.c_int * 4)()
+    err = _operator_lib().fem_operator_attrs(
+        int(dtype == torch.float64), int(group), out)
+    if err != 0:
+        raise RuntimeError(f'fem_operator_attrs failed: CUDA error {err}')
+    return dict(zip(('registers', 'local_bytes', 'shared_bytes',
+                     'blocks_per_sm'), out))
+
+
+def bind_elastic_operator(Ke, tables, weight, free, lam_s, lam_c):
+    """The general CG operator of one solve: x -> ``elastic_operator_plain(x,
+    Ke, tables, weight, free, lam_s, lam_c)``. Everything but x stays fixed
+    over a solve's iterations, so it is checked once, here, and each call
+    checks only x. On tables on a CUDA device each call launches the kernel
+    (f32 or f64) at ``tables['group']`` lanes a vertex; on tables on the
+    CPU it runs the plain version. Ke: (NT, 6, 6); tables:
+    ``operator_tables_to``'s; weight: (L,); free: (NV, 1), all on the
+    tables' device in their dtype; x: (NV, 2) likewise. Each call returns y
+    (NV, 2)."""
     t = tables
     nv, nt, nl = t['nv'], t['nt'], t['nl']
-    if t['tris'].device != x.device or t['bary0'].dtype != x.dtype:
-        raise ValueError(f'elastic_operator: the tables must be on '
-                         f'{x.device} in {x.dtype}')
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f'elastic_operator: unsupported dtype {x.dtype}')
-    for key, a, shape in (('x', x, (nv, 2)), ('Ke', Ke, (nt, 6, 6)),
-                          ('weight', weight, (nl,)), ('free', free, (nv, 1))):
-        if (a.device != x.device or a.dtype != x.dtype
-                or not a.is_contiguous() or a.shape != shape):
-            raise ValueError(f'elastic_operator: {key} must be a contiguous '
-                             f'{x.dtype} tensor of shape {shape} on '
-                             f'{x.device}')
-    y = torch.empty_like(x)
-    if nv == 0:
+    dev, dtype = t['bary0'].device, t['bary0'].dtype
+    if dev.type == 'cpu':
+        return lambda x: elastic_operator_plain(x, Ke, t, weight, free,
+                                                lam_s, lam_c)
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'elastic operator: unsupported dtype {dtype}')
+    for key, a, shape in (('Ke', Ke, (nt, 6, 6)), ('weight', weight, (nl,)),
+                          ('free', free, (nv, 1))):
+        if (a.device != dev or a.dtype != dtype or not a.is_contiguous()
+                or a.shape != shape):
+            raise ValueError(f'elastic operator: {key} must be a contiguous '
+                             f'{dtype} tensor of shape {shape} on {dev}')
+    # the kernel reads Ke in 16-byte rows and x in pairs
+    if Ke.data_ptr() % 16:
+        raise ValueError('elastic operator: Ke must be aligned to 16 bytes')
+    pair = 2 * Ke.element_size()
+    fn = getattr(_operator_lib(), 'fem_operator_f32' if dtype == torch.float32
+                 else 'fem_operator_f64')
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    for k in _TABLE_SHAPES:
+        if t[k].device != dev or not t[k].is_contiguous():
+            raise ValueError(f'elastic operator: table {k} must be '
+                             f'contiguous on {dev}')
+    # the tables' addresses in the order the kernel reads them
+    ptrs = (ctypes.c_void_p * len(_TABLE_SHAPES))(
+        *(t[k].data_ptr() for k in _TABLE_SHAPES))
+    fixed = (Ke.data_ptr(), ptrs, weight.data_ptr(), free.data_ptr(),
+             float(lam_s), float(lam_c))
+    group = t['group']
+
+    def matvec(x):
+        if (x.device != dev or x.dtype != dtype or x.shape != (nv, 2)
+                or not x.is_contiguous() or x.data_ptr() % pair):
+            raise ValueError(f'elastic operator: x must be a contiguous '
+                             f'{dtype} tensor of shape {(nv, 2)} on {dev}, '
+                             'aligned to a row')
+        y = torch.empty_like(x)
+        if nv == 0:
+            return y
+        err = device_mod.launch_on(index, fn, x.data_ptr(), *fixed,
+                                   y.data_ptr(), nv, group)
+        if err != 0:
+            raise RuntimeError(f'fem_operator launch failed: CUDA error {err}')
+        device_mod.count_launch('fem_operator', (nv, nt, nl))
         return y
-    scratch = torch.empty((nl, 2), dtype=x.dtype, device=x.device)
-    fn = 'fem_operator_f32' if x.dtype == torch.float32 else 'fem_operator_f64'
-    index = x.device.index if x.device.index is not None \
-        else torch.cuda.current_device()
-    err = device_mod.launch_on(
-        index, getattr(_operator_lib(), fn), x.data_ptr(),
-        Ke.data_ptr(), t['tris'].data_ptr(), t['inc_ptr'].data_ptr(),
-        t['inc_ent'].data_ptr(), t['lnk_ptr'].data_ptr(),
-        t['lnk_ent'].data_ptr(), t['idx0'].data_ptr(), t['bary0'].data_ptr(),
-        t['idx1'].data_ptr(), t['bary1'].data_ptr(), weight.data_ptr(),
-        free.data_ptr(), float(lam_s), float(lam_c), y.data_ptr(),
-        scratch.data_ptr(), nv, nl)
-    if err != 0:
-        raise RuntimeError(f'fem_operator launch failed: CUDA error {err}')
-    device_mod.count_launch('fem_operator', (nv, nt, nl))
-    return y
+    # the tensors whose addresses the calls pass on
+    matvec.inputs = (Ke, t, weight, free, ptrs)
+    return matvec
 
 
 # ------------------------------ PCG solver ------------------------------ #

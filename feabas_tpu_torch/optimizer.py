@@ -8,9 +8,9 @@ elastic solve on the device, matrix-free (``ops.fem``): the fused
 linear-ENG solve, the general path (stiffness curves, SVK and NHK
 elements, positive lambdas, strained meshes with no link, tile groups
 sharing one deformation), whose CG operator is the hand-written kernel
-``ops.fem.elastic_operator``, and Newton-Raphson over it for nonlinear
-materials. ``coarse_mesh_SLM`` relaxes a coarse surrogate system. The
-solver dtype and device are explicit: ``SLM(meshes,
+bound by ``ops.fem.bind_elastic_operator``, and Newton-Raphson over it for
+nonlinear materials. ``coarse_mesh_SLM`` relaxes a coarse surrogate
+system. The solver dtype and device are explicit: ``SLM(meshes,
 dtype=torch.float32, device=...)``.
 """
 
@@ -63,12 +63,10 @@ def _flat_translation_precond(offsets_arr, agg, mesh_free, idx0, idx1,
     dtype = diag.dtype
     m0 = torch.searchsorted(offsets_arr, idx0[:, 0].contiguous(), right=True) - 1
     m1 = torch.searchsorted(offsets_arr, idx1[:, 0].contiguous(), right=True) - 1
-    w2 = (weight ** 2) * lam_c
-    Ac = torch.zeros((M * M,), dtype=dtype, device=diag.device)
-    for i, j, s in ((m0, m0, 1.0), (m1, m1, 1.0), (m0, m1, -1.0),
-                    (m1, m0, -1.0)):
-        Ac.index_add_(0, i * M + j, s * w2)
-    Ac = Ac.reshape(M, M)
+    w2 = ((weight ** 2) * lam_c).to(dtype)
+    Ac = fem.fixed_sum(torch.cat([m0 * M + m0, m1 * M + m1, m0 * M + m1,
+                                  m1 * M + m0]), M * M)(
+        torch.cat([w2, w2, -w2, -w2])).reshape(M, M)
     mask2 = mesh_free[:, None] * mesh_free[None, :]
     Ac = torch.where(mask2 > 0, Ac, 0.0)
     reg = torch.clamp(torch.diagonal(Ac).max(), min=1.0)
@@ -921,19 +919,38 @@ class SLM:
             out.append((g['tris'], Ke, Pe))
         return out
 
+    def _vertex_sums(self, sys_d, terms):
+        """The general path's sums onto vertices, each in a fixed order
+        (``fem.fixed_sum``, so that a solve on the card takes the same
+        iterations every run): (over the element corners of ``terms``,
+        (3 NT, C) -> (NV, C); over the link points, idx1's then idx0's,
+        (6 L, C) -> (NV, C))."""
+        nv = sys_d['nv']
+        idx0, _, idx1, _, _ = sys_d['links']
+        return (fem.fixed_sum(torch.cat([t for t, _, _ in terms]), nv),
+                fem.fixed_sum(torch.cat([idx1, idx0]), nv))
+
+    def _diagonals(self, sys_d, terms, sums):
+        """(diag K, diag C^T W^2 C), (NV, 2) each, through ``sums``
+        (``_vertex_sums``)."""
+        by_corner, by_link = sums
+        _, bary0, _, bary1, weight = sys_d['links']
+        dK = by_corner(torch.cat([torch.diagonal(Ke, dim1=1, dim2=2)
+                                  for _, Ke, _ in terms]).reshape(-1, 2))
+        w2 = torch.cat([weight, weight]).to(self.dtype) ** 2
+        dC = by_link((torch.cat([bary1, bary0]).to(self.dtype) ** 2
+                      * w2[:, None])[:, :, None].expand(-1, -1, 2)
+                     .reshape(-1, 2))
+        return dK, dC
+
     def _balance_lambdas(self, sys_d, terms, lam_s, lam_c):
         """Negative lambdas -> trace-ratio balance: lam_s = |lam_s / lam_c|
         tr(C) / tr(K restricted to the crosslinked DOFs), lam_c = 1."""
         if lam_s >= 0 and lam_c >= 0:
             return float(lam_s), float(lam_c)
         ratio = abs(lam_s / lam_c)
-        nv = sys_d['nv']
-        idx0, bary0, idx1, bary1, weight = sys_d['links']
-        dC = fem.crosslink_diag(nv, idx0, bary0, idx1, bary1, weight,
-                                dtype=self.dtype)
-        dK = torch.zeros((nv, 2), dtype=self.dtype, device=self.device)
-        for tris, Ke, _ in terms:
-            dK = dK + fem.stiffness_diag(Ke, tris, nv)
+        dK, dC = self._diagonals(sys_d, terms,
+                                 self._vertex_sums(sys_d, terms))
         tr_c = float(dC.sum())
         tr_k = float(dK[dC != 0].sum())
         if tr_c == 0 or tr_k == 0:
@@ -990,8 +1007,9 @@ class SLM:
         negative lambdas are trace-balanced. All-ENG systems without
         stiffness curves, with links and negative lambdas, take the fused
         solve; every other system takes the general path, whose CG
-        operator is ``fem.elastic_operator``. With ``groupings``, meshes of
-        one group share one deformation (the projected system P^T A P).
+        operator is ``fem.bind_elastic_operator``'s. With ``groupings``,
+        meshes of one group share one deformation (the projected system
+        P^T A P).
         Commits only when the solve converged (post-residual below ||b||);
         otherwise positions stay and ``last_solve_converged`` is False.
         Returns (cost_before, cost_after) as weighted residue norms.
@@ -1033,7 +1051,6 @@ class SLM:
         lam_s, lam_c = self._balance_lambdas(sys_d, terms, lam_s, lam_c)
         idx0, bary0, idx1, bary1, weight = sys_d['links']
         free = sys_d['free']
-        nv = sys_d['nv']
         if groupings is not None:
             dof_map, ndof, group_locked = self._grouping_dof_map(groupings)
             # group lock discipline: any locked member locks the group
@@ -1048,24 +1065,25 @@ class SLM:
         proj = _mode_projector(None if deflate is None
                                else self._tensor(deflate))
         Ke, tables = self._operator_inputs(sys_d, terms)
+        operator = fem.bind_elastic_operator(Ke, tables, weight, free, lam_s,
+                                             lam_c)
 
         def matvec_full(x):
-            return proj(fem.elastic_operator(proj(x * free), Ke, tables,
-                                             weight, free, lam_s, lam_c))
+            return proj(operator(proj(x * free)))
 
-        # rhs: -(lam_s P(u) + lam_c C^T W r)
-        b = torch.zeros_like(u_cur)
-        diag = torch.zeros_like(u_cur)
-        for tris, Ke_g, Pe in terms:
-            b = b - fem.scatter_uv(Pe, tris, nv) * lam_s
-            diag = diag + fem.stiffness_diag(Ke_g, tris, nv) * lam_s
+        # rhs: -(lam_s P(u) + lam_c C^T W r) and the Jacobi diagonal
+        sums = self._vertex_sums(sys_d, terms)
+        by_corner, by_link = sums
+        dK, dC = self._diagonals(sys_d, terms, sums)
+        diag = lam_s * dK + lam_c * dC
         pos0 = self._tensor(pos_start)
         r0 = fem.link_eval(pos0, idx1, bary1) - fem.link_eval(pos0, idx0, bary0)
         rw = r0 * (weight ** 2)[:, None] * lam_c
-        b = fem._link_scatter(b, idx1, bary1, rw, -1.0)
-        b = fem._link_scatter(b, idx0, bary0, rw, 1.0) * free
-        diag = diag + fem.crosslink_diag(nv, idx0, bary0, idx1, bary1, weight,
-                                         dtype=self.dtype) * lam_c
+        sign_bary = torch.cat([-bary1, bary0])
+        b = (by_link((sign_bary[:, :, None] * torch.cat([rw, rw])[:, None, :])
+                     .reshape(-1, 2))
+             - lam_s * by_corner(torch.cat([Pe for _, _, Pe in terms])
+                                 .reshape(-1, 2))) * free
         cost0 = float(torch.linalg.norm(r0 * weight[:, None]))
         if groupings is None:
             b = proj(b)
@@ -1088,9 +1106,7 @@ class SLM:
             dx = proj(dx) * free
         else:
             # the projected system P^T A P, P the expansion by dof_map
-            def seg(y):
-                return torch.zeros((ndof, 2), dtype=y.dtype,
-                                   device=y.device).index_add_(0, dof, y)
+            seg = fem.fixed_sum(dof, ndof)
 
             def matvec_s(xs):
                 return seg(matvec_full(xs[dof]))

@@ -537,12 +537,16 @@ def test_port_align_cli_with_wrinkle_masks_matches_jax(tmp_path, monkeypatch,
     from feabas_tpu_torch.scripts import align_main as port_main
     _jax_groups_by_curve(monkeypatch)
     calls = [0]
-    op = fem.elastic_operator
+    bind = fem.bind_elastic_operator
 
     def spy(*a, **k):
-        calls[0] += 1
-        return op(*a, **k)
-    monkeypatch.setattr(fem, 'elastic_operator', spy)
+        op = bind(*a, **k)
+
+        def counted(x):
+            calls[0] += 1
+            return op(x)
+        return counted
+    monkeypatch.setattr(fem, 'bind_elastic_operator', spy)
     cfg_j, wd_j, names, drift = _align_workdir(str(tmp_path / 'jax'),
                                                wrinkle=True)
     cfg_p, wd_p, _, _ = _align_workdir(str(tmp_path / 'port'), wrinkle=True)

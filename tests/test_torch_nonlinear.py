@@ -178,10 +178,12 @@ def test_stiffness_curve_interp():
 
 # ------------------------------ the operator ------------------------------ #
 
-def _operator_system(rng, n_groups, n_links, untouched=False):
+def _operator_system(rng, n_groups, n_links, untouched=False, hub=0):
     """Two cartesian meshes' elements split into ``n_groups`` groups, a
-    flat list of links between them, a free mask, and (``untouched``) one
-    extra vertex no element or link touches."""
+    flat list of links between them, a free mask, (``untouched``) one
+    extra vertex no element or link touches, and (``hub``) that many more
+    links from the first triangle, whose corners then have more entries
+    than 4 x 32 lanes."""
     nx = 5
     v, t = [], []
     for k in range(2):
@@ -200,7 +202,9 @@ def _operator_system(rng, n_groups, n_links, untouched=False):
                               replace=False))
     groups = np.split(np.arange(len(tris)), cuts)
     n0 = nx * nx
-    idx0 = rng.integers(0, len(tris) // 2, n_links)
+    idx0 = np.concatenate([rng.integers(0, len(tris) // 2, n_links),
+                           np.zeros(hub, int)])
+    n_links += hub
     idx1 = rng.integers(len(tris) // 2, len(tris), n_links)
     bary0 = rng.dirichlet(np.ones(3), n_links)
     bary1 = rng.dirichlet(np.ones(3), n_links)
@@ -254,43 +258,73 @@ def test_operator_plain_matches_jax_matvec(rng, n_groups, n_links,
     _close(got, want)
     if untouched:
         assert float(got[-1].abs().max()) == 0.0
-    # a CPU tensor takes the plain version and launches nothing
+    # CPU tensors take the plain version and launch nothing
     device_mod.reset_launch_counts()
-    assert torch.equal(fem.elastic_operator(*args), got)
+    assert torch.equal(fem.bind_elastic_operator(*args[1:])(x), got)
     assert device_mod.launch_counts()['fem_operator'] == 0
 
 
-def _csr_operator(x, Ke, t, weight, free, lam_s, lam_c):
-    """What the kernel computes, vertex by vertex, read through the CSR
-    tables as csrc/fem_operator.cu reads them."""
+# csrc/fem_operator.cu's threads a block
+KERNEL_THREADS = 128
+# the operator's cases: (n_groups, n_links, untouched, hub); a vertex no
+# entry touches, L = 0, a vertex with more entries than 4 x 32 lanes, and
+# NV (50 or 51) a multiple of no G's vertices a block (128 / G)
+OPERATOR_CASES = [(1, 12, False, 0), (3, 0, True, 0), (3, 30, True, 0),
+                  (2, 20, False, 150)]
+
+
+def _lane_operator(x, Ke, t, weight, free, lam_s, lam_c, group):
+    """What the kernel computes, thread by thread: vertex gid // G of
+    thread gid over whole blocks of KERNEL_THREADS, lane gid % G summing the
+    vertex's element entries lane, lane + G, ... then its link entries
+    (each times its link's weighted residual), read through the CSR tables as
+    csrc/fem_operator.cu reads them; the G partial sums meet in the
+    kernel's fixed xor butterfly. Checks that the grid writes every vertex
+    once."""
     x, Ke, weight, free = (np.asarray(a) for a in (x, Ke, weight, free))
     tris, b0, b1 = t['tris'], t['bary0'], t['bary1']
     i0, i1 = t['idx0'], t['idx1']
-    y = np.zeros_like(x)
-    for v in range(x.shape[0]):
-        k = np.zeros(2)
-        for f in t['inc_ent'][t['inc_ptr'][v]:t['inc_ptr'][v + 1]]:
-            e, c = divmod(int(f), 3)
-            u = x[tris[e]].ravel()
-            k += Ke[e, 2 * c:2 * c + 2] @ u
-        cl = np.zeros(2)
-        for f in t['lnk_ent'][t['lnk_ptr'][v]:t['lnk_ptr'][v + 1]]:
-            lk, side = divmod(int(f), 2)
-            l, kk = divmod(lk, 3)
-            r = (b1[l] @ x[i1[l]] - b0[l] @ x[i0[l]]) * weight[l] ** 2
-            cl += (b1[l, kk] if side else -b0[l, kk]) * r
-        y[v] = free[v] * (lam_s * k + lam_c * cl)
+    nv = x.shape[0]
+    n_threads = -(-nv * group // KERNEL_THREADS) * KERNEL_THREADS
+    y = np.full_like(x, np.nan)
+    for v in range(n_threads // group):
+        part = np.zeros((group, 4))          # kx, ky, cx, cy a lane
+        for lane in range(group):
+            if v >= nv:
+                break
+            inc = t['inc_ent'][t['inc_ptr'][v]:t['inc_ptr'][v + 1]]
+            for f in inc[lane::group]:
+                e, c = divmod(int(f), 3)
+                u = x[tris[e]].ravel()
+                part[lane, :2] += Ke[e, 2 * c:2 * c + 2] @ u
+            lnk = t['lnk_ent'][t['lnk_ptr'][v]:t['lnk_ptr'][v + 1]]
+            for f in lnk[lane::group]:
+                lk, side = divmod(int(f), 2)
+                l, kk = divmod(lk, 3)
+                r = (b1[l] @ x[i1[l]] - b0[l] @ x[i0[l]]) * weight[l] ** 2
+                part[lane, 2:] += (b1[l, kk] if side else -b0[l, kk]) * r
+        o = group // 2
+        while o:
+            part = part + part[np.arange(group) ^ o]
+            o //= 2
+        assert np.all(part == part[0])       # every lane ends equal
+        if v < nv:
+            assert np.isnan(y[v]).all()
+            y[v] = free[v] * (lam_s * part[0, :2] + lam_c * part[0, 2:])
+    assert not np.isnan(y).any()
     return y
 
 
-@pytest.mark.parametrize('n_groups,n_links,untouched', [
-    (1, 12, False), (3, 0, True), (3, 30, True)])
+@pytest.mark.parametrize('group', [4, 8, 32])
+@pytest.mark.parametrize('n_groups,n_links,untouched,hub', OPERATOR_CASES)
 def test_operator_tables_give_the_plain_operator(rng, n_groups, n_links,
-                                                 untouched):
+                                                 untouched, hub, group):
     """The kernel's CSR tables: each vertex's entries ascending, every
-    element corner and link point listed once, and the vertex-by-vertex
-    sums through them equal to the plain version."""
-    s = _operator_system(rng, n_groups, n_links, untouched)
+    element corner and link point listed once, and the lane-strided sums
+    and butterfly of G lanes a vertex through them equal to the plain
+    version."""
+    s = _operator_system(rng, n_groups, n_links, untouched, hub)
+    n_links += hub
     host = fem.build_operator_tables(s['tris'], s['nv'], s['idx0'],
                                      s['bary0'], s['idx1'], s['bary1'])
     for ptr, ent, n in (('inc_ptr', 'inc_ent', s['tris'].size),
@@ -301,43 +335,111 @@ def test_operator_tables_give_the_plain_operator(rng, n_groups, n_links,
             seg = host[ent][host[ptr][v]:host[ptr][v + 1]]
             assert np.all(np.diff(seg) > 0)
     assert host['inc_ent'].dtype == np.int32
+    if hub:
+        assert np.diff(host['lnk_ptr']).max() > 4 * 32
+    assert s['nv'] % (KERNEL_THREADS // group)
     Ke, tables = _port_operator_inputs(s)
     x = _t(s['x'])
     want = fem.elastic_operator_plain(x, Ke, tables, _t(s['weight']),
                                       _t(s['free']), 0.37, 1.3)
-    got = _csr_operator(x, Ke, host, s['weight'], s['free'], 0.37, 1.3)
+    got = _lane_operator(x, Ke, host, s['weight'], s['free'], 0.37, 1.3,
+                         group)
     _close(got, want.numpy(), rtol=1e-12)
 
 
+def test_operator_tables_choose_one_group(rng):
+    """``operator_tables_to`` picks the kernel's lanes a vertex G from the
+    tables alone: the same tables give the same G, on any device and in
+    any dtype; about one CSR entry a lane, 4 to 32 lanes."""
+    s = _operator_system(rng, 3, 30, True)
+    host = fem.build_operator_tables(s['tris'], s['nv'], s['idx0'],
+                                     s['bary0'], s['idx1'], s['bary1'])
+    a = fem.operator_tables_to(host, 'cpu', F64)
+    b = fem.operator_tables_to(host, 'cpu', torch.float32)
+    assert a['group'] == b['group'] == fem.operator_group(
+        s['nv'], len(s['tris']), 30)
+    assert a['group'] in fem.OPERATOR_GROUPS
+    # the phase-7 window, a match pair of each round, the 2M-DOF pair
+    assert fem.operator_group(1020, 1804, 9219) == 32
+    assert fem.operator_group(518, 916, 2871) == 32
+    assert fem.operator_group(510, 902, 459) == 16
+    assert fem.operator_group(10 ** 6, 1994004, 10 ** 5) == 8
+    assert fem.operator_group(100, 150, 20) == 8
+    assert fem.operator_group(0, 0, 0) == 4
+    assert fem.operator_group(5, 4, 0) == 4
+
+
+@pytest.mark.parametrize('n_rows,n_vals,width', [
+    (7, 40, 2), (50, 3, 1), (5, 0, 2), (1, 9, 3)])
+def test_fixed_sum_is_index_add_in_ascending_order(rng, n_rows, n_vals,
+                                                   width):
+    """``fem.fixed_sum`` gives what ``index_add_`` sums, each row's entries
+    added in ascending position (``np.add.at``'s order), rows no index
+    reaches zero, with no values and with one row."""
+    index = rng.integers(0, n_rows, n_vals)
+    vals = rng.normal(size=(n_vals, width))
+    want = np.zeros((n_rows, width))
+    np.add.at(want, index, vals)
+    fn = fem.fixed_sum(torch.as_tensor(index, dtype=torch.int32), n_rows)
+    got = fn(_t(vals))
+    assert got.shape == (n_rows, width)
+    _close(got.numpy(), want, rtol=1e-12)
+    assert torch.equal(fn(_t(vals)), got)
+    ref = torch.zeros((n_rows, width), dtype=F64).index_add_(
+        0, torch.as_tensor(index), _t(vals))
+    _close(got.numpy(), ref.numpy(), rtol=1e-12)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('dtype,rtol', [(torch.float32, 1e-5),
-                                        (torch.float64, 1e-12)])
-@pytest.mark.parametrize('n_groups,n_links,untouched', [
-    (1, 12, False), (3, 0, True), (3, 30, True)])
-def test_kernel_matches_plain_on_card(rng, dtype, rtol, n_groups, n_links,
-                                      untouched):
-    """The kernel against the plain version on the card, within rtol of
-    max|y| (f32 sums in another order), bit-equal to itself."""
+def test_fixed_sum_keeps_its_bits_on_card(rng):
+    """On the card ``fem.fixed_sum`` gives the same bits call after call
+    (CUDA's ``index_add_`` does not), within f32 rounding of the sum."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA GPU')
-    s = _operator_system(rng, n_groups, n_links, untouched)
+    index = rng.integers(0, 1000, 200000)
+    vals = rng.normal(size=(200000, 2))
+    dev = torch.device('cuda')
+    fn = fem.fixed_sum(torch.as_tensor(index, device=dev), 1000)
+    v = torch.as_tensor(vals, dtype=torch.float32, device=dev)
+    first = fn(v)
+    assert all(torch.equal(first, fn(v)) for _ in range(5))
+    want = np.zeros((1000, 2))
+    np.add.at(want, index, vals)
+    assert np.abs(first.cpu().numpy() - want).max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('group', [4, 8, 16, 32])
+@pytest.mark.parametrize('dtype,rtol', [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize('n_groups,n_links,untouched,hub', OPERATOR_CASES)
+def test_kernel_matches_plain_on_card(rng, dtype, rtol, n_groups, n_links,
+                                      untouched, hub, group):
+    """The kernel at each G against the plain version on the card, within
+    rtol of max|y| (f32 sums in another order), bit-equal to itself."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA GPU')
+    s = _operator_system(rng, n_groups, n_links, untouched, hub)
     Ke, tables = _port_operator_inputs(s)
     dev = torch.device('cuda')
     tables = fem.operator_tables_to(fem.build_operator_tables(
         s['tris'], s['nv'], s['idx0'], s['bary0'], s['idx1'], s['bary1']),
         dev, dtype)
+    tables['group'] = group
     args = (_t(s['x']).to(dev, dtype), Ke.to(dev, dtype).contiguous(), tables,
             _t(s['weight']).to(dev, dtype), _t(s['free']).to(dev, dtype),
             0.37, 1.3)
     device_mod.reset_launch_counts()
-    got = fem.elastic_operator(*args)
-    again = fem.elastic_operator(*args)
+    op = fem.bind_elastic_operator(*args[1:])
+    got, again = op(args[0]), op(args[0])
     torch.cuda.synchronize()
     assert device_mod.launch_counts()['fem_operator'] == 2
     want = fem.elastic_operator_plain(*args)
     assert torch.equal(got, again)
     err = float((got - want).abs().max())
     assert err <= rtol * float(want.abs().max()), err
+    if untouched:
+        assert float(got[-1].abs().max()) == 0.0
 
 
 # --------------------------- meshes and systems --------------------------- #
@@ -414,12 +516,16 @@ def _pair_links(disp_scale=1.0):
 def general_calls(monkeypatch):
     """Counts the port's calls of the general path's operator."""
     calls = [0]
-    op = fem.elastic_operator
+    bind = fem.bind_elastic_operator
 
     def spy(*a, **k):
-        calls[0] += 1
-        return op(*a, **k)
-    monkeypatch.setattr(fem, 'elastic_operator', spy)
+        op = bind(*a, **k)
+
+        def counted(x):
+            calls[0] += 1
+            return op(x)
+        return counted
+    monkeypatch.setattr(fem, 'bind_elastic_operator', spy)
     return calls
 
 
