@@ -53,7 +53,7 @@ Phases (each prints its lines; any failure exits non-zero):
      version and bit-equal to itself, with its device time at each G, and
      at the G its tables chose beside one ``torch.sparse.mm`` of the
      assembled matrix, with the registers, spills and resident blocks a SM
-     of that instantiation (its phase-7 path systems in phase 7);
+     of that instantiation (the path systems in phases 4 to 7);
   4. the stitch slice: a synthetic 2x3 grid of 3000x4000 uint8 tiles
      (10% overlap, 3 px stage jitter, made on the card from a seed) goes
      through ``feabas_tpu_torch.scripts.stitch_main`` matching,
@@ -62,13 +62,25 @@ Phases (each prints its lines; any failure exits non-zero):
      at least once per output block; after the counts are read, each block
      the path blended is rebuilt from its work dir (``stitch_blocks``),
      must have the shapes launched, and is held bit-equal to the plain
-     version and timed as in phase 3;
+     version and timed as in phase 3; the block at (1, 1) is blended once
+     more after ``MontageRenderer.add_transfer_functions`` with a seeded
+     LUT of non-identity lines (``seeded_lut``) and held bit-equal to the
+     plain version, and ``generate_roi_mask`` at 1/16 must cover the union
+     of the placed tile rectangles to within 1 px; the general CG operator
+     (which the fused match schedule's per-round solve and the fused ENG
+     solve of optimization now launch) is held against its plain version
+     on a copy of each system the path bound it to, the most launched
+     timed as in phase 3; the first per-round match solve and the first
+     optimization solve run twice more on the inputs the path gave them;
   5. the align slice: 8 sections of 8192x8192 uint8 at 4 nm (a seeded
      texture moved by a cumulative N(0, 24 px) drift and a smooth warp,
      made on the card) go through ``feabas_tpu_torch.scripts.align_main``
      meshing, matching (working mip 2), optimization and rendering; the
      matches are checked against the analytic truth, the window against
-     the stacked solve, the render against section 0;
+     the stacked solve, the render against section 0; the operator's
+     systems are held as in phase 4; the first stacked window solve runs
+     twice more on its inputs, and ``relax_mesh`` three times on a
+     section's mesh carried through its tform (``relax_check``);
   6. the thumbnail slice: 6 sections of 8192x8192 uint8 at 4 nm, each a
      rigid motion of one seeded texture (turns of 0 or 30 degrees plus a
      draw within +-2 degrees, so that every pair is turned by about 0, +30
@@ -90,7 +102,20 @@ Phases (each prints its lines; any failure exits non-zero):
      operator must launch in matching and in optimization; after the
      counts are read, the operator is held against its plain version and
      timed, as in phase 3, on a copy of each system (NV, NT, L) the path
-     bound it to, taken as the path bound it.
+     bound it to, taken as the path bound it;
+  8. chunked alignment (``run_chunked``, after phase 5 on a copy of its
+     meshes and matches): the align CLI's optimization with
+     chunked_to_depth 2 and chunks of 2 (4 chunks -> 4 metas -> 2 chunks ->
+     2 metas -> a window); every tform written, every chunk committed, no
+     flipped triangle, pair residues within the rule of
+     tests/test_aligner.py against phase 5's windowed tforms; the same
+     command again on that tform dir must make no window solve and keep
+     every tform's bytes, and a run into a fresh copy must give the same
+     tforms bit for bit.
+After the phases one ``[determinism]`` line lists each solve whose sums
+once took CUDA atomics, run again in phase 4 or 5 on inputs its path gave
+it, bit-equal to itself and to what the path got (a difference fails the
+run).
 Each slice resets the kernels' launch counts just before it and reads
 them just after (in total and by shape), and fails if a kernel of its
 path never launched. Then one JSON line lists each of the eight kernels with
@@ -100,7 +125,8 @@ phase-3 checks; the line before
 last is nvidia-smi's card line; the last line is one JSON object
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 
-``--phases`` (a comma list of kernels, stitch, align, thumbnail, nonlinear) runs a
+``--phases`` (a comma list of kernels, stitch, align, chunked, thumbnail,
+nonlinear; chunked needs align) runs a
 part of it, for work on one path; the kernels line and the ok line are
 printed only by the whole run. ``--profile`` wraps each stitch and
 thumbnail stage in one ``torch.profiler`` pass and prints its device time
@@ -1022,13 +1048,14 @@ def check_montage(dev):
     return rows
 
 
-def stitch_blocks(wd):
+def stitch_blocks(wd, lut=None):
     """The montage blend's inputs for each output block that the stitch
     CLI's rendering stage blended on work dir ``wd``, rebuilt as that stage
     built them: the section's tform, the render settings, the plan of
     output blocks and the engine calls of
-    ``MontageRenderer.render_tile_list``. Yields (file name, bbox, blend,
-    ``montage_blend`` args, H, W)."""
+    ``MontageRenderer.render_tile_list``; with ``lut`` (renderer -> LUT)
+    after ``add_transfer_functions`` of its LUT. Yields (file name, bbox,
+    blend, ``montage_blend`` args, H, W)."""
     from feabas_tpu_torch import config
     from feabas_tpu_torch.stitcher import MontageRenderer
     rconf = config.stitch_configs().get('rendering', {})
@@ -1036,6 +1063,8 @@ def stitch_blocks(wd):
         os.path.join(wd, 'stitch', 'tform', 's0001.h5'),
         loader_config=rconf.get('loader_settings') or {},
         **(rconf.get('render_settings') or {}))
+    if lut is not None:
+        mr.add_transfer_functions(lut(mr))
     eng = mr._montage_device_engine()
     blend = str(mr._blend).upper()
     names = rconf.get('filename_settings') or {}
@@ -1172,14 +1201,17 @@ def read_rendered(out_dir, bbox):
     return out
 
 
-def stitch_stages(profile=False):
+def stitch_stages(profile=False, before=None):
     """Seconds of the stitch CLI's matching, optimization and rendering on
     the work dir ``setup_workdir`` made, each stage ended by a synchronize;
-    with ``profile`` each in one torch.profiler pass (``_profiled``)."""
+    with ``profile`` each in one torch.profiler pass (``_profiled``);
+    ``before(mode)`` is called before each stage."""
     import torch
     from feabas_tpu_torch.scripts import stitch_main
     stage_s = {}
     for mode in ('matching', 'optimization', 'rendering'):
+        if before is not None:
+            before(mode)
         t = time.perf_counter()
         _profiled(profile, f'stitch.{mode}',
                   lambda: stitch_main.main(['--mode', mode]))
@@ -1191,26 +1223,49 @@ def stitch_stages(profile=False):
 def run_slice(dev, profile=False):
     """Phase 4: the stitch path at full size through the stitch CLI, then
     the montage blend held against its plain version on each block the
-    path blended. Returns (launches, launches by shape, stage seconds,
-    the blend's rows)."""
+    path blended (and under seeded transfers), the ROI mask, the CG
+    operator on the systems the path bound it to, and the path's first
+    per-round match solve and fused ENG solve run again. Returns
+    (launches, launches by shape, stage seconds, the blend's and the
+    operator's rows)."""
     import numpy as np
     import torch
     import cv2
     from feabas_tpu_torch import device as device_mod
+    from feabas_tpu_torch import optimizer
+    from feabas_tpu_torch.ops import match_loop
     from feabas_tpu_torch.stitcher import Stitcher
 
     t0 = time.perf_counter()
     world, tiles, true_bb, stage_bb = make_grid(dev)
     root = tempfile.mkdtemp(prefix='feabas_chip_smoke_')
+    # observe, without changing them: the systems the path binds the CG
+    # operator to, and the inputs and result of the first per-round match
+    # solve and of the first fused ENG solve of stitch optimization
+    ops = OperatorSpy().__enter__()
+    rounds = FirstCall(match_loop, '_solve_round').__enter__()
+    eng = FirstCall(optimizer, '_linear_solve_eng').__enter__()
+    fem_by_stage = {}
+
+    def before(mode):
+        fem_by_stage[ops.stage] = device_mod.launch_counts()['fem_operator']
+        ops.stage = mode
+        eng.armed = mode == 'optimization'
+
     try:
         wd = setup_workdir(root, tiles, stage_bb)
         log(f'[slice] grid {ROWS}x{COLS} of {TILE_H}x{TILE_W} uint8 tiles, '
             f'world {world.shape}, set-up {time.perf_counter() - t0:.2f} s')
         torch.cuda.reset_peak_memory_stats()
         device_mod.reset_launch_counts()
-        stage_s = stitch_stages(profile)
+        stage_s = stitch_stages(profile, before)
+        before('')
         launches = device_mod.launch_counts()
         by_shape = device_mod.launch_counts_by_shape()
+        for x in (ops, rounds, eng):
+            x.__exit__()
+        fem_match = fem_by_stage['matching']
+        fem_opt = fem_by_stage['optimization'] - fem_match
         peak = torch.cuda.max_memory_allocated()
         log('[slice] stage seconds ' + json.dumps(
             {k: round(v, 3) for k, v in stage_s.items()})
@@ -1256,6 +1311,11 @@ def run_slice(dev, profile=False):
         for name in ('dog_filter', 'gaussian_blur', 'montage_blend'):
             if launches[name] <= 0:
                 raise RuntimeError(f'{name} was not launched by the slice')
+        if fem_match <= 0 or fem_opt <= 0:
+            raise RuntimeError(f'fem_operator launched {fem_match} times in '
+                               f'matching and {fem_opt} in optimization')
+        log(f'[slice] fem_operator launches: matching {fem_match}, '
+            f'optimization {fem_opt}')
         blocks = len([f for f in os.listdir(out_dir) if f.endswith('.png')])
         if launches['montage_blend'] < blocks:
             raise RuntimeError(f'{launches["montage_blend"]} montage_blend '
@@ -1269,9 +1329,90 @@ def run_slice(dev, profile=False):
             f'px, render cc {cc:.5f}')
         # after the counts were read: these launches compare, not count
         rows = montage_path_rows(dev, wd, by_shape['montage_blend'])
+        transfer_and_roi_checks(wd, true_bb)
+        rows += fem_path_rows(dev, ops.systems, by_shape['fem_operator'],
+                              'phase-4', FEM_TIMED)
+        for spy, solve in ((rounds, match_loop._solve_round),
+                           (eng, optimizer._linear_solve_eng)):
+            if spy.args is None:
+                raise RuntimeError(f'the stitch path made no {spy.name} call')
+            a, k = spy.args
+            # (NV, NT, L) of the system the solve bound the operator to
+            shape = ((a[0].shape[0] * a[0].shape[1], a[2].shape[0],
+                      a[6].shape[0] * a[6].shape[1])
+                     if spy.name == '_solve_round' else
+                     (a[11].shape[0], a[1].shape[0], a[10].shape[0]))
+            determinism_check(spy.name, shape, lambda: solve(*a, **k),
+                              spy.result)
         return launches, by_shape, stage_s, rows
     finally:
+        for x in (ops, rounds, eng):
+            x.__exit__()
         shutil.rmtree(root, ignore_errors=True)
+
+
+LUT_SEED = SEED + 11
+
+
+def seeded_lut(mr):
+    """A seeded INTERP1D LUT of one non-identity line for each tile of
+    ``mr`` (gain 0.8-1.2, offset -12-12 at control points 0, 128, 255)."""
+    import numpy as np
+    rng = np.random.default_rng(LUT_SEED)
+    xp = [0.0, 128.0, 255.0]
+    lut = {'__TYPE__': 'INTERP1D'}
+    for p in mr.loader.imgpaths:
+        g, o = rng.uniform(0.8, 1.2), rng.uniform(-12.0, 12.0)
+        lut[os.path.basename(p)] = [xp, [g * x + o for x in xp]]
+    return lut
+
+
+def transfer_and_roi_checks(wd, true_bb):
+    """Phase 4's checks of the ``MontageRenderer`` API on the stitch work
+    dir: the block at (1, 1) blended once more after
+    ``add_transfer_functions`` with ``seeded_lut``, the montage blend held
+    bit-equal to its plain version there (and its output changed by the
+    transfers); ``generate_roi_mask`` at scale 1/16 within 1 px of the
+    union of the tiles' placed rectangles."""
+    import numpy as np
+    import scipy.ndimage as ndi
+    from feabas_tpu_torch import config
+    from feabas_tpu_torch.ops import montage_render as mrd
+    from feabas_tpu_torch.stitcher import MontageRenderer
+    plain = next(b for b in stitch_blocks(wd) if tuple(b[1][:2]) == (1, 1))
+    tuned = next(b for b in stitch_blocks(wd, lut=seeded_lut)
+                 if tuple(b[1][:2]) == (1, 1))
+    aux = tuned[3][4]
+    if not (aux[:, 3] != 1).all() or not (aux[:, 4] != 0).all():
+        raise RuntimeError(f'the LUT did not reach the blend: aux {aux}')
+    out = montage_compare({'args': tuned[3], 'covered': True})
+    if mrd.montage_blend(*plain[3])[0].equal(out[0]):
+        raise RuntimeError('the transfers left the block unchanged')
+    rconf = config.stitch_configs().get('rendering', {})
+    mr = MontageRenderer.from_h5(
+        os.path.join(wd, 'stitch', 'tform', 's0001.h5'),
+        loader_config=rconf.get('loader_settings') or {})
+    scale = 1.0 / 16
+    mask = mr.generate_roi_mask(scale=scale) > 0
+    # pixel (r, c) sits at (floor(x0 * scale) + c, floor(y0 * scale) + r)
+    x0, y0 = np.floor(np.asarray(mr.bounds[:2]) * scale)
+    rects = np.zeros(mask.shape, bool)
+    yy, xx = np.mgrid[:mask.shape[0], :mask.shape[1]]
+    for m in mr.meshes:
+        bx0, by0, bx1, by1 = (np.asarray(m.bbox(gear='MOVING')) * scale
+                              - [x0, y0, x0, y0])
+        rects |= (xx >= bx0) & (xx < bx1) & (yy >= by0) & (yy < by1)
+    inner = ndi.binary_erosion(rects, iterations=1, border_value=1)
+    outer = ndi.binary_dilation(rects, iterations=1)
+    if not ((mask >= inner) & (mask <= outer)).all():
+        raise RuntimeError('generate_roi_mask at 1/16 is off the tiles\' '
+                           f'union by more than 1 px: {int((mask != rects).sum())} '
+                           f'of {mask.size} px differ')
+    log(f'[slice] block at (1, 1) under seeded transfers (gain '
+        f'{aux[:, 3].min():.3f}-{aux[:, 3].max():.3f}): montage_blend '
+        f'bit-equal to plain; ROI mask {mask.shape} at 1/16 within 1 px of '
+        f'the union of {len(mr.meshes)} tile rectangles ({int(mask.sum())} '
+        f'px, {int((mask != rects).sum())} on the edge)')
 
 
 # phase 5: the serial-section stack
@@ -1431,14 +1572,18 @@ def align_overlay_ccs(wd, names):
     return ccs
 
 
-def run_align(dev):
+def run_align(dev, chunked=False):
     """Phase 5: the serial-section stack at full size through the align
-    CLI (meshing, matching, optimization, rendering)."""
+    CLI (meshing, matching, optimization, rendering); with ``chunked``
+    phase 8 (``run_chunked``) follows on its work dir. Returns (launches,
+    launches by shape, stage seconds, the CG operator's rows, phase 8's
+    result or None)."""
     import numpy as np
     import torch
     from feabas_tpu_torch import aligner, state
     from feabas_tpu_torch import device as device_mod
     from feabas_tpu_torch.ops import render
+    from feabas_tpu_torch.parallel import window
     from feabas_tpu_torch.scripts import align_main
 
     t0 = time.perf_counter()
@@ -1481,6 +1626,10 @@ def run_align(dev):
     render.raster_blocks = raster_spy
     render.DeviceRenderEngine.render_blocks = render_spy
     state.render_batch_to_device = upload_spy
+    # the systems the path binds the CG operator to, and the inputs and
+    # result of its first stacked window solve
+    ops = OperatorSpy().__enter__()
+    stacks = FirstCall(window, 'stack_solve').__enter__()
     try:
         wd, names = setup_align_workdir(root, sections)
         log(f'[align] {STACK_S} sections of {SECTION}x{SECTION} uint8, drift '
@@ -1488,14 +1637,18 @@ def run_align(dev):
             f'{time.perf_counter() - t0:.2f} s')
         torch.cuda.reset_peak_memory_stats()
         device_mod.reset_launch_counts()
-        stage_s = {}
+        stage_s, fem_by_stage = {}, {}
         for mode in ('meshing', 'matching', 'optimization', 'rendering'):
+            ops.stage = mode
             t = time.perf_counter()
             align_main.main(['--mode', mode])
             torch.cuda.synchronize()
             stage_s[mode] = time.perf_counter() - t
+            fem_by_stage[mode] = device_mod.launch_counts()['fem_operator']
         launches = device_mod.launch_counts()
         by_shape = device_mod.launch_counts_by_shape()
+        ops.__exit__()
+        stacks.__exit__()
         peak = torch.cuda.max_memory_allocated()
         log('[align] stage seconds ' + json.dumps(
             {k: round(v, 3) for k, v in stage_s.items()})
@@ -1513,9 +1666,11 @@ def run_align(dev):
         if not min(ccs) > 0.85:
             raise RuntimeError(f'rendered overlay cc {ccs}, median match '
                                f'errors {errs}')
-        for name in ('dog_filter', 'mesh_raster'):
+        for name in ('dog_filter', 'mesh_raster', 'fem_operator'):
             if launches[name] <= 0:
                 raise RuntimeError(f'{name} was not launched by the align path')
+        log(f'[align] fem_operator launches by stage (cumulative) '
+            f'{fem_by_stage}')
         if raster_blocks[0] < device_blocks[0] or device_blocks[0] == 0:
             raise RuntimeError(f'{raster_blocks[0]} blocks rasterized by the '
                                f'kernel for {device_blocks[0]} device blocks')
@@ -1531,13 +1686,213 @@ def run_align(dev):
             f'around the {len(raster_events)} raster calls (the kernel and, '
             f'on an idle card, the wait for its launch), {upload_s[0]:.3f} s '
             f'of host time in the {len(raster_events)} batch uploads')
-        return launches, by_shape, stage_s
+        # after the counts were read: these launches compare, not count
+        rows = fem_path_rows(dev, ops.systems, by_shape['fem_operator'],
+                             'phase-5', FEM_TIMED)
+        if stacks.args is None:
+            raise RuntimeError('the align path made no stack_solve call')
+        a, k = stacks.args
+        determinism_check('stack_solve', a[1].shape[:2],
+                          lambda: window.stack_solve(*a, **k), stacks.result)
+        relax_check(dev, wd, names[STACK_S // 2])
+        aligner.Stack._sharded_window_solve = solve
+        result8 = run_chunked(dev, root, wd, names) if chunked else None
+        return launches, by_shape, stage_s, rows, result8
     finally:
         aligner.Stack._sharded_window_solve = solve
         render.raster_blocks = raster
         render.DeviceRenderEngine.render_blocks = engine_render
         state.render_batch_to_device = upload
+        ops.__exit__()
+        stacks.__exit__()
         shutil.rmtree(root, ignore_errors=True)
+
+
+def relax_check(dev, wd, name):
+    """``relax_mesh`` on what align meshing gives it where a section has a
+    thumbnail tform: the section's phase-5 mesh carried through a tform
+    (here its phase-5 tform), relaxing the vertices of its most deformed
+    tenth of triangles; three calls from one placement, bit-equal."""
+    import numpy as np
+    from feabas_tpu_torch import optimizer
+    from feabas_tpu_torch.mesh import Mesh, transform_mesh
+    mesh = Mesh.from_h5(os.path.join(wd, 'align', 'mesh', name + '.h5'))
+    carrier = Mesh.from_h5(os.path.join(wd, 'align', 'tform', name + '.h5'))
+    carrier.change_resolution(mesh.resolution)
+    moved = transform_mesh(mesh, carrier)
+    d = moved.svds_to_deform(gear1='MOVING')
+    free = np.zeros(moved.num_vertices, bool)
+    free[np.unique(moved.triangles[d >= np.quantile(d, 0.9)])] = True
+
+    def run():
+        m = moved.copy()
+        optimizer.relax_mesh(m, free_vertices=free, device=dev)
+        return m.vertices_w_offset('MOVING')
+
+    first = run()
+    if not np.isfinite(first).all():
+        raise RuntimeError(f'relax_mesh on {name}: non-finite vertices')
+    determinism_check('relax_mesh', (moved.num_vertices,
+                                     moved.num_triangles), run, first)
+
+
+# phase 8: chunked alignment over phase 5's stack
+CHUNK_SETTINGS = {'chunked_to_depth': 2, 'default_chunk_size': 2,
+                  'junction_width': 0.2, 'pad_junctional': True}
+
+
+def chunked_workdir(root, wd, tag):
+    """A work dir holding phase 5's meshes, matches and overrides (no
+    tform), with CHUNK_SETTINGS added to its alignment overrides, and a
+    config dir naming it; points the config system at it. Returns it."""
+    from feabas_tpu_torch import config, storage
+    cfg = os.path.join(root, 'configs_' + tag)
+    shutil.copytree(os.path.join(root, 'configs'), cfg)
+    out = os.path.join(root, 'work_dir_' + tag)
+    for sub in ('align/mesh', 'align/matches', 'configs'):
+        shutil.copytree(os.path.join(wd, sub), os.path.join(out, sub))
+    general = os.path.join(cfg, 'general_configs.yaml')
+    _save_yaml(general, dict(storage.load_yaml(general),
+                             working_directory=out))
+    over = os.path.join(out, 'configs', 'alignment_configs.yaml')
+    conf = storage.load_yaml(over)
+    conf.setdefault('optimization', {})['chunk_settings'] = dict(
+        CHUNK_SETTINGS)
+    _save_yaml(over, conf)
+    os.environ['FEABAS_TPU_CONFIG_DIR'] = cfg
+    config.clear_config_caches()
+    return out
+
+
+def pair_residues(wd, tform_dir, names):
+    """Median residue (px) of each neighbouring pair's matches at the tforms
+    in ``tform_dir``."""
+    import numpy as np
+    from feabas_tpu_torch import aligner
+    from feabas_tpu_torch.optimizer import Link
+    stack = aligner.Stack(section_list=names,
+                          mesh_dir=os.path.join(wd, 'align', 'mesh'),
+                          tform_dir=tform_dir,
+                          match_dir=os.path.join(wd, 'align', 'matches'))
+    meds = []
+    for pair in stack.match_list:
+        mt = stack.get_match(pair)
+        link = Link.from_coordinates(stack.get_mesh(pair[0]),
+                                     stack.get_mesh(pair[1]), mt.xy0, mt.xy1,
+                                     weight=mt.weight)
+        meds.append(float(np.median(link.residues(gear='MOVING'))))
+    return np.asarray(meds)
+
+
+def run_chunked(dev, root, wd, names):
+    """Phase 8: the optimization stage of the align CLI with CHUNK_SETTINGS
+    (depth 2, chunks of 2: 4 chunks -> 4 metas -> 2 chunks -> 2 metas -> a
+    window) over phase 5's meshes and matches on a copy of its work dir;
+    then the same command again on that tform dir (a resume: no window
+    solve, every tform's bytes kept), then once more into a fresh copy
+    (bit-equal tforms). Checks every tform, every chunk committed, no
+    flipped triangle, and the residue rule of tests/test_aligner.py against
+    phase 5's windowed tforms. Returns (launches, launches by shape, stage
+    seconds, no rows)."""
+    import glob
+    import numpy as np
+    import torch
+    from feabas_tpu_torch import aligner
+    from feabas_tpu_torch import device as device_mod
+    from feabas_tpu_torch.mesh import Mesh
+    from feabas_tpu_torch.scripts import align_main
+    solves = [0, 0]
+    stacked, window = (aligner.Stack._sharded_window_solve,
+                       aligner.Stack.optimize_section_list)
+
+    def stacked_spy(self, *a, **k):
+        solves[0] += 1
+        return stacked(self, *a, **k)
+
+    def window_spy(self, *a, **k):
+        solves[1] += 1
+        return window(self, *a, **k)
+
+    def optimization(wd8):
+        solves[:] = [0, 0]
+        t = time.perf_counter()
+        align_main.main(['--mode', 'optimization'])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, tuple(solves)
+
+    def tforms(wd8):
+        out = {}
+        for n in names:
+            path = os.path.join(wd8, 'align', 'tform', n + '.h5')
+            if not os.path.exists(path):
+                raise RuntimeError(f'phase 8: no tform for {n}')
+            with open(path, 'rb') as f:
+                out[n] = (f.read(), Mesh.from_h5(path))
+        return out
+
+    aligner.Stack._sharded_window_solve = stacked_spy
+    aligner.Stack.optimize_section_list = window_spy
+    try:
+        wd8 = chunked_workdir(root, wd, 'chunked')
+        torch.cuda.reset_peak_memory_stats()
+        device_mod.reset_launch_counts()
+        stage_s, first = {}, {}
+        stage_s['first'], first['solves'] = optimization(wd8)
+        launches = device_mod.launch_counts()
+        by_shape = device_mod.launch_counts_by_shape()
+        peak = torch.cuda.max_memory_allocated()
+        got = tforms(wd8)
+        maps = sorted(glob.glob(os.path.join(wd8, 'align', 'chunked_tform',
+                                             '**', 'chunk_map.json'),
+                                recursive=True))
+        chunks = []
+        for path in maps:
+            with open(path) as f:
+                chunks.append(json.load(f)['chunks'])
+        if (len(maps) != CHUNK_SETTINGS['chunked_to_depth']
+                or not all(c['committed'] for m in chunks for c in m)):
+            raise RuntimeError(f'phase 8: chunk maps {maps}: {chunks}')
+        flips = {n: int(m.flipped_triangles('MOVING').size)
+                 for n, (_, m) in got.items()}
+        if any(flips.values()):
+            raise RuntimeError(f'phase 8: flipped triangles {flips}')
+        r_c = pair_residues(wd8, os.path.join(wd8, 'align', 'tform'), names)
+        r_w = pair_residues(wd, os.path.join(wd, 'align', 'tform'), names)
+        if not (len(r_c) == len(names) - 1
+                and r_c.max() < max(2.5 * r_w.max(), 1.0)
+                and np.median(r_c) < max(3 * np.median(r_w), 0.5)):
+            raise RuntimeError(f'phase 8: pair residues {r_c} px against '
+                               f'the windowed {r_w} px')
+        stage_s['resume'], resumed = optimization(wd8)
+        if resumed != (0, 0):
+            raise RuntimeError(f'phase 8: the resume made {resumed} '
+                               '(stacked, window) solves')
+        if any(b != got[n][0] for n, (b, _) in tforms(wd8).items()):
+            raise RuntimeError('phase 8: the resume rewrote a tform')
+        wd8b = chunked_workdir(root, wd, 'chunked_again')
+        stage_s['again'], _ = optimization(wd8b)
+        again = tforms(wd8b)
+        for n, (_, m) in got.items():
+            for gear in ('MOVING', 'FIXED'):
+                if not np.array_equal(m.vertices_w_offset(gear),
+                                      again[n][1].vertices_w_offset(gear)):
+                    raise RuntimeError(f'phase 8: {n} differs between two '
+                                       f'runs ({gear} gear)')
+        log('[chunked] stage seconds ' + json.dumps(
+            {k: round(v, 3) for k, v in stage_s.items()})
+            + f'; max_memory_allocated {peak} B; launches {launches}')
+        log(f'[chunked] {len(names)} sections, {CHUNK_SETTINGS}: '
+            f'{first["solves"][1]} window solves ({first["solves"][0]} '
+            f'stacked) in the first run, none in the resume; chunk maps '
+            f'{[len(m) for m in chunks]} chunks, all committed; no flipped '
+            f'triangle; pair residue medians max {r_c.max():.4f} / median '
+            f'{np.median(r_c):.4f} px against the windowed {r_w.max():.4f} '
+            f'/ {np.median(r_w):.4f}; the resume kept every tform\'s bytes '
+            'and a fresh run gave the same tforms bit for bit')
+        return launches, by_shape, stage_s, []
+    finally:
+        aligner.Stack._sharded_window_solve = stacked
+        aligner.Stack.optimize_section_list = window
 
 
 # --------------- phase 3 and 7: the general CG operator (K5/K6) --------------- #
@@ -1547,17 +1902,27 @@ FEM_LIBRARY_RTOL = 1e-4  # the library's CSR product sums otherwise again
 FEM_TURNS = 5           # timed turns of the kernel and the library call
 
 
-def fem_bound(nv, nt, nl):
-    """The operator's least time: what the function needs, each once (f32
-    data, int32 indices): Ke, tris, the link indices and barycentrics,
-    weight, free, x and y; 26 FLOP an element corner (two rows of 6 FMAs
-    and their sums), 30 a link for its weighted residual once, 4 a link
-    entry, 8 a vertex. The kernel's own CSR tables are its design's cost,
-    not the function's, and are not counted."""
-    nbytes = 4 * (nt * 36 + nt * 3 + 6 * nl + 6 * nl + nl
-                  + nv + 2 * nv + 2 * nv)
-    flop = nt * 3 * 26 + nl * 30 + 6 * nl * 4 + nv * 8
+def fem_bound(nv, nt, nl, sides):
+    """The operator's least time over ``nl`` links that weigh and ``sides``
+    link sides that the function reads (two a link, one an anchor's: a
+    side that weighs nothing and a link weighed 0 in every solve are not
+    read): what it needs, each once (f32 data, int32 indices): Ke, tris, a
+    side's 3 indices and 3 barycentrics, a link's weight, free, x and y;
+    26 FLOP an element corner (two rows of 6 FMAs and their sums), 12 a
+    side and 6 a link for the weighted residual once, 4 a side's point, 8
+    a vertex. The kernel's own CSR tables are its design's cost, not the
+    function's, and are not counted."""
+    nbytes = 4 * (nt * 36 + nt * 3 + 6 * sides + nl + nv + 2 * nv + 2 * nv)
+    flop = nt * 3 * 26 + sides * 12 + nl * 6 + 3 * sides * 4 + nv * 8
     return bound(flop, nbytes)
+
+
+def listed_links(tables):
+    """(links, sides) that ``tables`` list: the links that have an entry
+    and the link sides, one for every three entries."""
+    import torch
+    ent = tables['lnk_ent'][:int(tables['lnk_ptr'][-1])].long()
+    return int(torch.unique(ent // 6).numel()), int(ent.numel()) // 3
 
 
 def operator_csr(Ke, tables, weight, free, lam_s, lam_c):
@@ -1637,7 +2002,7 @@ def fem_row(name, x, Ke, tables, weight, free, lam_s, lam_c):
     del A
     nv, nt, nl = x.shape[0], Ke.shape[0], weight.shape[0]
     row = kernel_row('fem_operator', (nv, nt, nl), name, max(errs), ms, pms,
-                     fem_bound(nv, nt, nl), lms)
+                     fem_bound(nv, nt, *listed_links(tables)), lms)
     row['form'] = f'G{tables["group"]}'
     row['device_us'] = form_us[row['form']]
     row['form_device_us'] = form_us
@@ -1684,9 +2049,12 @@ def fem_pair_system(dev, nl=FEM_LINKS):
     l0 = np.sort(rng.integers(0, len(t0), nl))
     b0 = rng.dirichlet(np.ones(3), nl)
     b1 = rng.dirichlet(np.ones(3), nl)
-    tables = fem.operator_tables_to(fem.build_operator_tables(
-        tris, len(verts), tris[l0], b0, tris[l0 + len(t0)], b1),
-        dev, torch.float32)
+    idx = torch.as_tensor(tris, device=dev)
+    tables = fem.operator_tables(
+        idx, len(verts), idx[l0], torch.as_tensor(b0, dtype=torch.float32,
+                                                  device=dev),
+        idx[l0 + len(t0)], torch.as_tensor(b1, dtype=torch.float32,
+                                           device=dev))
     B, a2 = fem.shape_matrices(torch.as_tensor(verts[tris], dtype=torch.float32,
                                                device=dev))
     Ke = fem.eng_element_stiffness(
@@ -1709,21 +2077,308 @@ def check_fem(dev):
                     *fem_pair_system(dev))]
 
 
-def fem_path_rows(dev, systems, launched):
-    """``fem_row`` on each system the phase-7 path bound the operator to
-    (``run_nonlinear`` keeps a copy of the first of each (NV, NT, L) shape,
-    with the lambdas the path gave it), on a seeded x. ``launched``:
-    {'NVxNTxL': the path's launches}."""
+FEM_TIMED = 2           # shapes of phases 4-6 timed in full: the most
+                        # launched of each path
+
+
+def fem_check(name, x, Ke, tables, weight, free, lam_s, lam_c):
+    """The operator on one system at the G its tables chose: bit-equal to
+    itself across two launches and within FEM_RTOL of max|y| of the plain
+    version; ``fem_row`` without the timing."""
     import torch
-    rows = []
-    for (nv, nt, nl), (stage, *system) in systems.items():
+    from feabas_tpu_torch.ops import fem
+    want = fem.elastic_operator_plain(x, Ke, tables, weight, free, lam_s,
+                                      lam_c)
+    op = fem.bind_elastic_operator(Ke, tables, weight, free, lam_s, lam_c)
+    got, again = op(x), op(x)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, again):
+        raise RuntimeError(f'fem_operator {name}: two launches differ')
+    if not err <= FEM_RTOL * float(want.abs().max()):
+        raise RuntimeError(f'fem_operator {name}: max_abs_err {err}')
+    return err
+
+
+def fem_path_rows(dev, systems, launched, phase='phase-7', timed=None):
+    """The operator on each system a path bound it to (``OperatorSpy``'s
+    copies of the first system of each (NV, NT, L) shape, with the lambdas
+    the path gave it), on a seeded x: the ``timed`` shapes the path
+    launched most (all with None) through ``fem_row`` (checked and timed),
+    every other one through ``fem_check``. ``launched``: {'NVxNTxL': the
+    path's launches}."""
+    import torch
+    rows, others = [], []
+    keys = sorted(systems, key=lambda k: -launched.get('x'.join(map(str, k)),
+                                                       0))
+    for i, (nv, nt, nl) in enumerate(keys):
+        stage, *system = systems[(nv, nt, nl)]
         g = torch.Generator(device=dev).manual_seed(SEED)
         x = torch.randn((nv, 2), generator=g, device=dev,
                         dtype=system[0].dtype)
-        key = f'{nv}x{nt}x{nl}'
-        rows.append(fem_row(f'phase-7 {stage} system ({launched.get(key, 0)} '
-                            'launches)', x, *system))
+        n = launched.get(f'{nv}x{nt}x{nl}', 0)
+        name = f'{phase} {stage} system ({n} launches)'
+        if timed is None or i < timed:
+            rows.append(fem_row(name, x, *system))
+        else:
+            others.append(fem_check(name, x, *system))
+    if others:
+        log(f'[kernel] fem_operator: {len(others)} more {phase} shapes, each '
+            f'bit-equal across two launches, max_abs_err <= {max(others):.3e} '
+            'against the plain version')
     return rows
+
+
+class OperatorSpy:
+    """While active, keeps a copy of the first system of each (NV, NT, L)
+    shape that ``fem.bind_elastic_operator`` is bound to, and the stage
+    (``stage``) that bound it; copies launch no counted kernel."""
+
+    def __init__(self):
+        self.systems, self.stage = {}, ''
+
+    def __enter__(self):
+        import torch
+        from feabas_tpu_torch.ops import fem
+        self._bind = bind = fem.bind_elastic_operator
+
+        def spy(Ke, tables, weight, free, lam_s, lam_c):
+            key = (tables['nv'], tables['nt'], tables['nl'])
+            if key not in self.systems:
+                self.systems[key] = (self.stage, Ke.clone(), {
+                    k: v.clone() if torch.is_tensor(v) else v
+                    for k, v in tables.items()}, weight.clone(), free.clone(),
+                    float(lam_s), float(lam_c))
+            return bind(Ke, tables, weight, free, lam_s, lam_c)
+
+        fem.bind_elastic_operator = spy
+        return self
+
+    def __exit__(self, *exc):
+        from feabas_tpu_torch.ops import fem
+        fem.bind_elastic_operator = self._bind
+
+
+def _copied(x):
+    """x with every tensor in it cloned (tuples, lists and dicts walked)."""
+    import torch
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_copied(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _copied(v) for k, v in x.items()}
+    return x
+
+
+class FirstCall:
+    """While active, keeps a copy of the arguments and the result of the
+    first call of ``module.<name>`` made while ``armed`` is true."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.armed, self.args, self.result = True, None, None
+
+    def __enter__(self):
+        self._fn = fn = getattr(self.module, self.name)
+
+        def spy(*a, **k):
+            keep = self.armed and self.args is None
+            if keep:
+                args = (_copied(a), _copied(k))
+            out = fn(*a, **k)
+            if keep:
+                self.args, self.result = args, _copied(out)
+            return out
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._fn)
+
+
+def _same_bits(a, b):
+    """True when a and b (tensors or arrays, or tuples of them) hold the
+    same bits."""
+    import numpy as np
+    import torch
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(_same_bits, a, b))
+    a = a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    b = b.cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
+    return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+# [determinism] entries: (solve, system shape), filled by the phases
+DETERMINISM = []
+
+
+def determinism_check(solve, shape, fn, path_result):
+    """``fn()`` (a solve on inputs a path gave it) twice: both bit-equal to
+    each other and to what the path got. Records the solve and fails
+    otherwise."""
+    import torch
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    if not (_same_bits(first, second) and _same_bits(first, path_result)):
+        raise RuntimeError(f'{solve} {shape}: two calls on equal inputs '
+                           'differ, or differ from the path')
+    DETERMINISM.append((solve, shape))
+
+
+def log_determinism():
+    if DETERMINISM:
+        log('[determinism] ' + '; '.join(
+            f'{s} {tuple(shape)} bit-equal' for s, shape in DETERMINISM))
+
+
+def synthetic_stack(S=4, ragged=False, seed=0, n_pts=5):
+    """S port meshes of 100^2 linked by seeded matches and moved by a
+    seeded cumulative drift, the first locked, packed as a stacked window
+    system (lattice-packed when the topologies agree)."""
+    import numpy as np
+    from feabas_tpu_torch.mesh import Mesh
+    from feabas_tpu_torch.parallel import window
+    rng = np.random.default_rng(seed)
+    meshes = []
+    for z in range(S):
+        m = Mesh.from_bbox((0, 0, 100, 100), cartesian=not ragged,
+                           mesh_size=25 + (5 * z if ragged else 0), uid=z,
+                           name=f'z{z}')
+        m.locked = z == 0
+        meshes.append(m)
+    drift = np.cumsum(rng.normal(0, 2.0, (S, 2)), axis=0)
+    xs, ys = np.meshgrid(np.linspace(10, 90, n_pts),
+                         np.linspace(10, 90, n_pts))
+    pts = np.stack([xs.ravel(), ys.ravel()], -1)
+    links = []
+    for z in range(S - 1):
+        p1 = pts + rng.uniform(-1, 1, pts.shape)
+        tid0 = meshes[z].tri_finder(pts, gear='INITIAL')
+        tid1 = meshes[z + 1].tri_finder(p1, gear='INITIAL')
+        links.append({
+            'idx0': meshes[z].triangles[tid0],
+            'bary0': meshes[z].cart2bary(pts, tid0, gear='INITIAL'),
+            'idx1': meshes[z + 1].triangles[tid1],
+            'bary1': meshes[z + 1].cart2bary(p1, tid1, gear='INITIAL'),
+            'weight': rng.uniform(0.5, 1.0, len(pts))})
+    for z, m in enumerate(meshes):
+        m.set_translation(drift[z], gear=('INITIAL', 'MOVING'))
+    return window.build_stack_system(meshes, links)
+
+
+def round_case(dev, P=3, B=24):
+    """The arguments of ``match_loop._solve_round`` for one seeded round of
+    the fused match schedule: P pairs of 200^2 meshes with B blocks each,
+    the last fifth padding (weight 0), built as ``fused_rounds_batched``
+    builds them."""
+    import numpy as np
+    import torch
+    from feabas_tpu_torch.mesh import Mesh
+    from feabas_tpu_torch.ops import fem, match_loop
+    rng = np.random.default_rng(SEED + 2)
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(np.array(a), dtype=dt, device=dev)
+
+    m = Mesh.from_bbox((0, 0, 200, 200), cartesian=True, mesh_size=30)
+    verts, tris = m.vertices_w_offset('INITIAL'), m.triangles
+    V, E = len(verts), len(tris)
+    shape1 = t(np.broadcast_to(verts, (P, V, 2)))
+    pos = shape1 + t(rng.normal(0, 0.5, (P, V, 2)))
+    tris_flat = match_loop._flat_idx(
+        t(np.broadcast_to(tris, (P, E, 3)), torch.int64), V).reshape(-1, 3)
+    Bm, a2 = fem.shape_matrices(shape1.reshape(-1, 2)[tris_flat])
+    Ke = fem.eng_element_stiffness(Bm, a2, t(np.ones(P * E)),
+                                   t(np.full(P * E, 0.3)))
+    by_corner = fem.fixed_sum(tris_flat, P * V)
+    dK = by_corner(torch.diagonal(Ke, dim1=1, dim2=2).reshape(-1, 2)
+                   ).reshape(P, V, 2)
+    idx_a = t(tris[rng.integers(0, E, (P, B))], torch.int64)
+    idx0_a = t(tris[rng.integers(0, E, (P, B))], torch.int64)
+    bary_a = t(rng.dirichlet(np.ones(3), (P, B)))
+    bary0_a = t(rng.dirichlet(np.ones(3), (P, B)))
+    targets = (match_loop._bary_eval(pos, idx_a, bary_a)
+               + t(rng.normal([2.0, -1.0], 0.5, (P, B, 2))))
+    valid = t(np.arange(B) < B - B // 5).expand(P, B)
+    w = t(rng.uniform(0.3, 1.0, (P, B))) * valid
+    rs = match_loop._round_system(tris_flat, V, idx_a, bary_a, V, idx0_a,
+                                  valid)
+    return (pos, shape1, Ke, by_corner, dK, rs, idx_a, bary_a, w, targets,
+            0.35, 1e-8, 600, dK, bary0_a)
+
+
+def solve_cases(dev):
+    """Seeded small inputs of the four solves that summed with CUDA
+    ``index_add_`` before their sums took a fixed order: {name: fn}, each
+    fn running its solve once from the same inputs and returning what it
+    gives (``fem_tune.py repeat`` and tests/test_torch_determinism.py)."""
+    import numpy as np
+    import torch
+    from feabas_tpu_torch import optimizer, state
+    from feabas_tpu_torch.mesh import Mesh
+    from feabas_tpu_torch.ops import match_loop
+    from feabas_tpu_torch.parallel import window
+    f32 = torch.float32
+    rng = np.random.default_rng(SEED)
+
+    # the fused ENG solve: three meshes, the first locked, linked pairwise
+    slm = optimizer.SLM([Mesh.from_bbox(b, cartesian=True, mesh_size=20,
+                                        uid=i, locked=i == 0)
+                         for i, b in enumerate(((0, 0, 100, 100),
+                                                (80, 0, 180, 100),
+                                                (0, 80, 100, 180)))],
+                        device=dev)
+    for a, b, box in ((0, 1, (82, 98, 5, 95)), (0, 2, (5, 95, 82, 98)),
+                      (1, 2, (82, 98, 82, 98))):
+        pts = np.stack([rng.uniform(box[0], box[1], 30),
+                        rng.uniform(box[2], box[3], 30)], -1)
+        slm.add_link_from_coordinates(a, b, pts, pts + rng.normal(
+            [3.0, -2.0], 0.3, pts.shape))
+    snap = slm._snapshot_positions('MOVING')
+
+    def fused_eng():
+        slm._restore_positions(snap, 'MOVING')
+        slm.optimize_linear(stiffness_lambda=-0.5, crosslink_lambda=-1.0,
+                            tol=1e-6)
+        return tuple(m.vertices_w_offset('MOVING') for m in slm.meshes)
+
+    # the stacked window solve, lattice-packed with its link transpose (the
+    # align path's form) and ragged with neither (the fixed-order sums)
+    def stack(ragged, linc):
+        system = synthetic_stack(S=5, ragged=ragged)
+        S, V = system['u'].shape[:2]
+        if linc:
+            system['linc'] = window.build_link_transpose(system['links'], S,
+                                                         V)
+        ts = state.window_system_to_device(system, dev, f32)
+        modes = window.stack_rigid_modes(system)
+        return lambda: window.stack_solve(
+            ts['verts0'], ts['u'], ts['tris'], ts['multiplier'],
+            ts['poisson'], ts['links'], ts['r_rest'], ts['free'], tol=1e-7,
+            maxiter=500, modes=None if modes is None else state.to_tensors(
+                modes, dev, f32), lam_ratio=1.0,
+            grid_shape=system.get('grid_shape'), linc=ts.get('linc'),
+            sten=ts.get('sten'))
+
+    # relax_mesh: the middle of a jittered 200^2 mesh free
+    rm = Mesh.from_bbox((0, 0, 200, 200), cartesian=False, mesh_size=25)
+    v = rm.vertices_w_offset('INITIAL')
+    bent = v + rng.normal(0, 2.0, v.shape)
+    free = np.linalg.norm(v - [100, 100], axis=-1) < 60
+
+    def relax():
+        rm.set_vertices(bent, 'MOVING', offset=(0.0, 0.0))
+        optimizer.relax_mesh(rm, free_vertices=free, device=dev)
+        return rm.vertices_w_offset('MOVING')
+
+    round_args = round_case(dev)
+    return {'_linear_solve_eng': fused_eng,
+            '_solve_round': lambda: match_loop._solve_round(*round_args),
+            'stack_solve, lattice + link transpose': stack(False, True),
+            'stack_solve, ragged, fixed-order sums': stack(True, False),
+            'relax_mesh': relax}
 
 
 # phase 7: the nonlinear align slice
@@ -1766,7 +2421,6 @@ def run_nonlinear(dev):
     from feabas_tpu_torch import aligner
     from feabas_tpu_torch import device as device_mod
     from feabas_tpu_torch.mesh import Mesh
-    from feabas_tpu_torch.ops import fem
     from feabas_tpu_torch.scripts import align_main
 
     t0 = time.perf_counter()
@@ -1780,21 +2434,7 @@ def run_nonlinear(dev):
         return stacked[-1]
 
     aligner.Stack._sharded_window_solve = solve_spy
-    # a copy of the first system of each shape the path binds the operator
-    # to, and the stage that bound it (copies launch no counted kernel)
-    systems, stage = {}, ['']
-    bind = fem.bind_elastic_operator
-
-    def bind_spy(Ke, tables, weight, free, lam_s, lam_c):
-        key = (tables['nv'], tables['nt'], tables['nl'])
-        if key not in systems:
-            systems[key] = (stage[0], Ke.clone(), {
-                k: v.clone() if torch.is_tensor(v) else v
-                for k, v in tables.items()}, weight.clone(), free.clone(),
-                float(lam_s), float(lam_c))
-        return bind(Ke, tables, weight, free, lam_s, lam_c)
-
-    fem.bind_elastic_operator = bind_spy
+    spy = OperatorSpy().__enter__()
     try:
         wd, names = setup_align_workdir(root, sections)
         del sections
@@ -1805,7 +2445,7 @@ def run_nonlinear(dev):
         device_mod.reset_launch_counts()
         stage_s, by_stage = {}, {}
         for mode in ('meshing', 'matching', 'optimization', 'rendering'):
-            stage[0] = mode
+            spy.stage = mode
             t = time.perf_counter()
             align_main.main(['--mode', mode])
             torch.cuda.synchronize()
@@ -1855,12 +2495,12 @@ def run_nonlinear(dev):
             f'{curves}, no flipped triangle, overlay cc {min(ccs):.5f}-'
             f'{max(ccs):.5f}')
         # after the counts were read: these launches compare, not count
-        fem.bind_elastic_operator = bind
-        rows = fem_path_rows(dev, systems, by_shape['fem_operator'])
+        spy.__exit__()
+        rows = fem_path_rows(dev, spy.systems, by_shape['fem_operator'])
         return launches, by_shape, stage_s, rows
     finally:
         aligner.Stack._sharded_window_solve = solve
-        fem.bind_elastic_operator = bind
+        spy.__exit__()
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -2409,7 +3049,9 @@ def _profiled(profile, label, fn):
 
 def run_thumbnail(dev, size=SECTION, profile=False):
     """Phase 6: the turned stack at full size through the thumbnail CLI
-    (downsample, then alignment = matching, optimization, render)."""
+    (downsample, then alignment = matching, optimization, render), then
+    the CG operator on the systems the path bound it to. Returns
+    (launches, launches by shape, stage seconds, the operator's rows)."""
     import numpy as np
     import torch
     from feabas_tpu_torch import aligner, thumbnail
@@ -2441,8 +3083,11 @@ def run_thumbnail(dev, size=SECTION, profile=False):
             rots[-1] = out[3]
         return out
 
+    ops = OperatorSpy()
+
     def timed(key):
         def run(*a, **k):
+            ops.stage = key.split('_')[0]
             t = time.perf_counter()
             out = _profiled(profile, f'thumbnail.{key}',
                             lambda: stages[key](*a, **k))
@@ -2456,6 +3101,7 @@ def run_thumbnail(dev, size=SECTION, profile=False):
     lradon.match_lradon_device_masked = masked_spy
     for key in stages:
         setattr(thumbnail_main, key, timed(key))
+    ops.__enter__()
     try:
         wd, names = setup_thumbnail_workdir(root, sections, size)
         log(f'[thumbnail] {THUMB_S} sections of {size}x{size} uint8, angles '
@@ -2473,6 +3119,7 @@ def run_thumbnail(dev, size=SECTION, profile=False):
         thumbnail_main.main(['--mode', 'alignment'])
         launches = device_mod.launch_counts()
         by_shape = device_mod.launch_counts_by_shape()
+        ops.__exit__()
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         log('[thumbnail] stage seconds ' + json.dumps(
             {k: round(v, 3) for k, v in stage_s.items()})
@@ -2540,7 +3187,7 @@ def run_thumbnail(dev, size=SECTION, profile=False):
                                f'errors {r_errs}')
         if cuda:
             for name in ('dog_filter', 'peak_detect', 'lradon_patch',
-                         'lradon_match'):
+                         'lradon_match', 'fem_operator'):
                 if launches[name] <= 0:
                     raise RuntimeError(f'{name} was not launched by the '
                                        'thumbnail path')
@@ -2550,8 +3197,12 @@ def run_thumbnail(dev, size=SECTION, profile=False):
             f'median error of feature matches {max(f_errs):.4f} px and of '
             f'refined matches {max(r_errs):.4f} px, aligned cc '
             f'{min(ccs):.5f}-{max(ccs):.5f}')
-        return launches, by_shape, stage_s
+        # after the counts were read: these launches compare, not count
+        rows = (fem_path_rows(dev, ops.systems, by_shape['fem_operator'],
+                              'phase-6', FEM_TIMED) if cuda else [])
+        return launches, by_shape, stage_s, rows
     finally:
+        ops.__exit__()
         thumbnail.match_two_thumbnails_LRadon = pair_matcher
         lradon.match_lradon_device_masked = masked
         for key, fn in stages.items():
@@ -2559,7 +3210,7 @@ def run_thumbnail(dev, size=SECTION, profile=False):
         shutil.rmtree(root, ignore_errors=True)
 
 
-PHASES = ('kernels', 'stitch', 'align', 'thumbnail', 'nonlinear')
+PHASES = ('kernels', 'stitch', 'align', 'chunked', 'thumbnail', 'nonlinear')
 
 
 def parse_args(argv=None):
@@ -2574,6 +3225,8 @@ def parse_args(argv=None):
     args.phases = [x for x in args.phases.split(',') if x]
     if set(args.phases) - set(PHASES):
         p.error(f'unknown phase in {args.phases}')
+    if 'chunked' in args.phases and 'align' not in args.phases:
+        p.error('the chunked phase runs on the align phase\'s work dir')
     return args
 
 
@@ -2605,13 +3258,20 @@ def main(argv=None):
         rows += check_lradon(dev)
         rows += check_fem(dev)
     paths = {'stitch': lambda d: run_slice(d, profile=args.profile),
-             'align': run_align,
+             'align': lambda d: run_align(d, 'chunked' in args.phases),
              'thumbnail': lambda d: run_thumbnail(d, profile=args.profile),
              'nonlinear': run_nonlinear}
-    runs = {p: fn(dev) for p, fn in paths.items() if p in args.phases}
-    for path in ('stitch', 'nonlinear'):
-        if path in runs:
-            rows += runs[path][3]
+    runs = {}
+    for p, fn in paths.items():
+        if p in args.phases:
+            runs[p] = fn(dev)
+            if p == 'align':
+                runs[p], chunked = runs[p][:4], runs[p][4]
+                if chunked is not None:
+                    runs['chunked'] = chunked
+    for r in runs.values():
+        rows += r[3]
+    log_determinism()
     if set(args.phases) != set(PHASES):
         for path, r in runs.items():
             log(f'[{path}] launches by shape ' + json.dumps(r[1]))

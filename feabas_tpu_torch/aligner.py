@@ -8,8 +8,13 @@ matches in ``match_dir``. A tform's existence marks a section as a locked
 reference for later runs. A window that packs as a z-chain of linear
 meshes is solved as one stacked system on the torch device
 (``parallel.window.stack_solve``); other windows take the SLM elastic
-solve. Hierarchical chunked alignment is not ported yet.
+solve. Hierarchical chunked alignment (``Aligner._run_chunked``) aligns
+chunks of sections, then the chunks as meta-sections, and keeps the same
+``chunked_tform/depth{d}/`` files and ``chunk_map.json`` as the JAX
+package, so either package resumes what the other wrote.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -18,7 +23,7 @@ from feabas_tpu_torch import common, config, logging, storage
 from feabas_tpu_torch import constant as const
 from feabas_tpu_torch.caching import generate_cache
 from feabas_tpu_torch.common import Match
-from feabas_tpu_torch.mesh import Mesh
+from feabas_tpu_torch.mesh import Mesh, transform_mesh
 from feabas_tpu_torch.storage import H5File, join_paths
 from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch import state
@@ -631,8 +636,8 @@ class Aligner:
         return names
 
     def run(self, **kwargs):
-        """Align the stack: chunked_to_depth 0 runs the sliding window;
-        hierarchical chunking is not ported yet."""
+        """Align the stack: chunked_to_depth 0 runs the sliding window, more
+        the hierarchical chunking of ``_run_chunked``."""
         chunk_settings = kwargs.pop('chunk_settings', {}) or {}
         depth = int(chunk_settings.get('chunked_to_depth', 0))
         slide = dict(kwargs.pop('slide_window', {}) or {})
@@ -682,16 +687,315 @@ class Aligner:
             self.logger.info(f'aligned {len(committed)} section(s)')
         return committed
 
+    def _chunk_dirs(self, depth):
+        """Work-dir layout of one chunking level:
+        ``<tform_dir>/../chunked_tform/depth{depth}/`` with the chunk tforms,
+        meta meshes, meta matches and meta tforms."""
+        base = join_paths(os.path.dirname(self.tform_dir.rstrip('/')),
+                          'chunked_tform', f'depth{depth}')
+        dirs = {k: join_paths(base, k) for k in
+                ('chunk_tform', 'meta_mesh', 'meta_match', 'meta_tform')}
+        for d in dirs.values():
+            storage.makedirs(d)
+        dirs['root'] = base
+        return dirs
+
+    def _update_chunk_map(self, sections, chunk_size, map_path, dirs):
+        """Load, repair and extend the persistent chunk map.
+
+        Existing chunks keep their membership and names so their
+        file-based resume stays valid when the dataset grows. New
+        sections that APPEND (come after every mapped section) pack into
+        fresh chunks; sections INSERTED between mapped ones join their
+        predecessor's chunk (which then re-runs pass 1 with the old
+        members locked). Chunks whose membership changed (or whose
+        members disappeared) have their stale meta artifacts deleted.
+        Returns (chunks, chunk_names, committed_flags): ``committed``
+        marks chunks fully processed (passes 4+5) in a prior run with
+        unchanged membership; those skip the predeform rewrite.
+        """
+        import json
+        prev = []
+        if storage.file_exists(map_path):
+            with storage.File(map_path, 'r') as f:
+                prev = json.load(f).get('chunks', [])
+        secset = set(sections)
+        order = {s: i for i, s in enumerate(sections)}
+        chunks, names, flags = [], [], []
+        invalidated = []
+        mapped = set()
+        max_idx = -1
+        for ent in prev:
+            mem = [s for s in ent['sections'] if s in secset]
+            if not mem:
+                invalidated.append(ent['name'])
+                continue
+            chunks.append(list(mem))
+            names.append(ent['name'])
+            flags.append(bool(ent.get('committed'))
+                         and mem == ent['sections'])
+            if mem != ent['sections']:
+                invalidated.append(ent['name'])
+            mapped.update(mem)
+            try:
+                max_idx = max(max_idx, int(ent['name'][5:]))
+            except (ValueError, IndexError):
+                pass
+        last_mapped = max((order[s] for s in mapped), default=-1)
+        new_secs = [s for s in sections if s not in mapped]
+        inserted = [s for s in new_secs if order[s] <= last_mapped]
+        appended = [s for s in new_secs if order[s] > last_mapped]
+        for s in inserted:
+            # join the chunk holding the nearest mapped predecessor
+            best_k, best_o = 0, -1
+            for k, chunk in enumerate(chunks):
+                for t in chunk:
+                    if best_o < order[t] < order[s]:
+                        best_k, best_o = k, order[t]
+            chunks[best_k].append(s)
+            chunks[best_k].sort(key=order.get)
+            flags[best_k] = False
+            if names[best_k] not in invalidated:
+                invalidated.append(names[best_k])
+        for i in range(0, len(appended), chunk_size):
+            max_idx += 1
+            chunks.append(appended[i:i + chunk_size])
+            names.append(f'chunk{max_idx:05d}')
+            flags.append(False)
+        # z-sort so meta-section names enumerate in stack order
+        z0 = [min(order[s] for s in c) for c in chunks]
+        srt = np.argsort(z0)
+        chunks = [chunks[i] for i in srt]
+        names = [names[i] for i in srt]
+        flags = [flags[i] for i in srt]
+        for cname in invalidated:
+            for path in (join_paths(dirs['meta_mesh'], cname + '.h5'),
+                         join_paths(dirs['meta_tform'], cname + '.h5')):
+                if storage.file_exists(path):
+                    storage.remove_file(path)
+            for f in storage.list_folder_content(
+                    join_paths(dirs['meta_match'], '*.h5')):
+                if cname in storage.base_name(f):
+                    storage.remove_file(f)
+        self._save_chunk_map(map_path, chunks, names, flags)
+        storage.clear_exists_cache()
+        return chunks, names, flags
+
+    @staticmethod
+    def _save_chunk_map(map_path, chunks, names, flags):
+        import json
+        with storage.File(map_path, 'w') as f:
+            json.dump({'chunks': [
+                {'name': n, 'sections': list(c), 'committed': bool(fl)}
+                for n, c, fl in zip(names, chunks, flags)]}, f, indent=1)
+
+    @staticmethod
+    def _merge_chunked_meshes(member_meshes, name, uid, resolution):
+        """One meta-section mesh covering the union of a chunk's
+        (chunk-aligned, MOVING gear) member meshes at equivalent density
+        """
+        bbs = np.stack([m.bbox(gear=const.MESH_GEAR_MOVING)
+                        for m in member_meshes])
+        bb = (bbs[:, 0].min(), bbs[:, 1].min(),
+              bbs[:, 2].max(), bbs[:, 3].max())
+        area = sum(float(np.abs(m.triangle_areas(
+            const.MESH_GEAR_MOVING, signed=False)).sum())
+            for m in member_meshes)
+        ntri = sum(m.num_triangles for m in member_meshes)
+        mesh_size = max(2.0 * (area / max(ntri, 1)) ** 0.5,
+                        (bb[2] - bb[0]) / 64, 1.0)
+        return Mesh.from_bbox(bb, cartesian=True, mesh_size=mesh_size,
+                              name=name, uid=uid, resolution=resolution)
+
+    @staticmethod
+    def _merge_chunked_matches(pair_matches):
+        """Map cross-chunk section matches through the chunk tforms into
+        chunk-aligned (MOVING) coordinates and concatenate them into one
+        meta match."""
+        XY0, XY1, WTS, STRNS = [], [], [], []
+        for match, m0, m1, flipped in pair_matches:
+            tid0 = m0.tri_finder(match.xy0, gear=const.MESH_GEAR_INITIAL,
+                                 extrapolate=True)
+            tid1 = m1.tri_finder(match.xy1, gear=const.MESH_GEAR_INITIAL,
+                                 extrapolate=True)
+            xy0 = m0.bary2cart(tid0, m0.cart2bary(
+                match.xy0, tid0, gear=const.MESH_GEAR_INITIAL),
+                gear=const.MESH_GEAR_MOVING)
+            xy1 = m1.bary2cart(tid1, m1.cart2bary(
+                match.xy1, tid1, gear=const.MESH_GEAR_INITIAL),
+                gear=const.MESH_GEAR_MOVING)
+            if flipped:
+                xy0, xy1 = xy1, xy0
+            XY0.append(xy0)
+            XY1.append(xy1)
+            WTS.append(match.weight)
+            STRNS.append((match.strain, float(np.sum(match.weight))))
+        if not XY0:
+            return None
+        STRNS = np.asarray(STRNS)
+        wsum = STRNS[:, 1].sum()
+        strain = float((STRNS[:, 0] * STRNS[:, 1]).sum() / max(wsum, 1e-12))
+        return Match(np.concatenate(XY0), np.concatenate(XY1),
+                     np.concatenate(WTS), strain)
+
     def _run_chunked(self, slide, chunk_settings, **kwargs):
+        """Hierarchical chunked alignment:
+
+        1. window-align each chunk of sections independently (free
+           floating, committed to a chunk-tform dir);
+        2. merge each chunk into a META-SECTION: one mesh over the union
+           of its chunk-aligned members + cross-chunk matches mapped
+           through the chunk tforms;
+        3. recursively align the meta-sections with stiffness scaled by
+           the mean chunk size (depth-1 recursion of Aligner.run);
+        4. PREDEFORM: resample every member section through its chunk's
+           solved meta deformation (transform_mesh);
+        5. re-relax junctional neighborhoods elastically with
+           non-junctional sections locked (second smooth).
+        """
+        depth = int(chunk_settings.get('chunked_to_depth', 1))
         chunk_size = int(chunk_settings.get('default_chunk_size', 16))
+        junction_width = chunk_settings.get('junction_width', 0.2)
         sections = self.get_section_list()
+        if junction_width < 1:
+            junction_width = max(int(round(junction_width * chunk_size)), 1)
+        junction_width = int(junction_width)
         if chunk_size >= len(sections) or len(sections) <= 2:
             return self._run_window(slide, **kwargs)
-        raise NotImplementedError(
-            'chunked alignment (chunked_to_depth > 0): feabas_tpu.aligner.'
-            'Aligner._run_chunked and its chunk-map helpers (_chunk_dirs, '
-            '_update_chunk_map, _save_chunk_map, _merge_chunked_meshes, '
-            '_merge_chunked_matches) are not ported yet')
+        dirs = self._chunk_dirs(depth)
+        # PERSISTENT chunk map: chunk membership is decided once and saved
+        # beside the chunk tforms, so appending sections to a partially
+        # aligned stack keeps existing chunk boundaries (and their
+        # file-based resume) stable
+        map_path = join_paths(dirs['root'], 'chunk_map.json')
+        chunks, chunk_names, chunk_done = self._update_chunk_map(
+            sections, chunk_size, map_path, dirs)
+        chunk_of = {s: k for k, chunk in enumerate(chunks) for s in chunk}
+        committed = []
+        # ---- pass 1: align within chunks (free-floating; resume by file) ----
+        for chunk in chunks:
+            if all(storage.file_exists(join_paths(dirs['chunk_tform'], s + '.h5'),
+                                       use_cache=True) for s in chunk):
+                continue
+            stack = Stack(section_list=chunk, mesh_dir=self.mesh_dir,
+                          tform_dir=dirs['chunk_tform'],
+                          match_dir=self.match_dir,
+                          resolution=self.resolution, device=self.device)
+
+            def commit(name, mesh):
+                mesh.save_to_h5(join_paths(dirs['chunk_tform'], name + '.h5'))
+                storage.clear_exists_cache()
+
+            stack.optimize_slide_window(commit_fn=commit, **dict(slide))
+        chunk_stack = Stack(section_list=sections, mesh_dir=self.mesh_dir,
+                            tform_dir=dirs['chunk_tform'],
+                            match_dir=self.match_dir,
+                            resolution=self.resolution, device=self.device)
+        # ---- pass 2: meta-section meshes + matches ----
+        for k, (chunk, cname) in enumerate(zip(chunks, chunk_names)):
+            out = join_paths(dirs['meta_mesh'], cname + '.h5')
+            if storage.file_exists(out, use_cache=True):
+                continue
+            members = [chunk_stack.get_mesh(s) for s in chunk]
+            meta = self._merge_chunked_meshes(members, cname, float(k),
+                                              self.resolution
+                                              or chunk_stack.resolution)
+            meta.save_to_h5(out)
+        meta_pairs = {}
+        for (a, b) in chunk_stack.match_list:
+            ka, kb = chunk_of.get(a), chunk_of.get(b)
+            if ka is None or kb is None or ka == kb:
+                continue
+            flipped = ka > kb
+            key = (min(ka, kb), max(ka, kb))
+            meta_pairs.setdefault(key, []).append(
+                (chunk_stack.get_match((a, b)), chunk_stack.get_mesh(a),
+                 chunk_stack.get_mesh(b), flipped))
+        for (ka, kb), plist in meta_pairs.items():
+            out = join_paths(dirs['meta_match'],
+                             match_name(chunk_names[ka], chunk_names[kb]))
+            if storage.file_exists(out, use_cache=True):
+                continue
+            merged = self._merge_chunked_matches(plist)
+            if merged is not None:
+                save_matches_to_h5(out, merged,
+                                   chunk_stack.resolution)
+        # ---- pass 3: recursive meta alignment, stiffness scaled by the
+        # mean chunk size ----
+        mean_cnt = float(np.mean([len(c) for c in chunks]))
+        meta_slide = dict(slide)
+        ep = dict(meta_slide.get('elastic_params', {}) or {})
+        ep['stiffness_lambda'] = abs(ep.get('stiffness_lambda', 1.0)) * mean_cnt
+        meta_slide['elastic_params'] = ep
+        meta_aligner = Aligner(dirs['meta_mesh'], dirs['meta_tform'],
+                               dirs['meta_match'],
+                               resolution=self.resolution,
+                               logger=self.logger, device=self.device)
+        meta_aligner.run(slide_window=meta_slide,
+                         chunk_settings={**chunk_settings,
+                                         'chunked_to_depth': depth - 1})
+        # ---- pass 4: predeform member sections through the solved meta
+        # deformation ----
+        for k, (chunk, cname) in enumerate(zip(chunks, chunk_names)):
+            if chunk_done[k] and all(storage.file_exists(
+                    join_paths(self.tform_dir, s + '.h5'), use_cache=True)
+                    for s in chunk):
+                continue   # committed in a prior run, membership unchanged
+            meta_tf = join_paths(dirs['meta_tform'], cname + '.h5')
+            if not storage.file_exists(meta_tf):
+                if self.logger:
+                    self.logger.warning(f'meta tform missing: {meta_tf}')
+                continue
+            carrier = Mesh.from_h5(meta_tf)
+            carrier.change_resolution(chunk_stack.resolution)
+            for s in chunk:
+                mesh = chunk_stack.get_mesh(s)
+                probe = mesh.copy()
+                probe.set_vertices(mesh.vertices(const.MESH_GEAR_MOVING),
+                                   const.MESH_GEAR_FIXED,
+                                   offset=mesh.offset(const.MESH_GEAR_MOVING))
+                warped = transform_mesh(
+                    probe, carrier,
+                    gear=(const.MESH_GEAR_FIXED, const.MESH_GEAR_MOVING))
+                mv = warped.vertices_w_offset(const.MESH_GEAR_MOVING)
+                c = mv.mean(axis=0, keepdims=True)
+                out_mesh = mesh.copy()
+                out_mesh.set_vertices(mv - c, const.MESH_GEAR_MOVING, offset=c)
+                out_mesh.locked = True
+                out_mesh.save_to_h5(join_paths(self.tform_dir, s + '.h5'))
+                committed.append(s)
+        storage.clear_exists_cache()
+        # ---- pass 5: second smooth: elastic re-relaxation of junctional
+        # neighborhoods with everything else locked ----
+        final_stack = Stack(section_list=sections, mesh_dir=self.mesh_dir,
+                            tform_dir=self.tform_dir,
+                            match_dir=self.match_dir,
+                            resolution=self.resolution, device=self.device)
+        for k in range(1, len(chunks)):
+            if chunk_done[k - 1] and chunk_done[k]:
+                continue   # junction smoothed in a prior run
+            junction = (chunks[k - 1][-junction_width:]
+                        + chunks[k][:junction_width])
+            # pad_junctional: include one locked context section on each
+            # side so the free sections relax against committed anchors
+            pad = 1 if chunk_settings.get('pad_junctional', True) else 0
+            lo = max(sections.index(junction[0]) - pad, 0)
+            hi = min(sections.index(junction[-1]) + 1 + pad, len(sections))
+            window = sections[lo:hi]
+            if len(window) < 3:
+                continue
+            final_stack.optimize_section_list(
+                window, free_sections=set(junction), **dict(slide))
+            for s in junction:
+                mesh = final_stack.get_mesh(s)
+                mesh.save_to_h5(join_paths(self.tform_dir, s + '.h5'))
+                mesh.locked = True
+            storage.clear_exists_cache()
+        # the whole cascade completed: mark every chunk committed so a
+        # re-run (incl. after appending sections) skips finished work
+        self._save_chunk_map(map_path, chunks, chunk_names,
+                             [True] * len(chunks))
+        return committed
 
     def write_residue_file(self, out_csv):
         """Per-pair residue report (median, p90 and max residue)."""

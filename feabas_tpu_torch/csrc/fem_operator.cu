@@ -22,7 +22,7 @@
 //   * Gather, not scatter: a vertex sums what its entries give it, with no
 //     atomics, so the sums run in a fixed order and two launches give the
 //     same bits.
-//   * Two CSR tables from ops/fem.build_operator_tables. The first lists
+//   * Two CSR tables from ops/fem.operator_tables. The first lists
 //     the vertex's (element, corner) pairs as t * 3 + c in ascending order;
 //     a lane reads the element's three corners of x and only the two rows
 //     of Ke its corner owns, so Ke is read once in all. The second lists
@@ -60,7 +60,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
-// the tables' device pointers, in this order (ops/fem.operator_tables_to)
+// the tables' device pointers, in this order (ops/fem._TABLE_KEYS)
 enum { kTris, kIncPtr, kIncEnt, kLnkPtr, kLnkEnt, kIdx0, kBary0, kIdx1,
        kBary1 };
 

@@ -538,14 +538,17 @@ def _fused_execute_batch(preps, device=None, dtype=torch.float32):
     device; returns the per-pair packed arrays (host, float64)."""
     p0 = preps[0]
     dev = device_mod.get_device(device)
-    t = state.to_tensors(state.stack_preps(preps), dev, float_dtype=dtype)
+    stacked = state.stack_preps(preps)
+    t = state.to_tensors(stacked, dev, float_dtype=dtype)
     packed = match_loop.fused_rounds_batched(
         t['src0'], t['src1'], t['pos1'], t['verts0_1'], t['shape1'],
         t['tris1'], t['mult'], t['poisson'], t['rounds'], p0['meta'],
         t['shape0'], t['tris0'], t['mult0'], t['poisson0'], t['pos0'],
         lam_ratio=p0['lam_ratio'], sigma=p0['sigma'],
         conf_thresh=p0['conf_thresh'], coarse=t['coarse'],
-        coarse_meta=p0['coarse_meta'], env_norm=p0['env_norm'])
+        coarse_meta=p0['coarse_meta'], env_norm=p0['env_norm'],
+        n_valid=tuple(int(np.count_nonzero(rd['valid'] > 0))
+                      for rd in stacked['rounds']))
     return packed.cpu().numpy().astype(np.float64)
 
 

@@ -74,16 +74,25 @@ def scatter_uv(y_e, tris, nv):
     return out.index_add_(0, tris.reshape(-1), y_e.reshape(-1, 2))
 
 
+def _sorted_rows(index, n):
+    """(order, ptr) of ``index`` (any shape, values in [0, n]; n marks an
+    entry no row holds): the stable ascending order of its flat entries
+    and each row's start in it, ptr (n+1,). Device ops only: no host copy,
+    no sync."""
+    index = index.reshape(-1).long()
+    order = torch.argsort(index, stable=True)
+    ptr = torch.searchsorted(index[order],
+                             torch.arange(n + 1, device=index.device))
+    return order, ptr
+
+
 def fixed_sum(index, n):
     """vals -> ``zeros(n, ...).index_add_(0, index, vals)`` in a fixed
     order: each row's entries in ascending position, one segment sum, no
     atomics, so a CUDA tensor gives the same bits call after call (CUDA's
     ``index_add_`` does not). The order is sorted once, here, for every
     call of the returned function."""
-    index = index.reshape(-1).long()
-    order = torch.argsort(index, stable=True)
-    ptr = torch.zeros(n + 1, dtype=torch.int64, device=index.device)
-    ptr[1:] = torch.cumsum(torch.bincount(index, minlength=n), 0)
+    order, ptr = _sorted_rows(index, n)
     return lambda vals: torch.segment_reduce(vals[order], 'sum', offsets=ptr,
                                              axis=0)
 
@@ -499,82 +508,101 @@ def crosslink_diag(nv, idx0, bary0, idx1, bary1, weight, dtype=torch.float32):
     return d
 
 
+# The solves' link sums: ``push`` sums per link-point rows of side 0 and of
+# side 1, (L, 3, C) each, onto their vertices (NV, C) with no atomics; the
+# scatter forms above are the plain versions the tests pin against JAX.
+
+def link_sum(idx0, idx1, nv):
+    """``push`` through one fixed-order sum (``fixed_sum``) over the link
+    points, side 0's then side 1's."""
+    by_point = fixed_sum(torch.cat([idx0, idx1]), nv)
+    return lambda c0, c1: by_point(torch.cat([c0, c1])
+                                   .reshape(-1, c0.shape[-1]))
+
+
+def link_transpose(push, bary0, bary1, r):
+    """C^T r (NV, 2) for per-link rows r (L, 2): -bary0 on side 0, +bary1
+    on side 1."""
+    return push(-bary0[:, :, None] * r[:, None, :],
+                bary1[:, :, None] * r[:, None, :])
+
+
+def link_diag(push, bary0, bary1, weight):
+    """Diagonal of C^T W C (NV, 2) (exact for real links; Jacobi
+    otherwise)."""
+    w2 = (weight ** 2)[:, None, None]
+    return push((bary0[:, :, None] ** 2 * w2).expand(-1, -1, 2),
+                (bary1[:, :, None] ** 2 * w2).expand(-1, -1, 2))
+
+
 # ------------------------- the general CG operator ------------------------- #
 # y = free * (lam_s K x + lam_c C^T W^2 C x) in one launch of
 # csrc/fem_operator.cu, over any
 # number of element groups concatenated into one (NT, 6, 6) Ke and one
 # (NT, 3) tris, and one flat list of links.
 
-def _csr(vertex_of, nv):
-    """CSR of the entries ``k`` whose vertex is ``vertex_of[k]``: (ptr
-    (NV+1,), entries (K,)), each vertex's entries in ascending order."""
-    vertex_of = np.asarray(vertex_of, np.int64).ravel()
-    ptr = np.zeros(nv + 1, np.int32)
-    ptr[1:] = np.cumsum(np.bincount(vertex_of, minlength=nv))
-    return ptr, np.argsort(vertex_of, kind='stable').astype(np.int32)
+def operator_tables(tris, nv, idx0, bary0, idx1, bary1, keep=None,
+                    n_kept=None):
+    """The tables of ``bind_elastic_operator`` (once a solve), built from
+    tensors on their own device (stable sorts, a ``searchsorted``: no host
+    copy, no sync): the element corners and link points as given and the
+    kernel's two CSR tables. ``inc_ptr`` / ``inc_ent`` list each vertex's
+    (element, corner) pairs as ``t * 3 + c``; ``lnk_ptr`` / ``lnk_ent`` its
+    link entries as ``(l * 3 + k) * 2 + side``, whose sign is + for side 1
+    (``idx1``) and - for side 0, each row ascending. Links that anchor
+    points to fixed targets (``idx0`` and ``bary0`` None, as in the match
+    rounds) weigh nothing on side 0 and list only side 1; the links that
+    ``keep`` (L,) leaves out (weighed 0 in every solve, such as padding)
+    list no entry. Adds the counts ``nt`` and ``nl`` and the kernel's lanes
+    a vertex ``group`` (``operator_group`` over the links listed: their
+    count ``n_kept`` where the caller knows it, else read from ``keep``,
+    one sync)."""
+    tris = tris.reshape(-1, 3)
+    idx1, bary1 = idx1.reshape(-1, 3), bary1.reshape(-1, 3)
+    one_sided = idx0 is None
+    if one_sided:
+        idx0, bary0 = idx1, torch.zeros_like(bary1)
+    nt, nl = tris.shape[0], idx1.shape[0]
+    if keep is None:
+        n_kept = nl
+    elif n_kept is None:
+        n_kept = int(keep.sum())
+    out = {'nv': int(nv), 'nt': nt, 'nl': nl,
+           'group': operator_group(nv, nt, n_kept,
+                                   sides=1 if one_sided else 2)}
+    order, ptr = _sorted_rows(tris, nv)
+    out['inc_ptr'], out['inc_ent'] = ptr.to(torch.int32), order.to(torch.int32)
+    # points that list no entry sort past the last vertex, outside every row
+    pts = torch.stack([torch.full_like(idx1, nv) if one_sided
+                       else idx0.reshape(-1, 3), idx1], -1)
+    if keep is not None:
+        pts = torch.where(keep[:, None, None], pts, nv)
+    order, ptr = _sorted_rows(pts, nv)
+    out['lnk_ptr'], out['lnk_ent'] = ptr.to(torch.int32), order.to(torch.int32)
+    out['tris'] = tris.to(torch.int32).contiguous()
+    out['idx0'] = idx0.reshape(-1, 3).to(torch.int32).contiguous()
+    out['idx1'] = idx1.to(torch.int32).contiguous()
+    out['bary0'] = bary0.reshape(-1, 3).contiguous()
+    out['bary1'] = bary1.contiguous()
+    return out
 
 
-def build_operator_tables(tris, nv, idx0, bary0, idx1, bary1):
-    """Host tables of ``bind_elastic_operator`` (once per solve): the
-    element corners and link points as given and the kernel's two CSR
-    tables. ``inc_ptr`` / ``inc_ent`` list each vertex's (element, corner)
-    pairs as ``t * 3 + c``; ``lnk_ptr`` / ``lnk_ent`` its link entries as
-    ``(l * 3 + k) * 2 + side``, whose sign is + for side 1 (``idx1``) and -
-    for side 0. Numpy arrays; ``operator_tables_to`` moves them to a
-    device."""
-    tris = np.asarray(tris, np.int64).reshape(-1, 3)
-    idx0 = np.asarray(idx0, np.int64).reshape(-1, 3)
-    idx1 = np.asarray(idx1, np.int64).reshape(-1, 3)
-    inc_ptr, inc_ent = _csr(tris, nv)
-    lnk_ptr, lnk_ent = _csr(np.stack([idx0, idx1], -1), nv)
-    return {'nv': int(nv), 'tris': tris.astype(np.int32),
-            'inc_ptr': inc_ptr, 'inc_ent': inc_ent,
-            'idx0': idx0.astype(np.int32),
-            'bary0': np.asarray(bary0, np.float64).reshape(-1, 3),
-            'idx1': idx1.astype(np.int32),
-            'bary1': np.asarray(bary1, np.float64).reshape(-1, 3),
-            'lnk_ptr': lnk_ptr, 'lnk_ent': lnk_ent}
-
-
-_TABLE_SHAPES = {'tris': ('nt', 3), 'inc_ptr': ('nv1',),
-                 'inc_ent': ('nt3',), 'lnk_ptr': ('nv1',),
-                 'lnk_ent': ('nl6',), 'idx0': ('nl', 3), 'bary0': ('nl', 3),
-                 'idx1': ('nl', 3), 'bary1': ('nl', 3)}
+# the tables in the order the kernel reads their addresses
+_TABLE_KEYS = ('tris', 'inc_ptr', 'inc_ent', 'lnk_ptr', 'lnk_ent', 'idx0',
+               'bary0', 'idx1', 'bary1')
 # the kernel's lanes a vertex (csrc/fem_operator.cu instantiates these)
 OPERATOR_GROUPS = (4, 8, 16, 32)
 
 
-def operator_group(nv, nt, nl):
+def operator_group(nv, nt, nl, sides=2):
     """The kernel's lanes a vertex G for a system of ``nv`` vertices, ``nt``
-    elements and ``nl`` links: the smallest power of two, 4 to 32, that is
-    at least the mean CSR entries a vertex (3 NT + 6 L element corners and
-    link entries over NV), so that a lane takes about one of them."""
-    mean = (3 * nt + 6 * nl) / max(nv, 1)
+    elements and ``nl`` links listed on ``sides`` sides: the smallest power
+    of two, 4 to 32, that is at least the mean CSR entries a vertex (3 NT +
+    3 sides L element corners and link entries over NV), so that a lane
+    takes about one of them."""
+    mean = (3 * nt + 3 * sides * nl) / max(nv, 1)
     return next((g for g in OPERATOR_GROUPS if g >= mean),
                 OPERATOR_GROUPS[-1])
-
-
-def operator_tables_to(tables, device, dtype):
-    """``build_operator_tables``' arrays as contiguous tensors on
-    ``device`` (indices int32, barycentric weights ``dtype``), checked
-    once here so that ``bind_elastic_operator`` checks only its other
-    inputs. Adds the counts ``nt`` and ``nl`` and the kernel's lanes a
-    vertex ``group`` (``operator_group``: the same tables always give the
-    same G)."""
-    nv, nt, nl = (tables['nv'], tables['tris'].shape[0],
-                  tables['idx0'].shape[0])
-    sizes = {'nt': nt, 'nl': nl, 'nv1': nv + 1, 'nt3': 3 * nt,
-             'nl6': 6 * nl}
-    out = {'nv': nv, 'nt': nt, 'nl': nl,
-           'group': operator_group(nv, nt, nl)}
-    for k, dims in _TABLE_SHAPES.items():
-        a = tables[k]
-        if a.shape != tuple(sizes.get(d, d) for d in dims):
-            raise ValueError(f'operator tables: {k} has shape {a.shape}')
-        dt = dtype if np.issubdtype(a.dtype, np.floating) else torch.int32
-        out[k] = torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
-                                 device=device)
-    return out
 
 
 def elastic_operator_plain(x, Ke, tables, weight, free, lam_s, lam_c):
@@ -622,7 +650,7 @@ def bind_elastic_operator(Ke, tables, weight, free, lam_s, lam_c):
     checks only x. On tables on a CUDA device each call launches the kernel
     (f32 or f64) at ``tables['group']`` lanes a vertex; on tables on the
     CPU it runs the plain version. Ke: (NT, 6, 6); tables:
-    ``operator_tables_to``'s; weight: (L,); free: (NV, 1), all on the
+    ``operator_tables``'; weight: (L,); free: (NV, 1), all on the
     tables' device in their dtype; x: (NV, 2) likewise. Each call returns y
     (NV, 2)."""
     t = tables
@@ -646,13 +674,14 @@ def bind_elastic_operator(Ke, tables, weight, free, lam_s, lam_c):
     fn = getattr(_operator_lib(), 'fem_operator_f32' if dtype == torch.float32
                  else 'fem_operator_f64')
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    for k in _TABLE_SHAPES:
-        if t[k].device != dev or not t[k].is_contiguous():
-            raise ValueError(f'elastic operator: table {k} must be '
-                             f'contiguous on {dev}')
-    # the tables' addresses in the order the kernel reads them
-    ptrs = (ctypes.c_void_p * len(_TABLE_SHAPES))(
-        *(t[k].data_ptr() for k in _TABLE_SHAPES))
+    for k in _TABLE_KEYS:
+        want = dtype if k.startswith('bary') else torch.int32
+        if (t[k].device != dev or t[k].dtype != want
+                or not t[k].is_contiguous()):
+            raise ValueError(f'elastic operator: table {k} must be a '
+                             f'contiguous {want} tensor on {dev}')
+    ptrs = (ctypes.c_void_p * len(_TABLE_KEYS))(
+        *(t[k].data_ptr() for k in _TABLE_KEYS))
     fixed = (Ke.data_ptr(), ptrs, weight.data_ptr(), free.data_ptr(),
              float(lam_s), float(lam_c))
     group = t['group']

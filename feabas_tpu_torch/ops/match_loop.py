@@ -35,15 +35,6 @@ def _take(x, idx):
     return x.reshape(-1, x.shape[-1])[_flat_idx(idx, x.shape[1])]
 
 
-def _scatter_add(shape, idx, vals, like):
-    """Zeros of ``shape`` (P, V, C) with vals (P, ..., C) added at idx."""
-    out = torch.zeros((shape[0] * shape[1], shape[2]), dtype=like.dtype,
-                      device=like.device)
-    out.index_add_(0, _flat_idx(idx, shape[1]).reshape(-1),
-                   vals.reshape(-1, shape[2]).to(like.dtype))
-    return out.reshape(shape)
-
-
 def _mesh1_block_affines(pos, verts0, tri_idx):
     """Per-block affine from CURRENT (MOVING) world -> source (INITIAL)
     pixel coordinates, from the triangle holding each block centre:
@@ -87,40 +78,65 @@ def _bary_eval(pos, idx, bary):
     return (_take(pos, idx) * bary[..., None]).sum(dim=-2)
 
 
-def _solve_round(pos, u_shape, Ke, tris_flat, idx_a, bary_a, w, targets,
-                 lam_ratio, tol, maxiter, dK0, idx0_a, bary0_a):
+def _round_system(tris_flat, V, idx_a, bary_a, V0, idx0_a, valid,
+                  n_valid=None):
+    """What a round's solves share, built once a round on the device: the
+    CG operator's tables over every pair's mesh1 (P*V vertices, P*E
+    elements; each valid anchor a one-sided link, its side 0 weighing
+    nothing; padding anchors, weighed 0 in every pass, in no row;
+    ``n_valid`` the valid anchors of every pair, known on the host) and
+    the fixed-order sums onto the anchors of mesh1 and of the locked
+    mesh0."""
+    P = idx_a.shape[0]
+    flat_a = _flat_idx(idx_a, V).reshape(-1, 3)
+    return {'tris': tris_flat,
+            'tables': fem.operator_tables(
+                tris_flat, P * V, None, None, flat_a, bary_a,
+                keep=valid.reshape(-1) > 0, n_kept=n_valid),
+            'by_anchor': fem.fixed_sum(flat_a, P * V),
+            'by_anchor0': fem.fixed_sum(_flat_idx(idx0_a, V0), P * V0)}
+
+
+def _solve_round(pos, u_shape, Ke, by_corner, dK, rs, idx_a, bary_a, w,
+                 targets, lam_ratio, tol, maxiter, dK0, bary0_a):
     """One tangent elastic solve of every pair's mesh1 against its fixed
     link targets, with the trace-ratio lambda balance of the two-mesh
     system (the locked mesh0's stiffness diagonal and anchors enter the
-    traces)."""
+    traces). ``by_corner`` / ``dK``: the fixed-order sum over the element
+    corners and the stiffness diagonal; ``rs``: ``_round_system``'s. Each
+    pair's lambda is folded into its element blocks, so the CG matvec is
+    one launch of the operator ``fem.bind_elastic_operator`` binds, and
+    every sum runs in a fixed order: the same bits every run."""
     P, V, _ = pos.shape
-    dK = fem.stiffness_diag(Ke, tris_flat, P * V).reshape(P, V, 2)
     w2 = (w ** 2)[..., None]
-    dC = _scatter_add((P, V, 2), idx_a,
-                      (bary_a ** 2 * w2)[..., None].expand(-1, -1, -1, 2), pos)
-    dC0 = _scatter_add(dK0.shape, idx0_a,
-                       (bary0_a ** 2 * w2)[..., None].expand(-1, -1, -1, 2), pos)
+    dC = rs['by_anchor']((bary_a ** 2 * w2)[..., None].expand(-1, -1, -1, 2)
+                         .reshape(-1, 2)).reshape(P, V, 2)
+    dC0 = rs['by_anchor0']((bary0_a ** 2 * w2)[..., None]
+                           .expand(-1, -1, -1, 2).reshape(-1, 2)
+                           ).reshape(dK0.shape)
     tr_c = dC.sum(dim=(1, 2)) + dC0.sum(dim=(1, 2))
     tr_k = (torch.where(dC != 0, dK, 0.0).sum(dim=(1, 2))
             + torch.where(dC0 != 0, dK0, 0.0).sum(dim=(1, 2)))
     okl = (tr_c > 0) & (tr_k > 0)
     lam_s = torch.where(okl, lam_ratio * tr_c / torch.where(tr_k > 0, tr_k, 1.0),
-                        1.0)[:, None, None]
-
-    def link_term(x, r_scale):
-        r = _bary_eval(x, idx_a, bary_a) * r_scale
-        return _scatter_add((P, V, 2), idx_a, bary_a[..., None] * r[..., None, :],
-                            pos)
+                        1.0)
+    E = Ke.shape[0] // P
+    Ke_s = (Ke * lam_s.repeat_interleave(E)[:, None, None]).contiguous()
+    operator = fem.bind_elastic_operator(
+        Ke_s, rs['tables'], w.reshape(-1).contiguous(),
+        torch.ones((P * V, 1), dtype=pos.dtype, device=pos.device), 1.0, 1.0)
 
     def matvec(x):
-        y = fem.stiffness_matvec(x.reshape(-1, 2), Ke, tris_flat)
-        return y.reshape(P, V, 2) * lam_s + link_term(x, w2)
+        return operator(x.reshape(-1, 2)).reshape(P, V, 2)
 
     u = pos - u_shape
-    b = -fem.stiffness_matvec(u.reshape(-1, 2), Ke, tris_flat).reshape(P, V, 2) * lam_s
+    b = -by_corner(torch.einsum('nij,nj->ni', Ke_s,
+                                fem.gather_uv(u.reshape(-1, 2), rs['tris']))
+                   .reshape(-1, 2)).reshape(P, V, 2)
     r0 = (_bary_eval(pos, idx_a, bary_a) - targets) * w2
-    b = b - _scatter_add((P, V, 2), idx_a, bary_a[..., None] * r0[..., None, :], pos)
-    diag = dK * lam_s + dC
+    b = b - rs['by_anchor']((bary_a[..., None] * r0[..., None, :])
+                            .reshape(-1, 2)).reshape(P, V, 2)
+    diag = dK * lam_s[:, None, None] + dC
     diag = torch.where(diag > 0, diag, 1.0)
     # chances: f32 CG stalls at its precision floor well before tol 1e-8
     dx, _n_it, _res = fem.cg_solve(matvec, b, diag=diag, tol=tol,
@@ -175,7 +191,7 @@ def fused_rounds_batched(src0, src1, pos1, verts0_1, shape1, tris1,
                          multiplier0, poisson0, pos0, lam_ratio=0.35,
                          sigma=2.5, conf_thresh=0.3, huber_passes=2,
                          maxiter=600, coarse=None, coarse_meta=None,
-                         env_norm=True):
+                         env_norm=True, n_valid=None):
     """Run the full fine-match schedule of P same-shape tile pairs.
 
     Arguments are the JAX ``_fused_rounds_core``'s with a leading pair
@@ -184,7 +200,9 @@ def fused_rounds_batched(src0, src1, pos1, verts0_1, shape1, tris1,
     tris1 (P, E, 3) int64; multiplier/poisson (P, E); rounds a tuple of
     dicts of (P, B, ...) tensors plus rlen (P,); meta the per-round
     statics (block_size, fft_y, fft_x, subpixel, translate_first, tol,
-    warp_window_K); coarse a dict of (P, 2) tensors v0, v1, base.
+    warp_window_K); coarse a dict of (P, 2) tensors v0, v1, base; n_valid
+    each round's count of valid anchors over every pair, where the host
+    knows it (else each round reads it, one sync).
     Returns the packed (P, V + 3*B_last + 2, 2) array of the JAX package:
     [pos1_final; d_last; (conf_last, w_last); anchor bary[:, :2];
     [[coarse_conf, 0], [delta_x, delta_y]]].
@@ -209,9 +227,16 @@ def fused_rounds_batched(src0, src1, pos1, verts0_1, shape1, tris1,
     B0_mat, area2_0 = fem.shape_matrices(shape0.reshape(-1, 2)[tris0_flat])
     Ke0 = fem.eng_element_stiffness(B0_mat, area2_0, multiplier0.reshape(-1),
                                     poisson0.reshape(-1))
-    dK0 = fem.stiffness_diag(Ke0, tris0_flat, P * V0).reshape(P, V0, 2)
+    dK0 = fem.fixed_sum(tris0_flat, P * V0)(
+        torch.diagonal(Ke0, dim1=1, dim2=2).reshape(-1, 2)).reshape(P, V0, 2)
+    by_corner = fem.fixed_sum(tris_flat, P * V)
+    dK = by_corner(torch.diagonal(Ke, dim1=1, dim2=2).reshape(-1, 2)
+                   ).reshape(P, V, 2)
     out = None
-    for rd, (bs, fy, fx, subpixel, translate_first, tol, K) in zip(rounds, meta):
+    if n_valid is None:
+        n_valid = (None,) * len(rounds)
+    for rd, (bs, fy, fx, subpixel, translate_first, tol, K), n_v in zip(
+            rounds, meta, n_valid):
         A1, b1 = _mesh1_block_affines(pos1.to(torch.float32),
                                       verts0_1.to(torch.float32), rd['tri_idx'])
         blocks0 = affine_warp_blocks_shifted(f0, rd['origins'], rd['A0'],
@@ -262,10 +287,12 @@ def fused_rounds_batched(src0, src1, pos1, verts0_1, shape1, tris1,
             wsum = torch.clamp(w02.sum(dim=1), min=1e-12)
             pos1 = pos1 + (((targets - p1) * w02).sum(dim=1) / wsum)[:, None, :]
         w = w0
+        rs = _round_system(tris_flat, V, idx_a, bary_a, V0, rd['anchor_idx0'],
+                           rd['valid'], n_v)
         for _p in range(huber_passes + 1):
-            pos1 = _solve_round(pos1, shape1, Ke, tris_flat, idx_a, bary_a,
-                                w, targets, lam_ratio, tol, maxiter, dK0,
-                                rd['anchor_idx0'], bary0_a)
+            pos1 = _solve_round(pos1, shape1, Ke, by_corner, dK, rs, idx_a,
+                                bary_a, w, targets, lam_ratio, tol, maxiter,
+                                dK0, bary0_a)
             if _p < huber_passes:
                 res = torch.linalg.norm(_bary_eval(pos1, idx_a, bary_a)
                                         - targets, dim=-1)

@@ -125,7 +125,7 @@ def rigid_modes_flat(n_slots, components):
     return np.stack(modes)
 
 
-def _linear_solve_eng(tris, B, area2, multiplier, poisson,
+def _linear_solve_eng(tables, tris, B, area2, multiplier, poisson,
                       idx0, bary0, idx1, bary1, weight,
                       pos_start, pos_shape, free,
                       lam_ratio, tol, atol, maxiter,
@@ -133,13 +133,19 @@ def _linear_solve_eng(tris, B, area2, multiplier, poisson,
                       modes=None):
     """Fused elastic solve for linear-ENG elements: assembles element
     blocks, trace-balances the stiffness lambda, builds rhs/diag and runs
-    PCG. Returns (NV+2, 2): dx rows, then [[bnorm, res], [cost0, iters]]."""
+    PCG. The CG matvec is the operator ``fem.bind_elastic_operator`` binds
+    to ``tables`` (``fem.operator_tables``' over ``tris`` and the links)
+    with the balanced lambda (read to the host once a solve); every other
+    sum onto vertices runs in a fixed order (``fem.fixed_sum``), so a
+    solve on the card gives the same bits every run. Returns (NV+2, 2): dx
+    rows, then [[bnorm, res], [cost0, iters]]."""
     nv = pos_start.shape[0]
     Ke = fem.eng_element_stiffness(B, area2, multiplier, poisson)
     u_cur = pos_start - pos_shape
-    dC = fem.crosslink_diag(nv, idx0, bary0, idx1, bary1, weight,
-                            dtype=pos_start.dtype)
-    dK = fem.stiffness_diag(Ke, tris, nv)
+    by_corner = fem.fixed_sum(tris, nv)
+    push = fem.link_sum(idx0, idx1, nv)
+    dC = fem.link_diag(push, bary0, bary1, weight)
+    dK = by_corner(torch.diagonal(Ke, dim1=1, dim2=2).reshape(-1, 2))
     tr_c = dC.sum()
     tr_k = torch.where(dC != 0, dK, 0.0).sum()
     ok = (tr_c > 0) & (tr_k > 0)
@@ -147,19 +153,19 @@ def _linear_solve_eng(tris, B, area2, multiplier, poisson,
                         1.0)
     lam_c = 1.0
     project = _mode_projector(modes)
+    operator = fem.bind_elastic_operator(Ke.contiguous(), tables, weight,
+                                         free, float(lam_s), lam_c)
 
     def matvec(x):
-        x = project(x * free)
-        y = fem.stiffness_matvec(x, Ke, tris) * lam_s
-        y = y + fem.crosslink_matvec(x, idx0, bary0, idx1, bary1, weight) * lam_c
-        return project(y * free)
+        return project(operator(project(x * free)))
 
-    b = -fem.stiffness_matvec(u_cur, Ke, tris) * lam_s
     r0 = (fem.link_eval(pos_start, idx1, bary1)
           - fem.link_eval(pos_start, idx0, bary0))
     rw = r0 * (weight ** 2)[:, None] * lam_c
-    b = fem._link_scatter(b, idx1, bary1, rw, -1.0)
-    b = fem._link_scatter(b, idx0, bary0, rw, 1.0)
+    b = (-fem.link_transpose(push, bary0, bary1, rw)
+         - lam_s * by_corner(torch.einsum('nij,nj->ni', Ke,
+                                          fem.gather_uv(u_cur, tris))
+                             .reshape(-1, 2)))
     b = project(b * free)
     diag = dK * lam_s + dC * lam_c
     diag = torch.where(free > 0, diag, 1.0)
@@ -806,7 +812,6 @@ class SLM:
                     tris = np.asarray(m.triangles[g['start']:g['stop']])
                     out.append({
                         'model': g['model'],
-                        'tris_host': tris,
                         'tris_local': self._tensor(tris),
                         'B_area': fem.shape_matrices(self._tensor(g['tripts'])),
                         'multiplier': self._tensor(g['multiplier']),
@@ -819,8 +824,7 @@ class SLM:
                              f'torch_element_groups_{self.dtype}_{self.device}',
                              _build)
             for g in cached:
-                groups.append({**g, 'tris': g['tris_local'] + int(offsets[i]),
-                               'tris_host': g['tris_host'] + int(offsets[i])})
+                groups.append({**g, 'tris': g['tris_local'] + int(offsets[i])})
         la = [l.global_arrays(uid2off[l.uids[0]], uid2off[l.uids[1]])
               for l in self.active_links()]
         if la:
@@ -833,7 +837,6 @@ class SLM:
             'free': self._tensor(free),
             'groups': groups,
             'links': tuple(self._tensor(a) for a in links),
-            'links_host': links,
         }
 
     def _rigid_deflation_modes(self, pos_shape):
@@ -928,20 +931,16 @@ class SLM:
         nv = sys_d['nv']
         idx0, _, idx1, _, _ = sys_d['links']
         return (fem.fixed_sum(torch.cat([t for t, _, _ in terms]), nv),
-                fem.fixed_sum(torch.cat([idx1, idx0]), nv))
+                fem.link_sum(idx0, idx1, nv))
 
     def _diagonals(self, sys_d, terms, sums):
         """(diag K, diag C^T W^2 C), (NV, 2) each, through ``sums``
         (``_vertex_sums``)."""
-        by_corner, by_link = sums
+        by_corner, push = sums
         _, bary0, _, bary1, weight = sys_d['links']
         dK = by_corner(torch.cat([torch.diagonal(Ke, dim1=1, dim2=2)
                                   for _, Ke, _ in terms]).reshape(-1, 2))
-        w2 = torch.cat([weight, weight]).to(self.dtype) ** 2
-        dC = by_link((torch.cat([bary1, bary0]).to(self.dtype) ** 2
-                      * w2[:, None])[:, :, None].expand(-1, -1, 2)
-                     .reshape(-1, 2))
-        return dK, dC
+        return dK, fem.link_diag(push, bary0, bary1, weight)
 
     def _balance_lambdas(self, sys_d, terms, lam_s, lam_c):
         """Negative lambdas -> trace-ratio balance: lam_s = |lam_s / lam_c|
@@ -981,14 +980,12 @@ class SLM:
         group_locked = np.asarray([glocked[g] for g in groupings], bool)
         return dof_map, next_dof, group_locked
 
-    def _operator_inputs(self, sys_d, terms):
-        """The general CG operator's element blocks and tables over every
-        element group: (Ke (NT, 6, 6), ``fem.operator_tables_to``'s
-        tables) on the solver's device."""
-        tables = fem.operator_tables_to(fem.build_operator_tables(
-            np.concatenate([g['tris_host'] for g in sys_d['groups']]),
-            sys_d['nv'], *sys_d['links_host'][:4]), self.device, self.dtype)
-        return torch.cat([Ke for _, Ke, _ in terms]).contiguous(), tables
+    def _operator_tables(self, sys_d):
+        """The CG operator's tables over every element group and link
+        (``fem.operator_tables``') on the solver's device."""
+        return fem.operator_tables(
+            torch.cat([g['tris'] for g in sys_d['groups']]), sys_d['nv'],
+            *sys_d['links'][:4])
 
     def _commit(self, pos_start, dx, target_gear):
         """Write pos_start + dx into target_gear; the weighted residue norm
@@ -1064,24 +1061,22 @@ class SLM:
             self._rigid_deflation_modes(pos_shape)
         proj = _mode_projector(None if deflate is None
                                else self._tensor(deflate))
-        Ke, tables = self._operator_inputs(sys_d, terms)
-        operator = fem.bind_elastic_operator(Ke, tables, weight, free, lam_s,
-                                             lam_c)
+        Ke = torch.cat([Ke for _, Ke, _ in terms]).contiguous()
+        operator = fem.bind_elastic_operator(Ke, self._operator_tables(sys_d),
+                                             weight, free, lam_s, lam_c)
 
         def matvec_full(x):
             return proj(operator(proj(x * free)))
 
         # rhs: -(lam_s P(u) + lam_c C^T W r) and the Jacobi diagonal
         sums = self._vertex_sums(sys_d, terms)
-        by_corner, by_link = sums
+        by_corner, push = sums
         dK, dC = self._diagonals(sys_d, terms, sums)
         diag = lam_s * dK + lam_c * dC
         pos0 = self._tensor(pos_start)
         r0 = fem.link_eval(pos0, idx1, bary1) - fem.link_eval(pos0, idx0, bary0)
         rw = r0 * (weight ** 2)[:, None] * lam_c
-        sign_bary = torch.cat([-bary1, bary0])
-        b = (by_link((sign_bary[:, :, None] * torch.cat([rw, rw])[:, None, :])
-                     .reshape(-1, 2))
+        b = (-fem.link_transpose(push, bary0, bary1, rw)
              - lam_s * by_corner(torch.cat([Pe for _, _, Pe in terms])
                                  .reshape(-1, 2))) * free
         cost0 = float(torch.linalg.norm(r0 * weight[:, None]))
@@ -1140,6 +1135,7 @@ class SLM:
         agg = np.repeat(np.arange(len(self.meshes)), np.diff(offs))
         mesh_free = np.asarray([0.0 if m.locked else 1.0 for m in self.meshes])
         packed = _linear_solve_eng(
+            self._operator_tables(sys_d),
             torch.cat([g['tris'] for g in groups]),
             torch.cat([g['B_area'][0] for g in groups]),
             torch.cat([g['B_area'][1] for g in groups]),
@@ -1302,26 +1298,27 @@ def relax_mesh(mesh, free_vertices=None, dtype=torch.float32, device=None,
     u = t(pos - pos_init)
     freej = t(free)
     nv = mesh.num_vertices
-    terms = []
+    Ke = []
     for g in groups:
-        tris = t(mesh.triangles[g['start']:g['stop']], torch.int64)
         B, area2 = fem.shape_matrices(t(g['tripts']))
-        terms.append((tris, fem.eng_element_stiffness(
-            B, area2, t(g['multiplier']), t(g['poisson']))))
+        Ke.append(fem.eng_element_stiffness(B, area2, t(g['multiplier']),
+                                            t(g['poisson'])))
+    Ke = torch.cat(Ke).contiguous()
+    # the CG operator with no link (L = 0); the other sums in a fixed order
+    tris = t(np.concatenate([mesh.triangles[g['start']:g['stop']]
+                             for g in groups]), torch.int64)
+    no_idx, no_bary = t(np.zeros((0, 3)), torch.int64), t(np.zeros((0, 3)))
+    tables = fem.operator_tables(tris, nv, no_idx, no_bary, no_idx, no_bary)
+    operator = fem.bind_elastic_operator(Ke, tables, t(np.zeros(0)), freej,
+                                         1.0, 1.0)
+    by_corner = fem.fixed_sum(tris, nv)
 
     def matvec(x):
-        x = x * freej
-        y = torch.zeros_like(x)
-        for tris, Ke in terms:
-            y = y + fem.stiffness_matvec(x, Ke, tris)
-        return y * freej
+        return operator(x * freej)
 
-    b = torch.zeros_like(u)
-    diag = torch.zeros_like(u)
-    for tris, Ke in terms:
-        b = b - fem.stiffness_matvec(u, Ke, tris)
-        diag = diag + fem.stiffness_diag(Ke, tris, nv)
-    b = b * freej
+    b = -by_corner(torch.einsum('nij,nj->ni', Ke, fem.gather_uv(u, tris))
+                   .reshape(-1, 2)) * freej
+    diag = by_corner(torch.diagonal(Ke, dim1=1, dim2=2).reshape(-1, 2))
     diag = torch.where(freej > 0, diag, 1.0)
     dx, _, _ = fem.cg_solve(matvec, b, diag=diag,
                             tol=kwargs.get('tol', 1e-7), maxiter=2000)

@@ -12,11 +12,12 @@ may have different topologies: they pad to the window's pow2-bucketed max
 (V, T) with inert elements.
 
 The stack flattens to one (S*V, 2) vertex array with global element and
-link indices, so the FEM and crosslink operators of ``ops.fem`` apply as
-they are. Uniform lattice stacks run the 9-plane stencil matvec over the
-(S, ny, nx) lattice; the crosslink transpose runs as the link-transpose
-gather (``build_link_transpose``) when it is given. CG is preconditioned
-by Jacobi plus an exact (S, S) coarse solve over per-section translations.
+link indices. Uniform lattice stacks run the 9-plane stencil matvec over
+the (S, ny, nx) lattice; the crosslink transpose runs as the link-transpose
+gather (``build_link_transpose``) when it is given. Every other sum onto
+vertices runs in a fixed order (``fem.fixed_sum``): no atomics, so a solve
+on the card gives the same bits every run. CG is preconditioned by Jacobi
+plus an exact (S, S) coarse solve over per-section translations.
 
 The sharded multi-device forms (``shard_stack_system``, ``_put_global``,
 ``initialize_multihost``, ``multihost_window_solve``,
@@ -320,6 +321,13 @@ class _StackOps:
             self.linc = ((tv.long() + (ar * V)[:, None]).reshape(-1),
                          (incl.long() + (ar * rows)[:, None, None])
                          .reshape(S * tv.shape[1], -1))
+        # the fixed-order sums of the forms without a gather table
+        self.by_corner = None
+        if C is None and self.inc is None:
+            self.by_corner = fem.fixed_sum(self.tris, S * V)
+        self.by_link = None
+        if self.linc is None:
+            self.by_link = fem.link_sum(self.idx0, self.idx1, S * V)
 
     def stiffness(self, x):
         """K x over every section, (S*V, 2)."""
@@ -330,28 +338,48 @@ class _StackOps:
         if self.inc is not None:
             return fem.stiffness_matvec_gather(x, self.Ke, self.tris,
                                                self.inc, self.imask)
-        return fem.stiffness_matvec(x, self.Ke, self.tris)
+        y = torch.einsum('nij,nj->ni', self.Ke, fem.gather_uv(x, self.tris))
+        return self.by_corner(y.reshape(-1, 2))
 
     def stiffness_diag(self):
         if self.C is not None:
             return fem.stencil_diag(self.C, self.V).reshape(-1, 2)
-        return fem.stiffness_diag(self.Ke, self.tris, self.S * self.V)
+        d = torch.diagonal(self.Ke, dim1=1, dim2=2)
+        if self.inc is not None:
+            return fem.gather_scatter_uv(d, self.inc, self.imask)
+        return self.by_corner(d.reshape(-1, 2))
+
+    def push(self, c0, c1):
+        """Per link-point rows (S*L, 3, C) of side 0 (``c0``) and side 1
+        (``c1``) summed onto their vertices, (S*V, C): through the link
+        transpose gather and its unique-index add when it is given, else a
+        fixed-order sum; no atomics either way."""
+        if self.linc is None:
+            return self.by_link(c0, c1)
+        S, L, C = self.S, self.L, c0.shape[-1]
+        cc = torch.cat([c0.reshape(S, 3 * L, C),
+                        torch.roll(c1.reshape(S, 3 * L, C), 1, dims=0),
+                        c0.new_zeros(S, 1, C)], dim=1).reshape(-1, C)
+        tv, incl = self.linc
+        # tv holds each vertex once (build_link_transpose): one value lands
+        # on each zero, so the add is exact whatever its order
+        return c0.new_zeros(self.S * self.V, C).index_add_(
+            0, tv, cc[incl].sum(dim=1))
+
+    def link_rows(self, r):
+        """C^T r for per-link rows r (S*L, 2)."""
+        return fem.link_transpose(self.push, self.bary0, self.bary1, r)
 
     def crosslink(self, x):
         """C^T W C x: residuals (p1 - p0) w^2 pushed back to both sides."""
-        if self.linc is None:
-            return fem.crosslink_matvec(x, self.idx0, self.bary0, self.idx1,
-                                        self.bary1, self.weight)
         r = (fem.link_eval(x, self.idx1, self.bary1)
              - fem.link_eval(x, self.idx0, self.bary0)) \
             * (self.weight ** 2)[:, None]
-        S, L = self.S, self.L
-        c0 = (-self.bary0[:, :, None] * r[:, None, :]).reshape(S, 3 * L, 2)
-        c1 = (self.bary1[:, :, None] * r[:, None, :]).reshape(S, 3 * L, 2)
-        cc = torch.cat([c0, torch.roll(c1, 1, dims=0),
-                        c0.new_zeros(S, 1, 2)], dim=1).reshape(-1, 2)
-        tv, incl = self.linc
-        return torch.zeros_like(x).index_add_(0, tv, cc[incl].sum(dim=1))
+        return self.link_rows(r)
+
+    def crosslink_diag(self):
+        """Diagonal of C^T W C (exact for real links; Jacobi otherwise)."""
+        return fem.link_diag(self.push, self.bary0, self.bary1, self.weight)
 
 
 def _stack_matvec(x, ops, lam_s):
@@ -412,8 +440,7 @@ def stack_solve(verts0, u, tris, multiplier, poisson, links, r_rest, free,
     r_rest = _pad_links_to_sections((r_rest.to(dt),), S)[0].reshape(-1, 2)
     u_flat = u.reshape(S * V, 2)
     dK = ops.stiffness_diag()
-    dC = fem.crosslink_diag(S * V, ops.idx0, ops.bary0, ops.idx1, ops.bary1,
-                            ops.weight, dtype=dt)
+    dC = ops.crosslink_diag()
     if lam_ratio is not None:
         tr_c = dC.sum()
         tr_k = torch.where(dC != 0, dK, 0.0).sum()
@@ -425,9 +452,7 @@ def stack_solve(verts0, u, tris, multiplier, poisson, links, r_rest, free,
     r0 = (r_rest + fem.link_eval(u_flat, ops.idx1, ops.bary1)
           - fem.link_eval(u_flat, ops.idx0, ops.bary0)) \
         * (ops.weight ** 2)[:, None]
-    b = fem._link_scatter(b, ops.idx0, ops.bary0, r0, 1.0)
-    b = fem._link_scatter(b, ops.idx1, ops.bary1, r0, -1.0)
-    b = b * ops.free
+    b = (b - ops.link_rows(r0)) * ops.free
     diag = torch.where(ops.free > 0, dK * lam_s + dC, 1.0)
 
     # two-level preconditioner: the stiffness annihilates per-section

@@ -12,7 +12,7 @@ import numpy as np
 import scipy.sparse as sparse
 import torch
 
-from feabas_tpu_torch import common, config
+from feabas_tpu_torch import common, config, storage
 from feabas_tpu_torch import constant as const
 from feabas_tpu_torch import spatial as sp
 from feabas_tpu_torch.common import (Match, bbox_centers, intersect_bbox,
@@ -635,6 +635,39 @@ class MontageRenderer:
         kwargs.setdefault('tile_transfers', stitcher.tile_transfers)
         return cls(stitcher.meshes, loader, name=stitcher.name, **kwargs)
 
+    def add_transfer_functions(self, lut, scale=1.0):
+        """Per-tile intensity transfer (gain, offset) from a LUT (a dict, or
+        the path of its JSON) whose keys are image names: INTERP1D control
+        points (``[xp, fp]``) reduce to their least-squares line, so the
+        blend stays linear; BRIGHTNESS_CONTRAST_ADJUST gives (brightness,
+        contrast) as (offset, gain) directly. Tiles the LUT does not name
+        keep (1, 0). The blend reads them per block. Returns the (N, 2)
+        transfers."""
+        import json
+        if isinstance(lut, str):
+            with storage.File(lut, 'r') as f:
+                lut = json.load(f)
+        tf_type = lut.get('__TYPE__', 'INTERP1D')
+        transfers = np.tile(np.array([1.0, 0.0]), (len(self.meshes), 1))
+        name2idx = {storage.base_name(str(p)): i
+                    for i, p in enumerate(self.loader.imgpaths)}
+        for nm, vals in lut.items():
+            if nm == '__TYPE__':
+                continue
+            i = name2idx.get(storage.base_name(str(nm)))
+            if i is None:
+                continue
+            if tf_type == 'INTERP1D':
+                xp = np.asarray(vals[0], np.float64).ravel()
+                fp = np.asarray(vals[1], np.float64).ravel()
+                A = np.stack([xp, np.ones_like(xp)], -1)
+                g, o = np.linalg.lstsq(A, fp, rcond=None)[0]
+            else:
+                o, g = float(vals[0]), float(vals[1])
+            transfers[i] = (g, o)
+        self._transfers = transfers
+        return transfers
+
     @classmethod
     def from_h5(cls, fname, loader_config=None, **kwargs):
         st = Stitcher.from_h5(fname, load_matches=False, load_meshes=True,
@@ -779,6 +812,30 @@ class MontageRenderer:
             info = np.iinfo(dtype)
             out = np.clip(np.round(out), info.min, info.max)
         return out.astype(dtype)
+
+    def generate_roi_mask(self, scale=1.0, canvas_bbox=None):
+        """uint8 mask (255 where a tile mesh covers the canvas, else 0) at
+        ``scale``, over ``canvas_bbox`` (default the montage bounds),
+        rasterized through ``renderer.rasterize_mesh``: pixel (r, c) sits
+        at (floor(x0 * scale) + c, floor(y0 * scale) + r) / scale. (The JAX
+        package rasterizes from x0 * scale itself, which gives a grid one
+        pixel larger than its mask, and fails, where that is not a whole
+        number.)"""
+        from feabas_tpu_torch.renderer import rasterize_mesh
+        if canvas_bbox is None:
+            canvas_bbox = self.bounds
+        x0, y0, x1, y1 = canvas_bbox
+        H = int(np.ceil((y1 - y0) * scale))
+        W = int(np.ceil((x1 - x0) * scale))
+        cx, cy = np.floor(x0 * scale), np.floor(y0 * scale)
+        mask = np.zeros((H, W), bool)
+        for m in self.meshes:
+            ms = m.copy()
+            ms.change_resolution(ms.resolution / max(scale, 1e-9))
+            tid = rasterize_mesh(ms, (cx, cy, cx + W, cy + H),
+                                 gear=const.MESH_GEAR_MOVING)
+            mask |= tid >= 0
+        return mask * np.uint8(255)
 
     def plan_render_series(self, tile_size=(4096, 4096), canvas_bbox=None,
                            one_based=True, pattern='_tr{ROW_IND}-tc{COL_IND}.png',

@@ -5,8 +5,8 @@ DOF, 1e5 links).
 
     python3 fem_tune.py sweep   # threads a block x lanes a vertex, and the
                                 # same pair without its links
-    python3 fem_tune.py repeat  # which of the general solve's device sums
-                                # give the same bits call after call
+    python3 fem_tune.py repeat  # which device sums and solves give the
+                                # same bits call after call
 
 ``sweep`` builds copies of csrc/fem_operator.cu with 64, 128 and 256
 threads a block under a temporary directory (``build.NVCC_FLAGS`` and
@@ -15,10 +15,16 @@ place of the package's library, and times every G on the pair (device µs,
 ``chip_smoke.graph_time``); then the pair with L = 0 at the package's
 build, which shows what its links cost. ``repeat`` calls the operator, the
 ``index_add_`` sums (``ops/fem.scatter_uv``, ``_link_scatter``,
-``crosslink_diag``: atomics on a CUDA tensor) and the general solve's
-fixed-order sums of the same terms (``ops/fem.fixed_sum``) 10 times each
-on the pair and counts the calls whose bits differ from the first. Each
-line names the card.
+``crosslink_diag``, ``stiffness_matvec``, and one over 6 L link points of
+the pair flattened as the match schedule's rounds flatten their anchors,
+the form its per-round solve summed with: atomics on a CUDA tensor) and
+the fixed-order sums of the same terms (``ops/fem.fixed_sum``, and the
+solves' link sums ``link_transpose`` and ``link_diag``) 10 times each on
+the pair, then each solve whose sums took a fixed order on
+``chip_smoke.solve_cases``' seeded inputs (the fused ENG solve, the match
+schedule's per-round solve, the stacked window solve in both its forms,
+``relax_mesh``), and counts the calls whose bits differ from the first.
+Each line names the card.
 """
 
 import ctypes
@@ -110,7 +116,8 @@ def repeat(cs, dev, n=10):
     tris = t['tris'].long()
     idx = torch.cat([t['idx1'], t['idx0']]).long()
     bary = torch.cat([t['bary1'], t['bary0']])
-    by_corner, by_link = fem.fixed_sum(tris, nv), fem.fixed_sum(idx, nv)
+    by_corner = fem.fixed_sum(tris, nv)
+    push = fem.link_sum(t['idx0'].long(), t['idx1'].long(), nv)
     op = fem.bind_elastic_operator(Ke, t, weight, free, lam_s, lam_c)
     calls = {
         f'operator G{t["group"]}': lambda: op(x),
@@ -121,15 +128,23 @@ def repeat(cs, dev, n=10):
         'crosslink_diag': lambda: fem.crosslink_diag(
             nv, t['idx0'].long(), t['bary0'], t['idx1'].long(), t['bary1'],
             weight),
+        'stiffness_matvec': lambda: fem.stiffness_matvec(x, Ke, tris),
+        'index_add_, flat anchors': lambda: torch.zeros(
+            (nv, 2), device=dev).index_add_(0, idx.reshape(-1), (
+                bary[:, :, None] * torch.cat([r, r])[:, None, :])
+            .reshape(-1, 2)),
         'fixed_sum, elements': lambda: by_corner(pe.reshape(-1, 2)),
-        'fixed_sum, links': lambda: by_link(
-            (bary[:, :, None] * torch.cat([r, r])[:, None, :]).reshape(-1, 2))}
+        'link_transpose': lambda: fem.link_transpose(push, t['bary0'],
+                                                     t['bary1'], r),
+        'link_diag': lambda: fem.link_diag(push, t['bary0'], t['bary1'],
+                                           weight)}
+    calls.update({f'solve {k}': fn for k, fn in cs.solve_cases(dev).items()})
     out = {}
     for name, fn in calls.items():
         first = fn()
         runs = [fn() for _ in range(n - 1)]
         out[name] = {'calls': n, 'differ_from_first': sum(
-            not torch.equal(first, y) for y in runs)}
+            not cs._same_bits(first, y) for y in runs)}
     return out
 
 

@@ -582,20 +582,43 @@ def test_port_align_cli_with_wrinkle_masks_matches_jax(tmp_path, monkeypatch,
     assert stack.last_window_sharded is False
 
 
-def test_port_align_cli_refuses_tensorstore_and_chunking(tmp_path,
-                                                         monkeypatch):
-    from feabas_tpu_torch.aligner import Aligner
+def test_port_align_cli_refuses_tensorstore(tmp_path, monkeypatch):
     from feabas_tpu_torch.scripts import align_main as port_main
     cfg, wd, names, _ = _align_workdir(str(tmp_path))
     for mode in ('tsr', 'tsd'):
         with pytest.raises(NotImplementedError, match='tensorstore'):
             _run_cli(port_main.main, cfg, (mode,), monkeypatch)
-    al = Aligner(str(tmp_path / 'mesh'), str(tmp_path / 'tform'),
-                 str(tmp_path / 'matches'))
-    al.get_section_list = lambda: [f's{k}' for k in range(40)]
-    with pytest.raises(NotImplementedError, match='_run_chunked'):
-        al.run(chunk_settings={'chunked_to_depth': 1,
-                               'default_chunk_size': 16})
+
+
+def test_port_align_cli_runs_chunked_optimization(tmp_path, monkeypatch):
+    """``align_main --mode optimization`` with ``chunked_to_depth: 1`` (chunks
+    of 2 over the three sections) writes every tform, the chunk map marks
+    every chunk committed, no tform holds a flipped triangle and every
+    pair's median residue is under 1 px."""
+    from feabas_tpu import storage
+    from feabas_tpu_torch.mesh import Mesh as PMesh
+    from feabas_tpu_torch.scripts import align_main as port_main
+    cfg, wd, names, drift = _align_workdir(str(tmp_path))
+    _run_cli(port_main.main, cfg, ('meshing', 'matching'), monkeypatch)
+    conf_path = os.path.join(wd, 'configs', 'alignment_configs.yaml')
+    conf = storage.load_yaml(conf_path)
+    conf['optimization']['chunk_settings'] = {
+        'chunked_to_depth': 1, 'default_chunk_size': 2, 'junction_width': 1,
+        'pad_junctional': True}
+    storage.save_yaml(conf_path, conf)
+    _run_cli(port_main.main, cfg, ('optimization',), monkeypatch)
+    with open(os.path.join(wd, 'align', 'chunked_tform', 'depth1',
+                           'chunk_map.json')) as f:
+        chunks = json.load(f)['chunks']
+    assert [c['sections'] for c in chunks] == [names[:2], names[2:]]
+    assert all(c['committed'] for c in chunks)
+    for n in names:
+        t = PMesh.from_h5(os.path.join(wd, 'align', 'tform', n + '.h5'))
+        assert t.flipped_triangles(MOVING).size == 0, n
+    with open(os.path.join(wd, 'align', 'residues.csv')) as f:
+        rows = [r.split(',') for r in f.read().split()[1:]]
+    assert len(rows) == len(names) - 1
+    assert max(float(r[3]) for r in rows) < 1.0, rows
 
 
 _SUBPROCESS = r'''

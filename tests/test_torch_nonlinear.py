@@ -232,13 +232,28 @@ def _jax_matvec_full(s, Kes, lam_s, lam_c):
     return np.asarray(y * jnp.asarray(s['free']))
 
 
+def _tables(s, device='cpu', dtype=F64):
+    """``fem.operator_tables`` over the system's element corners and
+    links, on ``device``, barycentric weights in ``dtype``."""
+    def idx(a):
+        return torch.as_tensor(a, device=device)
+
+    def bary(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    return fem.operator_tables(idx(s['tris']), s['nv'], idx(s['idx0']),
+                               bary(s['bary0']), idx(s['idx1']),
+                               bary(s['bary1']))
+
+
+def _numpy(tables):
+    return {k: v.numpy() if torch.is_tensor(v) else v
+            for k, v in tables.items()}
+
+
 def _port_operator_inputs(s):
     B, a2 = fem.shape_matrices(_t(s['tripts']))
     Ke = fem.eng_element_stiffness(B, a2, _t(s['mult']), _t(s['nu']))
-    tables = fem.operator_tables_to(fem.build_operator_tables(
-        s['tris'], s['nv'], s['idx0'], s['bary0'], s['idx1'], s['bary1']),
-        'cpu', F64)
-    return Ke, tables
+    return Ke, _tables(s)
 
 
 @pytest.mark.parametrize('n_groups,n_links,untouched', [
@@ -325,8 +340,7 @@ def test_operator_tables_give_the_plain_operator(rng, n_groups, n_links,
     version."""
     s = _operator_system(rng, n_groups, n_links, untouched, hub)
     n_links += hub
-    host = fem.build_operator_tables(s['tris'], s['nv'], s['idx0'],
-                                     s['bary0'], s['idx1'], s['bary1'])
+    host = _numpy(_tables(s))
     for ptr, ent, n in (('inc_ptr', 'inc_ent', s['tris'].size),
                         ('lnk_ptr', 'lnk_ent', 6 * n_links)):
         assert host[ptr][0] == 0 and host[ptr][-1] == n
@@ -347,15 +361,43 @@ def test_operator_tables_give_the_plain_operator(rng, n_groups, n_links,
     _close(got, want.numpy(), rtol=1e-12)
 
 
+@pytest.mark.parametrize('group', [4, 32])
+def test_one_sided_tables_give_the_plain_operator(rng, group):
+    """The match rounds' tables (``fem.operator_tables`` of anchors: side 0
+    weighs nothing and lists no entry, and padding anchors, weighed 0,
+    none): the kernel's lanes through them equal the plain version of the
+    same anchors as two-sided links."""
+    s = _operator_system(rng, 2, 40)
+    nv = s['nv']
+    zero = np.zeros_like(s['bary1'])
+    keep = np.arange(40) % 4 != 3
+    weight = np.where(keep, s['weight'], 0.0)
+    host = _numpy(fem.operator_tables(
+        torch.as_tensor(s['tris']), nv, None, None, torch.as_tensor(s['idx1']),
+        torch.as_tensor(s['bary1']), keep=torch.as_tensor(keep)))
+    listed = host['lnk_ent'][:host['lnk_ptr'][-1]]
+    assert host['lnk_ptr'][-1] == 3 * keep.sum()
+    assert np.array_equal(np.sort(listed), 2 * np.nonzero(
+        np.repeat(keep, 3))[0] + 1)
+    Ke, _ = _port_operator_inputs(s)
+    x = _t(s['x'])
+    want = fem.elastic_operator_plain(
+        x, Ke, {k: _t(v) if k.startswith('bary') else torch.as_tensor(v)
+                for k, v in (('tris', s['tris']), ('idx0', s['idx1']),
+                             ('bary0', zero), ('idx1', s['idx1']),
+                             ('bary1', s['bary1']))},
+        _t(weight), _t(s['free']), 0.37, 1.3)
+    got = _lane_operator(x, Ke, host, weight, s['free'], 0.37, 1.3, group)
+    _close(got, want.numpy(), rtol=1e-12)
+
+
 def test_operator_tables_choose_one_group(rng):
-    """``operator_tables_to`` picks the kernel's lanes a vertex G from the
-    tables alone: the same tables give the same G, on any device and in
-    any dtype; about one CSR entry a lane, 4 to 32 lanes."""
+    """``operator_tables`` picks the kernel's lanes a vertex G from the
+    system's counts alone: the same system gives the same G in any dtype;
+    about one CSR entry a lane, 4 to 32 lanes."""
     s = _operator_system(rng, 3, 30, True)
-    host = fem.build_operator_tables(s['tris'], s['nv'], s['idx0'],
-                                     s['bary0'], s['idx1'], s['bary1'])
-    a = fem.operator_tables_to(host, 'cpu', F64)
-    b = fem.operator_tables_to(host, 'cpu', torch.float32)
+    a = _tables(s, dtype=F64)
+    b = _tables(s, dtype=torch.float32)
     assert a['group'] == b['group'] == fem.operator_group(
         s['nv'], len(s['tris']), 30)
     assert a['group'] in fem.OPERATOR_GROUPS
@@ -422,9 +464,7 @@ def test_kernel_matches_plain_on_card(rng, dtype, rtol, n_groups, n_links,
     s = _operator_system(rng, n_groups, n_links, untouched, hub)
     Ke, tables = _port_operator_inputs(s)
     dev = torch.device('cuda')
-    tables = fem.operator_tables_to(fem.build_operator_tables(
-        s['tris'], s['nv'], s['idx0'], s['bary0'], s['idx1'], s['bary1']),
-        dev, dtype)
+    tables = _tables(s, dev, dtype)
     tables['group'] = group
     args = (_t(s['x']).to(dev, dtype), Ke.to(dev, dtype).contiguous(), tables,
             _t(s['weight']).to(dev, dtype), _t(s['free']).to(dev, dtype),

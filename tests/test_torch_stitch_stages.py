@@ -233,3 +233,69 @@ def test_one_unreadable_tile_fails_only_its_overlaps(workdir, tmp_path,
         assert (jerr is None) == (perr is None)
         if perr is not None:
             assert perr.split(':')[0] == jerr.split(':')[0]
+
+
+def _renderers(root, names, bboxes):
+    """A ``MontageRenderer`` of each package over the same tiles on disk."""
+    out = []
+    for mod in (jstitcher, pstitcher):
+        st = mod.Stitcher(names, bboxes, root_dir=root, name='s')
+        st.initialize_meshes()
+        out.append(mod.MontageRenderer.from_stitcher(
+            st, loader_config={'apply_CLAHE': False, 'inverse': False}))
+    return out
+
+
+@pytest.mark.parametrize('lut_type', ['BRIGHTNESS_CONTRAST_ADJUST',
+                                      'INTERP1D'])
+def test_add_transfer_functions_matches_jax(workdir, tmp_path, lut_type):
+    """tests/test_dal_renderer.py::test_montage_add_transfer_functions in
+    both packages, with either LUT type: the same (gain, offset) per tile,
+    the same render within 1 LSB, and tile B's halved brightness restored
+    in the port's render."""
+    rng = np.random.default_rng(11)
+    base = (rng.random((100, 100)) * 100 + 50).astype(np.uint8)
+    cv2.imwrite(str(tmp_path / 'a.png'), base)
+    cv2.imwrite(str(tmp_path / 'b.png'), (base // 2).astype(np.uint8))
+    jmr, pmr = _renderers(str(tmp_path), ['a.png', 'b.png'],
+                          [(0, 0, 100, 100), (100, 0, 200, 100)])
+    # gain 2 restores tile B (as a line through three control points)
+    lut = ({'__TYPE__': lut_type, 'b.png': [0.0, 2.0]}
+           if lut_type == 'BRIGHTNESS_CONTRAST_ADJUST' else
+           {'__TYPE__': lut_type, 'b.png': [[0, 60, 120], [0, 120, 240]]})
+    tj = jmr.add_transfer_functions(lut)
+    tp = pmr.add_transfer_functions(lut)
+    np.testing.assert_allclose(tp, tj, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(tp, [[1.0, 0.0], [2.0, 0.0]], atol=1e-9)
+    oj = jmr.crop((0, 0, 200, 100)).astype(int)
+    op = pmr.crop((0, 0, 200, 100)).astype(int)
+    assert np.abs(op - oj).max() <= 1
+    assert abs(float(op[:, :100].mean()) - float(base.mean())) < 2.0
+    assert abs(float(op[:, 100:].mean()) - float(base.mean())) < 3.0
+
+
+def test_generate_roi_mask_matches_jax(workdir, tmp_path):
+    """tests/test_stitcher_stages.py::test_generate_roi_mask in both
+    packages: equal masks, and the reference test's own checks on the
+    port's."""
+    img = (np.random.default_rng(3).random((160, 160)) * 255).astype(np.uint8)
+    cv2.imwrite(str(tmp_path / 'a.png'), img)
+    cv2.imwrite(str(tmp_path / 'b.png'), img)
+    jmr, pmr = _renderers(str(tmp_path), ['a.png', 'b.png'],
+                          [(0, 0, 160, 160), (120, 0, 280, 160)])
+    for scale in (0.5, 1.0 / 16):
+        mj = jmr.generate_roi_mask(scale=scale)
+        mp = pmr.generate_roi_mask(scale=scale)
+        assert mp.dtype == np.uint8 and np.array_equal(mp, mj), scale
+    mask = pmr.generate_roi_mask(scale=0.5)
+    assert mask.shape == (80, 140)
+    assert mask[40, 20] == 255 and mask[40, 120] == 255
+    assert (mask[2:-2, 2:-2] > 0).mean() > 0.95
+    # a canvas whose corner is no whole pixel at the scale (the stitch
+    # CLI's canvas starts at (1, 1)): the JAX package's grid outgrows its
+    # mask there; the port's starts at the floor of the corner
+    box = (1, 1, 281, 161)
+    with pytest.raises(ValueError):
+        jmr.generate_roi_mask(scale=1 / 16, canvas_bbox=box)
+    mask = pmr.generate_roi_mask(scale=1 / 16, canvas_bbox=box)
+    assert mask.shape == (10, 18) and (mask[:, :17] == 255).all()
