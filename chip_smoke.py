@@ -111,7 +111,23 @@ Phases (each prints its lines; any failure exits non-zero):
      tests/test_aligner.py against phase 5's windowed tforms; the same
      command again on that tform dir must make no window solve and keep
      every tform's bytes, and a run into a fresh copy must give the same
-     tforms bit for bit.
+     tforms bit for bit;
+  9. the volume output (``run_volume``, after phases 4 and 5 on copies of
+     their work dirs, through the port's volume store: tensorstore where
+     it is installed, else ``_tslite``, whose name it prints): (a) phase
+     4's section through the stitch CLI's rendering with a
+     neuroglancer_precomputed driver (raw 256^2 chunks), held against
+     phase 4's PNG render (cc >= 0.99, median |diff| 0; the montage blend
+     and the blur must launch); (b) phase 5's stack through ``align_main
+     --mode tsr`` (LINEAR, device rendering, 2048^2 x 64 chunks), each
+     layer within 1 LSB of phase 5's rendered section over the canvas, the
+     mesh raster launched, and a second tsr writing no chunk; (c)
+     ``--mode tsd`` (mips 1, 3, 5, 7, z 'auto'): 5 scales in the info, and
+     chunks of each (a corner one among them) bit-equal to a numpy mean of
+     the base (``block_reduce``); (d) the highpass mip-6 thumbnail of (a)'s
+     volume against the max-minus-min construction over phase 4's PNG
+     render, and the plain one against ``mipmap.create_thumbnail`` of it
+     (cc > 0.9 each); with stage seconds, chunks and MB written and MB/s.
 After the phases one ``[determinism]`` line lists each solve whose sums
 once took CUDA atomics, run again in phase 4 or 5 on inputs its path gave
 it, bit-equal to itself and to what the path got (a difference fails the
@@ -126,11 +142,11 @@ last is nvidia-smi's card line; the last line is one JSON object
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 
 ``--phases`` (a comma list of kernels, stitch, align, chunked, thumbnail,
-nonlinear; chunked needs align) runs a
+nonlinear, volume; chunked needs align, volume stitch and align) runs a
 part of it, for work on one path; the kernels line and the ok line are
-printed only by the whole run. ``--profile`` wraps each stitch and
-thumbnail stage in one ``torch.profiler`` pass and prints its device time
-by kernel.
+printed only by the whole run. ``--profile`` wraps each stitch,
+thumbnail and volume stage in one ``torch.profiler`` pass and prints its
+device time by kernel.
 """
 
 import json
@@ -519,6 +535,61 @@ def _quad_mesh(x0, y0, x1, y1, shift):
     return m
 
 
+def raster_row(dev, name, args, geodesic=False, out_kind='u8', fillval=0.0,
+               covered=True, iters=20, warm_s=0.1, edge=False):
+    """One row of the mesh raster: ``args`` = (src, tables, cands, h, w) on
+    the card held bit-equal to the plain version with the expected
+    coverage flags, then timed (call ms, device us per launch from a
+    CUDA-graph replay, plain ms, bound, what the tile cull keeps). Returns
+    (row, the kernel's output)."""
+    import torch
+    from feabas_tpu_torch.ops import render
+    tile_h = render.kernel_tile_h()
+    src, tabs, cands, h, w = args
+    B = tabs.shape[0]
+
+    def kernel():
+        return render.raster_blocks(src, tabs, cands, fillval, h, w,
+                                    geodesic, out_kind)
+
+    def plain():
+        return render.raster_blocks_plain(src, tabs, cands, fillval, h, w,
+                                          geodesic, out_kind)
+    (got,), cov = kernel()
+    (want,), pcov = plain()
+    torch.cuda.synchronize()
+    diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+    err = float(diff.max())
+    want_cov = [covered] * B if isinstance(covered, bool) else covered
+    if not (torch.equal(got, want) and got.dtype == want.dtype
+            and torch.equal(cov, pcov) and cov.dtype == torch.bool
+            and cov.tolist() == list(want_cov)):
+        raise RuntimeError(
+            f'mesh_raster {name}: max diff {err}, '
+            f'{float((diff > 0).float().mean()):.2e} of pixels differ, '
+            f'coverage {cov.tolist()} vs plain {pcov.tolist()}, expected '
+            f'{list(want_cov)}')
+    ms = cuda_time(kernel, iters, warm_s)
+    pms = cuda_time(plain, max(iters // 4, 2), warm_s)
+    run, _, dt = render._prepare(src, tabs, cands, fillval, h, w,
+                                 geodesic, out_kind, None)
+    into = (torch.empty((B, h, w), dtype=dt, device=dev),
+            torch.empty(B, dtype=torch.bool, device=dev))
+    us = graph_time(lambda: run(*into))
+    keep = render.tile_cull_plain(tabs, cands, h, w, tile_h)
+    idx = (cands.long() if cands is not None else
+           torch.arange(tabs.shape[1], device=dev)[None, None]
+           .expand(B, 1, -1))
+    real = torch.isfinite(
+        tabs[torch.arange(B, device=dev)[:, None, None], idx][..., 12])
+    row = kernel_row('mesh_raster', (B, h, w), name, err, ms, pms,
+                     raster_bound(src, tabs, h, w))
+    row.update(edge=edge, device_us=us, K=int(keep.shape[-1]),
+               real_per_cell=float(real.sum(-1).float().mean()),
+               kept_per_tile=float(keep.sum(-1).float().mean()))
+    return row, got
+
+
 def check_raster(dev, texture):
     """Phase 3, mesh raster: the kernel against its plain version, 0 LSB
     and equal coverage flags everywhere.
@@ -546,7 +617,6 @@ def check_raster(dev, texture):
     mesh = _section_mesh(8192, 600, 8.0, 2048.0)
     loader = StreamLoader(img)
     eng = _engine_of(mesh, dev)
-    tile_h = render.kernel_tile_h()
     rows = []
 
     def t(a):
@@ -555,48 +625,8 @@ def check_raster(dev, texture):
 
     def compare(name, args, geodesic=False, out_kind='u8', fillval=0.0,
                 covered=True, iters=20, warm_s=0.1, edge=False):
-        src, tabs, cands, h, w = args
-        B = tabs.shape[0]
-
-        def kernel():
-            return render.raster_blocks(src, tabs, cands, fillval, h, w,
-                                        geodesic, out_kind)
-
-        def plain():
-            return render.raster_blocks_plain(src, tabs, cands, fillval, h, w,
-                                              geodesic, out_kind)
-        (got,), cov = kernel()
-        (want,), pcov = plain()
-        torch.cuda.synchronize()
-        diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
-        err = float(diff.max())
-        want_cov = [covered] * B if isinstance(covered, bool) else covered
-        if not (torch.equal(got, want) and got.dtype == want.dtype
-                and torch.equal(cov, pcov) and cov.dtype == torch.bool
-                and cov.tolist() == list(want_cov)):
-            raise RuntimeError(
-                f'mesh_raster {name}: max diff {err}, '
-                f'{float((diff > 0).float().mean()):.2e} of pixels differ, '
-                f'coverage {cov.tolist()} vs plain {pcov.tolist()}, expected '
-                f'{list(want_cov)}')
-        ms = cuda_time(kernel, iters, warm_s)
-        pms = cuda_time(plain, max(iters // 4, 2), warm_s)
-        run, _, dt = render._prepare(src, tabs, cands, fillval, h, w,
-                                     geodesic, out_kind, None)
-        into = (torch.empty((B, h, w), dtype=dt, device=dev),
-                torch.empty(B, dtype=torch.bool, device=dev))
-        us = graph_time(lambda: run(*into))
-        keep = render.tile_cull_plain(tabs, cands, h, w, tile_h)
-        idx = (cands.long() if cands is not None else
-               torch.arange(tabs.shape[1], device=dev)[None, None]
-               .expand(B, 1, -1))
-        real = torch.isfinite(
-            tabs[torch.arange(B, device=dev)[:, None, None], idx][..., 12])
-        row = kernel_row('mesh_raster', (B, h, w), name, err, ms, pms,
-                         raster_bound(src, tabs, h, w))
-        row.update(edge=edge, device_us=us, K=int(keep.shape[-1]),
-                   real_per_cell=float(real.sum(-1).float().mean()),
-                   kept_per_tile=float(keep.sum(-1).float().mean()))
+        row, got = raster_row(dev, name, args, geodesic, out_kind, fillval,
+                              covered, iters, warm_s, edge)
         rows.append(row)
         return got
 
@@ -1220,14 +1250,15 @@ def stitch_stages(profile=False, before=None):
     return stage_s
 
 
-def run_slice(dev, profile=False):
+def run_slice(dev, profile=False, keep=None):
     """Phase 4: the stitch path at full size through the stitch CLI, then
     the montage blend held against its plain version on each block the
     path blended (and under seeded transfers), the ROI mask, the CG
     operator on the systems the path bound it to, and the path's first
     per-round match solve and fused ENG solve run again. Returns
     (launches, launches by shape, stage seconds, the blend's and the
-    operator's rows)."""
+    operator's rows). With ``keep`` (a dict) its work dir stays for phase 9,
+    as ``keep['stitch']`` = (root, work dir)."""
     import numpy as np
     import torch
     import cv2
@@ -1344,11 +1375,14 @@ def run_slice(dev, profile=False):
                      (a[11].shape[0], a[1].shape[0], a[10].shape[0]))
             determinism_check(spy.name, shape, lambda: solve(*a, **k),
                               spy.result)
+        if keep is not None:
+            keep['stitch'] = (root, wd)
         return launches, by_shape, stage_s, rows
     finally:
         for x in (ops, rounds, eng):
             x.__exit__()
-        shutil.rmtree(root, ignore_errors=True)
+        if keep is None or 'stitch' not in keep:
+            shutil.rmtree(root, ignore_errors=True)
 
 
 LUT_SEED = SEED + 11
@@ -1572,12 +1606,13 @@ def align_overlay_ccs(wd, names):
     return ccs
 
 
-def run_align(dev, chunked=False):
+def run_align(dev, chunked=False, keep=None):
     """Phase 5: the serial-section stack at full size through the align
     CLI (meshing, matching, optimization, rendering); with ``chunked``
     phase 8 (``run_chunked``) follows on its work dir. Returns (launches,
     launches by shape, stage seconds, the CG operator's rows, phase 8's
-    result or None)."""
+    result or None). With ``keep`` (a dict) its work dir stays for phase
+    9, as ``keep['align']`` = (root, work dir, section names)."""
     import numpy as np
     import torch
     from feabas_tpu_torch import aligner, state
@@ -1697,6 +1732,8 @@ def run_align(dev, chunked=False):
         relax_check(dev, wd, names[STACK_S // 2])
         aligner.Stack._sharded_window_solve = solve
         result8 = run_chunked(dev, root, wd, names) if chunked else None
+        if keep is not None:
+            keep['align'] = (root, wd, names)
         return launches, by_shape, stage_s, rows, result8
     finally:
         aligner.Stack._sharded_window_solve = solve
@@ -1705,7 +1742,8 @@ def run_align(dev, chunked=False):
         state.render_batch_to_device = upload
         ops.__exit__()
         stacks.__exit__()
-        shutil.rmtree(root, ignore_errors=True)
+        if keep is None or 'align' not in keep:
+            shutil.rmtree(root, ignore_errors=True)
 
 
 def relax_check(dev, wd, name):
@@ -2189,6 +2227,35 @@ class FirstCall:
             out = fn(*a, **k)
             if keep:
                 self.args, self.result = args, _copied(out)
+            return out
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._fn)
+
+
+class FirstOfShape:
+    """While active, keeps a copy of the arguments of the first call of
+    ``module.<name>`` for each shape ``key(args)``, with the covered flag
+    its result gave; copies launch no counted kernel."""
+
+    def __init__(self, module, name, key):
+        self.module, self.name, self.key = module, name, key
+        self.calls = {}
+
+    def __enter__(self):
+        self._fn = fn = getattr(self.module, self.name)
+
+        def spy(*a, **k):
+            key = self.key(a)
+            keep = key not in self.calls
+            if keep:
+                args = (_copied(a), _copied(k))
+            out = fn(*a, **k)
+            if keep:
+                self.calls[key] = args + (_copied(out[1]),)
             return out
 
         setattr(self.module, self.name, spy)
@@ -3210,7 +3277,400 @@ def run_thumbnail(dev, size=SECTION, profile=False):
         shutil.rmtree(root, ignore_errors=True)
 
 
-PHASES = ('kernels', 'stitch', 'align', 'chunked', 'thumbnail', 'nonlinear')
+VOLUME_THUMB_MIP = 6
+
+
+def block_reduce(a, f, method='mean'):
+    """``a`` reduced over blocks of ``f`` (one factor per axis, blocks from
+    index 0): partial edge blocks reduce the entries that are there; an
+    integer mean rounds half to even, as tensorstore's downsample does.
+    The plain numpy reference of the volume phase's checks."""
+    import numpy as np
+    f = [int(k) for k in f]
+    out = [-(-s // k) for s, k in zip(a.shape, f)]
+    pad = [(0, o * k - s) for s, k, o in zip(a.shape, f, out)]
+    shape = [v for o, k in zip(out, f) for v in (o, k)]
+    axes = tuple(range(1, 2 * a.ndim, 2))
+    if method in ('max', 'min'):
+        if a.dtype.kind == 'f':
+            fill = -np.inf if method == 'max' else np.inf
+        else:
+            fill = (np.iinfo(a.dtype).min if method == 'max'
+                    else np.iinfo(a.dtype).max)
+        blocks = np.pad(a, pad, constant_values=fill).reshape(shape)
+        return blocks.max(axis=axes) if method == 'max' else \
+            blocks.min(axis=axes)
+    count = np.ones(out, np.int64)
+    for d, (s, k) in enumerate(zip(a.shape, f)):
+        n = np.minimum(k, s - np.arange(out[d]) * k)
+        count = count * n.reshape([-1 if e == d else 1
+                                   for e in range(a.ndim)])
+    if a.dtype.kind == 'f':
+        total = np.pad(a, pad).reshape(shape).sum(axis=axes,
+                                                  dtype=np.float64)
+        return (total / count).astype(a.dtype)
+    total = np.pad(a, pad).reshape(shape).sum(axis=axes, dtype=np.int64)
+    return np.round(total / count).astype(a.dtype)   # half to even
+
+
+def layer_agreement(got, want):
+    """(max |diff|, share of differing pixels, median |diff|, cc) of two
+    images of one shape."""
+    import numpy as np
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    cc = float(np.corrcoef(got.ravel().astype(np.float64),
+                           want.ravel().astype(np.float64))[0, 1])
+    return int(d.max()), float((d > 0).mean()), float(np.median(d)), cc
+
+
+def stitch_volume_outliers(vol, png, off=8, near=4, block=2048):
+    """Where the stitch volume and the PNG render differ by more than
+    ``off``: how many pixels, how many lie within ``near`` px of an edge
+    of the volume's 2048^2 render superblocks, and how many within
+    ``near`` px of a pixel that either render left empty (0)."""
+    import numpy as np
+    import cv2
+    bad = np.abs(vol.astype(np.int64) - png.astype(np.int64)) > off
+    ys, xs = np.nonzero(bad)
+    if not len(ys):
+        return f'no pixel off by more than {off}'
+
+    def near_edge(v):
+        r = v % block
+        return (r < near) | (r >= block - near)
+    empty = ((vol == 0) | (png == 0)).astype(np.uint8)
+    empty = cv2.dilate(empty, np.ones((2 * near + 1, 2 * near + 1),
+                                      np.uint8)) > 0
+    return (f'{len(ys)} pixels off by more than {off}: '
+            f'{int((near_edge(ys) | near_edge(xs)).sum())} within {near} px '
+            f'of a superblock edge, {int(empty[ys, xs].sum())} within {near} '
+            f'px of an empty pixel; rows {int(ys.min())}-{int(ys.max())}, '
+            f'columns {int(xs.min())}-{int(xs.max())}')
+
+
+def volume_path_rows(dev, blends, rasters, launched):
+    """The montage blend and the mesh raster held bit-equal to their plain
+    versions and timed on a copy of the inputs the volume path gave them
+    at each shape it launched them with (``FirstOfShape`` calls); fails
+    unless those are the shapes the counts list."""
+    rows = []
+    for key, (a, k, covered) in blends.items():
+        if k:
+            raise RuntimeError(f'montage_blend called with keywords {k}')
+        rows.append(montage_row(
+            dev, f'volume superblock {key}',
+            {'args': a, 'covered': bool(covered)}, path=True))
+    for key, (a, k, covered) in rasters.items():
+        if k.get('n_mips', 0):
+            raise RuntimeError('mesh_raster emitted mips on the tsr path')
+        src, tabs, cands, fillval, h, w, geodesic, out_kind = a
+        row, _ = raster_row(dev, f'tsr block batch {key}',
+                            (src, tabs, cands, h, w), geodesic, out_kind,
+                            fillval, covered.tolist(), iters=10)
+        rows.append(row)
+    for name, calls in (('montage_blend', blends), ('mesh_raster', rasters)):
+        got = sorted('x'.join(map(str, key)) for key in calls)
+        if got != sorted(launched[name]):
+            raise RuntimeError(f'{name}: inputs kept at shapes {got}, the '
+                               f'path launched {sorted(launched[name])}')
+    log_rows(rows, ' LSB')
+    return rows
+
+
+def volume_bytes(path):
+    """(files, bytes) of the chunk files under ``path``."""
+    n = b = 0
+    for d, _, fs in os.walk(path):
+        for f in fs:
+            if f != 'info' and not f.endswith('.json'):
+                n += 1
+                b += os.path.getsize(os.path.join(d, f))
+    return n, b
+
+
+class WriteCount:
+    """Counts the chunk writes ``dal.TensorStoreWriter`` issues (slabs
+    and single chunks) while it is entered, without changing them."""
+
+    def __enter__(self):
+        from feabas_tpu_torch import dal
+        self.cls, self.n = dal.TensorStoreWriter, 0
+        self.orig = {k: getattr(self.cls, k)
+                     for k in ('write_slab', 'write_single_chunk')}
+        for k, fn in self.orig.items():
+            def spy(w, *a, _fn=fn, **kw):
+                self.n += 1
+                return _fn(w, *a, **kw)
+            setattr(self.cls, k, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.cls, k, fn)
+
+
+def volume_workdir(root, wd, tag, overrides, links=(), copies=()):
+    """A work dir for the volume phase beside phase 4's or 5's: a config
+    dir naming it, ``copies`` of ``wd``'s subdirs, symlinks to ``links``,
+    its override yamls updated with ``overrides`` ({file: {section:
+    dict}}); points the config system at it. Returns it."""
+    from feabas_tpu_torch import config, storage
+    cfg = os.path.join(root, 'configs_' + tag)
+    shutil.copytree(os.path.join(root, 'configs'), cfg)
+    out = os.path.join(root, 'work_dir_' + tag)
+    for sub in ('configs',) + tuple(copies):
+        shutil.copytree(os.path.join(wd, sub), os.path.join(out, sub))
+    for sub in links:
+        os.makedirs(os.path.dirname(os.path.join(out, sub)), exist_ok=True)
+        os.symlink(os.path.join(wd, sub), os.path.join(out, sub))
+    general = os.path.join(cfg, 'general_configs.yaml')
+    _save_yaml(general, dict(storage.load_yaml(general),
+                             working_directory=out))
+    for fname, sections in overrides.items():
+        path = os.path.join(out, 'configs', fname)
+        conf = storage.load_yaml(path) if os.path.exists(path) else {}
+        for key, vals in sections.items():
+            conf[key] = dict(conf.get(key) or {}, **vals)
+        _save_yaml(path, conf)
+    os.environ['FEABAS_TPU_CONFIG_DIR'] = cfg
+    config.clear_config_caches()
+    return out
+
+
+def _stage(stage_s, name, fn, profile=False):
+    """``fn()`` timed on the host clock up to a synchronize into
+    ``stage_s[name]``; with ``profile`` in one torch.profiler pass."""
+    import torch
+    t = time.perf_counter()
+    out = _profiled(profile, f'volume.{name}', fn)
+    torch.cuda.synchronize()
+    stage_s[name] = time.perf_counter() - t
+    return out
+
+
+def run_volume(dev, kept, profile=False):
+    """Phase 9: the volume output of the stitch and align paths on the
+    card, on copies of phase 4's and phase 5's work dirs (``kept``), through
+    the port's volume store (``dal.ts``: tensorstore where it is
+    installed, else ``_tslite``): (a) the stitch CLI's rendering with a
+    neuroglancer_precomputed driver (raw, 256^2 chunks, padded to whole
+    chunks) held against phase 4's PNG render; (b) ``align_main --mode
+    tsr`` (LINEAR, device rendering, 2048^2 x 64 chunks: one slab) held
+    within 1 LSB against phase 5's rendered sections, then again with no
+    chunk written; (c) ``align_main --mode tsd`` (mips 1, 3, 5, 7, z
+    'auto', the source's raw encoding) with chunks of every scale held
+    bit for bit against ``block_reduce`` of the base; (d) the highpass
+    thumbnail at mip 6 from (a)'s volume against ``block_reduce``'s
+    max-minus-min construction over phase 4's PNG render, and the plain
+    one against ``mipmap.create_thumbnail`` of that render. With
+    ``profile`` each stage runs in one torch.profiler pass. Returns
+    (launches, launches by shape, stage seconds, no rows)."""
+    import numpy as np
+    from feabas_tpu_torch import dal, mipmap
+    from feabas_tpu_torch import device as device_mod
+    from feabas_tpu_torch.dal import StaticImageLoader
+    from feabas_tpu_torch.ops import montage_render, render
+    from feabas_tpu_torch.scripts import align_main, stitch_main
+    s_root, s_wd = kept['stitch']
+    a_root, a_wd, names = kept['align']
+    log(f'[volume] store {dal.ts.__name__}')
+    stage_s, by_stage, io = {}, {}, {}
+    try:
+        device_mod.reset_launch_counts()
+        # (a) the stitched section into a volume
+        wd = volume_workdir(s_root, s_wd, 'vol', {
+            'stitching_configs.yaml': {'rendering': {
+                'driver': 'neuroglancer_precomputed'}}},
+            copies=('stitch/stitch_coord', 'stitch/tform'))
+        # the blend's inputs at each shape the stage launches it with, and
+        # the raster's in tsr, as the path gave them
+        blends = FirstOfShape(montage_render, 'montage_blend',
+                              lambda a: (*a[5].shape, a[3].shape[1]))
+        rasters = FirstOfShape(render, 'raster_blocks',
+                               lambda a: (a[1].shape[0], a[4], a[5]))
+        with WriteCount() as wc, blends:
+            _stage(stage_s, 'stitch_volume',
+                   lambda: stitch_main.main(['--mode', 'rendering']), profile)
+        by_stage['stitch_volume'] = device_mod.launch_counts()
+        vol_a = os.path.join(wd, 'stitched_sections', 'mip0', 's0001')
+        io['stitch_volume'] = volume_bytes(vol_a) + (wc.n,)
+        for name in ('montage_blend', 'gaussian_blur'):
+            if by_stage['stitch_volume'][name] <= 0:
+                raise RuntimeError(f'{name} was not launched by the stitch '
+                                   'volume render')
+        ds = dal.ts.open({'driver': 'neuroglancer_precomputed', 'kvstore': {
+            'driver': 'file', 'path': vol_a}}).result()
+        spec_a = ds.spec().to_json()['scale_metadata']
+        vol = ds[..., 0, 0].read().result().T
+        from feabas_tpu_torch.stitcher import MontageRenderer
+        b = MontageRenderer.from_h5(os.path.join(
+            s_wd, 'stitch', 'tform', 's0001.h5')).bounds
+        x0, y0 = int(np.floor(b[0])), int(np.floor(b[1]))
+        png_dir = os.path.join(s_wd, 'stitched_sections', 'mip0', 's0001')
+        png = read_rendered(png_dir, (x0, y0, x0 + vol.shape[1],
+                                      y0 + vol.shape[0]))
+        mx, share, med, cc = layer_agreement(vol, png)
+        log(f'[volume] (a) stitch volume {vol.shape[::-1]} '
+            f'({spec_a["encoding"]}, chunks {spec_a["chunk_size"]}) against '
+            f'the PNG render: max |diff| {mx}, {share:.6f} of pixels differ, '
+            f'median |diff| {med}, cc {cc:.6f}; montage_blend '
+            f'{by_stage["stitch_volume"]["montage_blend"]}, gaussian_blur '
+            f'{by_stage["stitch_volume"]["gaussian_blur"]} launches; '
+            + stitch_volume_outliers(vol, png))
+        if not (cc >= 0.99 and med == 0):
+            raise RuntimeError(f'stitch volume cc {cc}, median |diff| {med}')
+
+        # (b) the aligned stack into one volume, then resumed
+        wd = volume_workdir(a_root, a_wd, 'tsr', {
+            'alignment_configs.yaml': {
+                'tensorstore_rendering': {'remap_interp': 'LINEAR',
+                                          'device_render': True},
+                'tensorstore_downsample': {'jpeg_compression': None}}},
+            links=('stitched_sections',), copies=('align/tform',))
+        before = device_mod.launch_counts()
+        with WriteCount() as wc, rasters:
+            _stage(stage_s, 'tsr', lambda: align_main.main(['--mode', 'tsr']),
+                   profile)
+        after = device_mod.launch_counts()
+        by_stage['tsr'] = {k: after[k] - before[k] for k in after}
+        vol_b = os.path.join(wd, 'aligned_tensorstore')
+        io['tsr'] = volume_bytes(vol_b) + (wc.n,)
+        if by_stage['tsr']['mesh_raster'] <= 0:
+            raise RuntimeError('mesh_raster was not launched by tsr')
+        with open(os.path.join(wd, 'align', 'tform', 'canvas.json')) as f:
+            canvas = json.load(f)['mip0']
+        ds = dal.ts.open({'driver': 'neuroglancer_precomputed', 'kvstore': {
+            'driver': 'file', 'path': vol_b}}).result()
+        base = ds[..., 0].read().result()
+        if base.shape != (canvas[2] - canvas[0], canvas[3] - canvas[1],
+                          len(names)):
+            raise RuntimeError(f'tsr volume {base.shape} for canvas {canvas}')
+        worst, shares = 0, []
+        for z, n in enumerate(names):
+            ref = StaticImageLoader.from_coordinate_file(os.path.join(
+                a_wd, 'aligned_stack', 'mip0', f'{z:05d}_{n}',
+                'metadata.txt')).crop(canvas)
+            mx, share, _, _ = layer_agreement(base[:, :, z].T, ref)
+            worst = max(worst, mx)
+            shares.append(share)
+        log(f'[volume] (b) tsr {base.shape} against the rendered sections: '
+            f'max |diff| {worst}, share differing per z '
+            f'{[round(v, 6) for v in shares]}; mesh_raster '
+            f'{by_stage["tsr"]["mesh_raster"]} launches, {wc.n} chunk writes')
+        if worst > 1:
+            raise RuntimeError(f'tsr layer off by {worst} LSB')
+        with WriteCount() as wc:
+            _stage(stage_s, 'tsr_resume',
+                   lambda: align_main.main(['--mode', 'tsr']))
+        log(f'[volume] (b) tsr again: {wc.n} chunk writes')
+        if wc.n != 0:
+            raise RuntimeError(f'resumed tsr wrote {wc.n} chunks')
+
+        # (c) its mip scales
+        with WriteCount():
+            _stage(stage_s, 'tsd', lambda: align_main.main(['--mode', 'tsd']),
+                   profile)
+        with open(os.path.join(vol_b, 'info')) as f:
+            scales = json.load(f)['scales']
+        io['tsd'] = (sum(volume_bytes(os.path.join(vol_b, sc['key']))[0]
+                         for sc in scales[1:]),
+                     sum(volume_bytes(os.path.join(vol_b, sc['key']))[1]
+                         for sc in scales[1:]), None)
+        if len(scales) != 5:
+            raise RuntimeError(f'{len(scales)} scales in info: '
+                               f'{[sc["key"] for sc in scales]}')
+        checked = []
+        for i, sc in enumerate(scales[1:], start=1):
+            f = [int(round(r / r0)) for r, r0 in zip(sc['resolution'],
+                                                     scales[0]['resolution'])]
+            ds = dal.ts.open({'driver': 'neuroglancer_precomputed',
+                              'scale_index': i, 'kvstore': {
+                                  'driver': 'file', 'path': vol_b}}).result()
+            size, ch = sc['size'], sc['chunk_sizes'][0]
+            corners = {(0, 0), (((size[0] - 1) // ch[0]) * ch[0],
+                                ((size[1] - 1) // ch[1]) * ch[1]),
+                       ((size[0] // 2 // ch[0]) * ch[0], 0)}
+            for cx, cy in sorted(corners):
+                cx1, cy1 = min(cx + ch[0], size[0]), min(cy + ch[1], size[1])
+                got = ds[cx:cx1, cy:cy1, :, 0].read().result()
+                want = block_reduce(
+                    base[cx * f[0]:cx1 * f[0], cy * f[1]:cy1 * f[1]], f)
+                if not np.array_equal(got, want):
+                    raise RuntimeError(f'scale {sc["key"]} chunk at '
+                                       f'({cx}, {cy}) differs from the mean '
+                                       'of the base')
+                checked.append(f'{sc["key"]}@{cx},{cy}')
+        log(f'[volume] (c) tsd scales {[sc["key"] for sc in scales]}; '
+            f'{len(checked)} chunks bit-equal to block_reduce of the base: '
+            f'{checked}')
+
+        # (d) thumbnails straight from (a)'s volume
+        import cv2
+        thumb = _stage(stage_s, 'thumbnail',
+                       lambda: mipmap.create_thumbnail_tensorstore(
+                           vol_a, None, thumbnail_mip=VOLUME_THUMB_MIP,
+                           highpass=True))
+        inter = VOLUME_THUMB_MIP - 2
+        m = block_reduce(png, (2 ** inter, 2 ** inter))
+        hp = (block_reduce(block_reduce(m, (2, 2), 'max').astype(
+            np.float32), (2, 2)) - block_reduce(block_reduce(
+                m, (2, 2), 'min').astype(np.float32), (2, 2)))
+        h, w = min(thumb.shape[0], hp.shape[0]), min(thumb.shape[1],
+                                                    hp.shape[1])
+        cc_hp = float(np.corrcoef(thumb[:h, :w].ravel().astype(np.float64),
+                                  -hp[:h, :w].ravel().astype(np.float64))[0, 1])
+        plain = mipmap.create_thumbnail_tensorstore(
+            vol_a, None, thumbnail_mip=VOLUME_THUMB_MIP, highpass=False)
+        ref_png = os.path.join(a_root, 'thumb_ref.png')
+        mipmap.create_thumbnail(os.path.join(png_dir, 'metadata.txt'),
+                                ref_png, thumbnail_mip=VOLUME_THUMB_MIP,
+                                highpass=False)
+        ref = cv2.imread(ref_png, cv2.IMREAD_GRAYSCALE)
+        s = 2 ** VOLUME_THUMB_MIP
+        h, w = (int(b[3]) - y0) // s, (int(b[2]) - x0) // s
+
+        def cc_over_section(a, c):
+            return float(np.corrcoef(a[:h, :w].ravel().astype(np.float64),
+                                     c[:h, :w].ravel().astype(np.float64))[
+                                         0, 1])
+        cc_plain = cc_over_section(plain, ref)
+        # told, not checked: the image path's highpass is another filter
+        # (mid - blur(mid)), not the volume path's max - min
+        os.remove(ref_png)
+        mipmap.create_thumbnail(os.path.join(png_dir, 'metadata.txt'),
+                                ref_png, thumbnail_mip=VOLUME_THUMB_MIP,
+                                highpass=True)
+        cc_image_hp = cc_over_section(
+            thumb, cv2.imread(ref_png, cv2.IMREAD_GRAYSCALE))
+        log(f'[volume] (d) mip-{VOLUME_THUMB_MIP} thumbnails from the '
+            f'volume: highpass {thumb.shape} against the max-minus-min of '
+            f'the PNG render {hp.shape}: cc {cc_hp:.6f}; plain {plain.shape} '
+            f'against create_thumbnail of the PNG render {ref.shape} over '
+            f'the section ({h}, {w}): cc {cc_plain:.6f}; (the highpass '
+            f'against the image path\'s highpass thumbnail: cc '
+            f'{cc_image_hp:.6f}, another filter)')
+        if not (cc_hp > 0.9 and cc_plain > 0.9):
+            raise RuntimeError(f'thumbnail cc {cc_hp}, {cc_plain}')
+        launches = device_mod.launch_counts()
+        by_shape = device_mod.launch_counts_by_shape()
+        rates = {k: {'chunks': n, 'MB': round(nb / 1e6, 3),
+                     'MB_per_s': round(nb / 1e6 / stage_s[k], 3),
+                     'writes': wr} for k, (n, nb, wr) in io.items()}
+        log('[volume] stage seconds ' + json.dumps(
+            {k: round(v, 3) for k, v in stage_s.items()})
+            + '; written ' + json.dumps(rates) + f'; launches {launches}')
+        if any(m_ == 'jax' or m_.startswith('jax.') for m_ in sys.modules):
+            raise RuntimeError('jax was imported')
+        # after the counts were read: these launches compare, not count
+        return launches, by_shape, stage_s, volume_path_rows(
+            dev, blends.calls, rasters.calls, by_shape)
+    finally:
+        shutil.rmtree(s_root, ignore_errors=True)
+        shutil.rmtree(a_root, ignore_errors=True)
+
+
+PHASES = ('kernels', 'stitch', 'align', 'chunked', 'thumbnail', 'nonlinear',
+          'volume')
 
 
 def parse_args(argv=None):
@@ -3219,14 +3679,18 @@ def parse_args(argv=None):
     p.add_argument('--phases', default=','.join(PHASES),
                    help='comma list of ' + ', '.join(PHASES))
     p.add_argument('--profile', action='store_true',
-                   help='one torch.profiler pass per stitch and thumbnail '
-                   'stage')
+                   help='one torch.profiler pass per stitch, thumbnail and '
+                   'volume stage')
     args = p.parse_args(argv)
     args.phases = [x for x in args.phases.split(',') if x]
     if set(args.phases) - set(PHASES):
         p.error(f'unknown phase in {args.phases}')
     if 'chunked' in args.phases and 'align' not in args.phases:
         p.error('the chunked phase runs on the align phase\'s work dir')
+    if 'volume' in args.phases and not {'stitch', 'align'} <= set(
+            args.phases):
+        p.error('the volume phase runs on the stitch and align phases\' '
+                'work dirs')
     return args
 
 
@@ -3257,18 +3721,27 @@ def main(argv=None):
         rows += check_montage(dev)
         rows += check_lradon(dev)
         rows += check_fem(dev)
-    paths = {'stitch': lambda d: run_slice(d, profile=args.profile),
-             'align': lambda d: run_align(d, 'chunked' in args.phases),
+    # phase 9 works on copies of phase 4's and phase 5's work dirs
+    kept = {} if 'volume' in args.phases else None
+    paths = {'stitch': lambda d: run_slice(d, profile=args.profile,
+                                           keep=kept),
+             'align': lambda d: run_align(d, 'chunked' in args.phases,
+                                          keep=kept),
              'thumbnail': lambda d: run_thumbnail(d, profile=args.profile),
-             'nonlinear': run_nonlinear}
+             'nonlinear': run_nonlinear,
+             'volume': lambda d: run_volume(d, kept, profile=args.profile)}
     runs = {}
-    for p, fn in paths.items():
-        if p in args.phases:
-            runs[p] = fn(dev)
-            if p == 'align':
-                runs[p], chunked = runs[p][:4], runs[p][4]
-                if chunked is not None:
-                    runs['chunked'] = chunked
+    try:
+        for p, fn in paths.items():
+            if p in args.phases:
+                runs[p] = fn(dev)
+                if p == 'align':
+                    runs[p], chunked = runs[p][:4], runs[p][4]
+                    if chunked is not None:
+                        runs['chunked'] = chunked
+    finally:
+        for kept_dir in (kept or {}).values():
+            shutil.rmtree(kept_dir[0], ignore_errors=True)
     for r in runs.values():
         rows += r[3]
     log_determinism()

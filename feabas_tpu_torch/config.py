@@ -23,6 +23,7 @@ from feabas_tpu_torch import storage
 # tensorstore / checkpoint knobs (reference: feabas/config.py:28-35)
 TS_RETRY = 2
 TS_TIMEOUT = 60.0  # seconds per tensorstore op before reconnect
+CHECKPOINT_TIME_INTERVAL = 300.0  # seconds between volume-render flag flushes
 DEFAULT_AVG_DEFORM = 0.05
 # during matching one mesh is treated as far more rigid than the other so
 # the two-mesh spring system cannot collapse (reference: feabas/config.py:35)

@@ -3,7 +3,8 @@
 Loaders serve ``crop(bbox)`` requests composed from tiles on disk, cloud
 buckets, in-memory arrays, or tensorstore volumes (capability parity with
 reference ``feabas/dal.py``). All loaders JSON-round-trip so worker
-processes rebuild them from specs.
+processes rebuild them from specs. Volumes open through ``ts``:
+tensorstore where it is installed, else the port's ``_tslite``.
 
 The port's copy of ``feabas_tpu/dal.py``, cut to what the port reaches.
 """
@@ -16,6 +17,11 @@ import numpy as np
 from feabas_tpu_torch import common, storage
 from feabas_tpu_torch.caching import generate_cache
 from feabas_tpu_torch.utils.spatial_index import GridIndex
+
+try:
+    import tensorstore as ts
+except ImportError:     # the port's precomputed subset stands in for it
+    from feabas_tpu_torch import _tslite as ts
 
 
 def _apply_clahe(img, cliplimit=2.0):
@@ -553,7 +559,6 @@ class TensorStoreLoader(AbstractImageLoader):
     @property
     def dataset(self):
         if self._dataset is None:
-            import tensorstore as ts
             self._dataset = ts.open(self._spec).result()
         return self._dataset
 
@@ -642,3 +647,244 @@ def get_loader_from_json(spec, **kwargs):
     return cls(**spec)
 
 
+class TensorStoreWriter:
+    """Chunk-aligned writer for 3D output volumes
+    (reference: dal.py:1367-1538).
+
+    Supports neuroglancer_precomputed / zarr / n5 through ``ts`` (without
+    tensorstore: unsharded neuroglancer_precomputed only). The volume frame
+    is (x, y, z[, channel]); images are (y, x) so writes transpose. Chunk
+    grid helpers + Morton ordering drive render planning.
+    """
+
+    def __init__(self, spec, dataset=None):
+        self._spec = spec
+        self._dataset = dataset
+
+    @classmethod
+    def create(cls, out_dir, canvas_bbox, num_sections, **kwargs):
+        driver = kwargs.get('driver', 'neuroglancer_precomputed')
+        chunk_shape = list(kwargs.get('chunk_shape', (2048, 2048, 16)))
+        resolution = kwargs.get('resolution', 4)
+        thickness = kwargs.get('thickness', 30)
+        dtype = np.dtype(kwargs.get('dtype', 'uint8'))
+        jpeg = kwargs.get('jpeg_compression', False)
+        x0, y0, x1, y1 = (int(v) for v in canvas_bbox)
+        size = [x1 - x0, y1 - y0, int(num_sections)]
+        kv = {'driver': 'file', 'path': str(out_dir)} \
+            if not storage.is_cloud_path(str(out_dir)) else \
+            {'driver': 'gcs', 'bucket': str(out_dir)[5:].split('/')[0],
+             'path': '/'.join(str(out_dir)[5:].split('/')[1:])}
+        read_chunk = kwargs.get('read_chunk_shape', None)
+        if driver == 'neuroglancer_precomputed':
+            spec = {
+                'driver': driver, 'kvstore': kv,
+                'scale_metadata': {
+                    'size': size,
+                    'resolution': [resolution, resolution, thickness],
+                    'encoding': 'jpeg' if jpeg else 'raw'},
+                'multiscale_metadata': {'data_type': dtype.name,
+                                        'num_channels': 1, 'type': 'image'},
+                'create': True, 'open': True,
+            }
+            if read_chunk and list(read_chunk) != list(chunk_shape):
+                # sharded format: small read chunks inside big write
+                # shards (reference schema: stitcher.py:1680-1686)
+                spec['schema'] = {'chunk_layout': {
+                    'grid_origin': [0, 0, 0, 0],
+                    'inner_order': [3, 2, 1, 0],
+                    'read_chunk': {'shape_soft_constraint':
+                                   [int(v) for v in read_chunk] + [1]},
+                    'write_chunk': {'shape_soft_constraint':
+                                    [int(v) for v in chunk_shape] + [1]},
+                }}
+            else:
+                spec['scale_metadata']['chunk_size'] = chunk_shape
+        elif driver in ('zarr', 'n5'):
+            spec = {
+                'driver': driver, 'kvstore': kv,
+                'metadata': ({'shape': size, 'chunks': chunk_shape,
+                              'dtype': dtype.str} if driver == 'zarr' else
+                             {'dimensions': size, 'blockSize': chunk_shape,
+                              'dataType': dtype.name}),
+                'create': True, 'open': True,
+            }
+        else:
+            raise ValueError(f'unsupported volume driver {driver}')
+        w = cls(spec)
+        w._offset = (x0, y0)
+        w._chunk_shape = chunk_shape
+        w._size = size
+        # materialize the store eagerly: later (re-)opens, including in
+        # pickled worker copies, are open-only, so workers never race on
+        # creation
+        w._dataset = ts.open(spec).result()
+        return w
+
+    @property
+    def dataset(self):
+        if self._dataset is None:
+            spec = dict(self._spec)
+            # workers open an existing store; never re-create (races)
+            if spec.pop('create', False):
+                spec['open'] = True
+            self._dataset = ts.open(spec).result()
+        return self._dataset
+
+    def __getstate__(self):
+        # picklable across process workers: the open handle re-opens lazily
+        state = dict(self.__dict__)
+        state['_dataset'] = None
+        return state
+
+    @property
+    def offset(self):
+        return getattr(self, '_offset', (0, 0))
+
+    @property
+    def chunk_shape(self):
+        return getattr(self, '_chunk_shape', None) or \
+            list(self.dataset.chunk_layout.read_chunk.shape[:3])
+
+    @property
+    def size(self):
+        return getattr(self, '_size', None) or \
+            [int(d.exclusive_max) for d in self.dataset.domain][:3]
+
+    def plan_chunks(self, bbox=None):
+        """Morton-ordered write-chunk bboxes (world xy) covering bbox."""
+        from feabas_tpu_torch.common import z_order
+        cx, cy = self.chunk_shape[0], self.chunk_shape[1]
+        x0, y0 = self.offset
+        W, H = self.size[0], self.size[1]
+        if bbox is None:
+            bbox = (x0, y0, x0 + W, y0 + H)
+        i0 = max(int((bbox[0] - x0) // cx), 0)
+        i1 = min(int(np.ceil((bbox[2] - x0) / cx)), int(np.ceil(W / cx)))
+        j0 = max(int((bbox[1] - y0) // cy), 0)
+        j1 = min(int(np.ceil((bbox[3] - y0) / cy)), int(np.ceil(H / cy)))
+        if i1 <= i0 or j1 <= j0:
+            return []
+        ii, jj = np.meshgrid(np.arange(i0, i1), np.arange(j0, j1))
+        ij = np.stack([ii.ravel(), jj.ravel()], -1)
+        ij = ij[z_order(ij)]
+        out = []
+        for i, j in ij:
+            bx0 = x0 + i * cx
+            by0 = y0 + j * cy
+            out.append((bx0, by0, min(bx0 + cx, x0 + W), min(by0 + cy, y0 + H)))
+        return out
+
+    def reconnect(self):
+        """Drop the handle; next access reopens (reference: dal.py:1207)."""
+        self._dataset = None
+
+    def write_single_chunk(self, bbox, z, img, txn=None, ts_retry=None):
+        """Write one (y, x) image block at world bbox into section z, with
+        timeout/reconnect retries (reference: dal.py:1372,1207)."""
+        x0, y0 = self.offset
+        a = int(bbox[0] - x0)
+        b = int(bbox[1] - y0)
+        c = a + img.shape[1]
+        d = b + img.shape[0]
+        blk = np.ascontiguousarray(np.swapaxes(img, 0, 1))
+
+        def write():
+            ds = self.dataset
+            if txn is not None:
+                ds = ds.with_transaction(txn)
+            if self.dataset.rank == 4:
+                return ds[a:c, b:d, int(z), 0].write(blk)
+            return ds[a:c, b:d, int(z)].write(blk)
+
+        if txn is not None:
+            # inside a transaction the commit carries the retry semantics
+            write().result()
+            return
+        _ts_retrying(write, self.reconnect, retries=ts_retry)
+
+    def write_chunks_w_transaction(self, bboxes, z, imgs, ts_retry=None):
+        """Atomically write several chunks in one transaction, retried with
+        reconnect on transient failure (reference: dal.py:1429)."""
+        if len(bboxes) == 1:
+            self.write_single_chunk(bboxes[0], z, imgs[0], ts_retry=ts_retry)
+            return
+        from feabas_tpu_torch.config import TS_RETRY, TS_TIMEOUT
+        retries = TS_RETRY if ts_retry is None else int(ts_retry)
+        err = None
+        for attempt in range(retries + 1):
+            try:
+                txn = ts.Transaction()
+                for bbox, img in zip(bboxes, imgs):
+                    self.write_single_chunk(bbox, z, img, txn=txn)
+                txn.commit_async().result(timeout=TS_TIMEOUT)
+                if not txn.aborted:
+                    return
+            except (TimeoutError, Exception) as e:
+                if not isinstance(e, TimeoutError) and type(e).__name__ not in (
+                        'DeadlineExceeded', 'Unavailable', 'Aborted'):
+                    raise
+                err = e
+                self.reconnect()
+        raise TimeoutError(f'transactional write failed after '
+                           f'{retries + 1} attempts: {err!r}')
+
+    def write_slab(self, bbox, z0, stack, ts_retry=None):
+        """Write a full-depth slab block in ONE write.
+
+        ``stack`` is (dz, H, W): the same xy chunk across consecutive
+        sections z0..z0+dz. Writing whole-depth slabs means each
+        (chunk-depth-deep) storage chunk is touched exactly once instead
+        of read-modify-written per section (reference plan_one_slab:
+        renderer.py:1009-1103)."""
+        x0, y0 = self.offset
+        a = int(bbox[0] - x0)
+        b = int(bbox[1] - y0)
+        c = a + stack.shape[2]
+        d = b + stack.shape[1]
+        z1 = int(z0) + stack.shape[0]
+        blk = np.ascontiguousarray(np.transpose(stack, (2, 1, 0)))
+
+        def write():
+            ds = self.dataset
+            if ds.rank == 4:
+                return ds[a:c, b:d, int(z0):z1, 0].write(blk)
+            return ds[a:c, b:d, int(z0):z1].write(blk)
+
+        _ts_retrying(write, self.reconnect, retries=ts_retry)
+
+    def read_chunk(self, bbox, z):
+        x0, y0 = self.offset
+        a, b = int(bbox[0] - x0), int(bbox[1] - y0)
+        c, d = int(bbox[2] - x0), int(bbox[3] - y0)
+        ds = self.dataset
+        blk = ds[a:c, b:d, int(z), 0] if ds.rank == 4 else ds[a:c, b:d, int(z)]
+        return np.swapaxes(np.asarray(blk.read().result()), 0, 1)
+
+    def to_dict(self):
+        return {'spec': self._spec, 'offset': list(self.offset),
+                'chunk_shape': self.chunk_shape, 'size': self.size}
+
+    @classmethod
+    def from_dict(cls, d):
+        w = cls(d['spec'])
+        w._offset = tuple(d['offset'])
+        w._chunk_shape = d['chunk_shape']
+        w._size = d['size']
+        return w
+
+
+def get_tensorstore_spec(base_spec, mip=0):
+    """Stack a 'downsample' driver to serve mip levels from a
+    full-resolution volume (reference: dal.py:1125). Its factors cover
+    every dimension of the base, as tensorstore requires: a
+    neuroglancer-precomputed volume has four, the channel last (the JAX
+    package's three factors fail on one, reference fault R3)."""
+    spec = base_spec
+    if mip > 0:
+        rank = ts.open(base_spec).result().rank
+        spec = {'driver': 'downsample',
+                'downsample_factors': [2 ** mip, 2 ** mip] + [1] * (rank - 2),
+                'downsample_method': 'mean',
+                'base': base_spec}
+    return spec

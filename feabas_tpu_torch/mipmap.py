@@ -12,7 +12,7 @@ The port's copy of ``feabas_tpu/mipmap.py``, cut to what the port reaches.
 import numpy as np
 import cv2
 
-from feabas_tpu_torch import common, storage
+from feabas_tpu_torch import common, dal, storage
 from feabas_tpu_torch.dal import StaticImageLoader
 from feabas_tpu_torch.storage import join_paths
 
@@ -113,8 +113,9 @@ def downsample_section_thumbnail(name, meta, work_dir, dconf, thumb_mip,
                      f'{name}.{fmt}')
     max_mip = int(dconf.get('max_mip', thumb_mip))
     if not str(meta).endswith('.txt'):
-        # tensorstore-rendered section: its thumbnail comes straight from
-        # the volume, which is not ported (raises)
+        # tensorstore-rendered section: thumbnail straight from the
+        # volume via downsample views; mips are served virtually
+        # (get_tensorstore_spec) so no tile pyramid is materialized
         create_thumbnail_tensorstore(
             meta, out, thumbnail_mip=thumb_mip,
             highpass=dconf.get('thumbnail_highpass', True),
@@ -223,12 +224,57 @@ def tensorstore_spec_for_dir(path):
 def create_thumbnail_tensorstore(base_spec, out_file=None, thumbnail_mip=6,
                                  z=0, highpass=True,
                                  highpass_inter_mip=None):
-    """Thumbnail straight from a tensorstore volume. Not ported: the GPU
-    host has no tensorstore."""
-    raise NotImplementedError(
-        'feabas_tpu.mipmap.create_thumbnail_tensorstore (thumbnails of '
-        'tensorstore-rendered sections) is not ported; the GPU host has no '
-        'tensorstore')
+    """Thumbnail straight from a volume through stacked 'downsample'
+    views (reference create_thumbnail_tensorstore: mipmap.py:252): no
+    intermediate mip tiles touch disk.
+
+    With ``highpass``, shading is suppressed by the reference's
+    max-minus-min construction: mean-downsample to an intermediate mip,
+    then take one extra level of MAX- and MIN-downsampling (cast to
+    float), mean-reduce both to the target mip, and auto-scale their
+    difference (dark-on-light, matching the image-path thumbnails).
+    """
+    if out_file is not None and storage.file_exists(out_file,
+                                                    use_cache=True):
+        return out_file
+    from feabas_tpu_torch.dal import TensorStoreLoader, get_tensorstore_spec
+    if isinstance(base_spec, str):
+        spec = tensorstore_spec_for_dir(base_spec)
+        if spec is None:
+            raise RuntimeError(f'not a tensorstore volume: {base_spec}')
+        base_spec = spec
+
+    def read_full(spec):
+        ld = TensorStoreLoader(spec, z=z)
+        dom = ld.dataset.domain
+        b = (int(dom[0].inclusive_min), int(dom[1].inclusive_min),
+             int(dom[0].exclusive_max), int(dom[1].exclusive_max))
+        return ld.crop(b)
+
+    if not highpass:
+        img = read_full(get_tensorstore_spec(base_spec, mip=thumbnail_mip))
+        out = _max_entropy_scaling(img.astype(np.float32))
+    else:
+        inter = max(0, thumbnail_mip - 2) if highpass_inter_mip is None \
+            else int(highpass_inter_mip)
+        inter = min(inter, max(thumbnail_mip - 1, 0))
+        inter_spec = get_tensorstore_spec(base_spec, mip=inter)
+        rest = thumbnail_mip - inter - 1
+        rank = dal.ts.open(base_spec).result().rank
+        ext = {}
+        for method in ('max', 'min'):
+            s = {'driver': 'cast', 'dtype': 'float32',
+                 'base': {'driver': 'downsample',
+                          'downsample_factors': [2, 2] + [1] * (rank - 2),
+                          'downsample_method': method,
+                          'base': inter_spec}}
+            ext[method] = read_full(get_tensorstore_spec(s, mip=rest))
+        hp = ext['max'].astype(np.float32) - ext['min'].astype(np.float32)
+        out = 255 - _max_entropy_scaling(hp, qlow=0.0)
+    if out_file is None:
+        return out
+    common.imwrite(out_file, out)
+    return out_file
 
 
 def generate_thumbnail_mask(tform_h5, out_file, thumbnail_mip=6,
@@ -260,3 +306,87 @@ def generate_thumbnail_mask(tform_h5, out_file, thumbnail_mip=6,
         mask = np.where(roi > 0, 0, 255).astype(np.uint8)
     common.imwrite(out_file, mask)
     return out_file
+
+
+def mip_one_level_tensorstore_3d(src_dir, out_dir, mip_levels=(1, 3, 5, 7),
+                                 downsample_z='auto', z_range=None,
+                                 logger=None, chunk=1024,
+                                 keep_chunk_layout=True, cache_capacity=None,
+                                 jpeg_compression=None, **_ignored):
+    """Generate lower-resolution scales of a 3D neuroglancer-precomputed
+    volume (reference: mipmap.py:434). xy downsampling is mean-pooled; z
+    follows 'auto' (downsample z to keep voxels near-isotropic) or an
+    explicit list. ``keep_chunk_layout`` reuses the source volume's chunk
+    shape for the output scales (reference: mipmap.py:436,481);
+    ``cache_capacity`` caps the read-side tensorstore cache pool in MiB
+    (the port's own store keeps no cache). Returns the number of scales
+    written."""
+    base_spec = {'driver': 'neuroglancer_precomputed',
+                 'kvstore': {'driver': 'file', 'path': str(src_dir)}}
+    if cache_capacity:
+        base_spec = dict(base_spec)
+        base_spec['context'] = {'cache_pool': {
+            'total_bytes_limit': int(cache_capacity * 2 ** 20)}}
+    src = dal.ts.open(base_spec).result()
+    src_chunk = list(src.chunk_layout.read_chunk.shape[:3])
+    if jpeg_compression is None:
+        # None -> inherit the source volume's encoding so one multiscale
+        # volume stays consistently encoded
+        enc = src.spec().to_json().get('scale_metadata', {}).get('encoding')
+        jpeg_compression = (enc == 'jpeg')
+    size = [int(d) for d in src.shape[:3]]
+    dims = src.spec().to_json().get('scale_metadata', {})
+    res = dims.get('resolution', [4, 4, 30])
+    n_done = 0
+    for mip in mip_levels:
+        fxy = 2 ** int(mip)
+        if downsample_z == 'auto':
+            # keep z no finer than xy
+            fz = max(int((res[0] * fxy) // res[2]), 1)
+        elif isinstance(downsample_z, (list, tuple)):
+            fz = int(downsample_z[list(mip_levels).index(mip)])
+        else:
+            fz = int(downsample_z)
+        fz = min(fz, size[2]) or 1
+        ds_spec = {'driver': 'downsample',
+                   'downsample_factors': [fxy, fxy, fz, 1][:src.rank],
+                   'downsample_method': 'mean',
+                   'base': base_spec}
+        ds = dal.ts.open(ds_spec).result()
+        out_size = [int(d) for d in ds.shape[:3]]
+        if keep_chunk_layout:
+            chunk_size = [min(int(c), int(s))
+                          for c, s in zip(src_chunk, out_size)]
+        else:
+            chunk_size = [min(chunk, out_size[0]), min(chunk, out_size[1]),
+                          min(16, out_size[2])]
+        out_spec = {
+            'driver': 'neuroglancer_precomputed',
+            'kvstore': {'driver': 'file', 'path': str(out_dir)},
+            'scale_metadata': {
+                'size': out_size,
+                'resolution': [res[0] * fxy, res[1] * fxy, res[2] * fz],
+                'chunk_size': chunk_size,
+                'encoding': 'jpeg' if jpeg_compression else 'raw'},
+            'multiscale_metadata': {
+                'data_type': str(np.dtype(src.dtype.name)),
+                'num_channels': 1, 'type': 'image'},
+            'create': True, 'open': True,
+        }
+        out = dal.ts.open(out_spec).result()
+        zs = range(out_size[2]) if z_range is None else range(*z_range)
+        for z in zs:
+            for x0 in range(0, out_size[0], chunk):
+                for y0 in range(0, out_size[1], chunk):
+                    x1 = min(x0 + chunk, out_size[0])
+                    y1 = min(y0 + chunk, out_size[1])
+                    if src.rank == 4:
+                        blk = ds[x0:x1, y0:y1, z, :].read().result()
+                        out[x0:x1, y0:y1, z, :] = blk
+                    else:
+                        blk = ds[x0:x1, y0:y1, z].read().result()
+                        out[x0:x1, y0:y1, z] = blk
+        n_done += 1
+        if logger:
+            logger.info(f'tsd: mip{mip} ({fxy}x{fxy}x{fz}) -> {out_size}')
+    return n_done

@@ -1,8 +1,8 @@
 """Alignment CLI of the PyTorch port: meshing -> matching -> optimization ->
-rendering -> downsample, with the flags and work-dir protocol of
-scripts/align_main.py.
+rendering -> downsample (or tsr -> tsd), with the flags and work-dir
+protocol of scripts/align_main.py.
 
-    python -m feabas_tpu_torch.scripts.align_main --mode meshing|matching|optimization|rendering|downsample
+    python -m feabas_tpu_torch.scripts.align_main --mode meshing|matching|optimization|rendering|downsample|tsr|tsd
                           [--filter F --slurm_config Y --start S --stop E --step K --reverse]
 
 Stitched sections under ``stitched_sections/mip0/{sec}`` (metadata.txt
@@ -12,8 +12,9 @@ transforms to ``align/tform``, rendered sections to
 ``thumbnail_align/matches`` when present, else neighbouring sections are
 seeded by whole-image translation. ``section_order.txt`` in the work dir
 reorders sections. The compute device comes from FEABAS_TORCH_DEVICE
-(the CUDA card when unset; 'cpu' runs on the CPU). The tensorstore modes
-(tsr, tsd) are not ported: the GPU host has no tensorstore.
+(the CUDA card when unset; 'cpu' runs on the CPU). ``tsr`` renders the
+aligned stack into one chunked volume (``aligned_tensorstore``) and
+``tsd`` adds its lower-resolution scales.
 """
 
 import argparse
@@ -447,16 +448,96 @@ def render_main(args, conf, logger):
 
 
 def tsr_main(args, conf, logger):
-    raise NotImplementedError(
-        'align --mode tsr: feabas_tpu.renderer.VolumeRenderer (tensorstore '
-        'volumes) is not ported; the GPU host has no tensorstore')
+    """Render the aligned stack into a chunked volume (reference:
+    align_main.py:477); with ``--filter`` an isolated sub-volume of the
+    matching sections under ``<out_dir>/<filter>``, z renumbered from 0."""
+    from feabas_tpu_torch.mesh import Mesh
+    from feabas_tpu_torch.dal import TensorStoreWriter
+    from feabas_tpu_torch.renderer import VolumeRenderer
+    work_dir = config.get_work_dir()
+    tconf = conf.get('tensorstore_rendering', {}) or {}
+    out_dir = tconf.get('out_dir') or join_paths(work_dir, 'aligned_tensorstore')
+    tform_dir = join_paths(work_dir, 'align', 'tform')
+    sections, zmap = _apply_section_order(
+        work_dir, stitched_section_list(work_dir, None))
+    if getattr(args, 'filter', None):
+        sections = [s for s in sections if args.filter in s[0]]
+        if sections:
+            zlo = min(zmap[n] for n, _ in sections)
+            zmap = {n: zmap[n] - zlo for n, _ in sections}
+        out_dir = join_paths(out_dir, args.filter)
+    tform_list = []
+    boxes = []
+    loaders = {}
+    for name, meta in sections:
+        t = join_paths(tform_dir, name + '.h5')
+        if not storage.file_exists(t):
+            continue
+        mesh = Mesh.from_h5(t)
+        boxes.append(mesh.bbox(gear='MOVING'))
+        tform_list.append((zmap[name], name, mesh))
+        loaders[name] = meta
+    if not tform_list:
+        logger.warning('tsr: no aligned sections found')
+        return
+    z_lo = args.start or 0
+    z_hi = args.stop if args.stop is not None else len(tform_list)
+    canvas = tconf.get('canvas_bbox', None)
+    if canvas is None:
+        canvas = get_or_make_canvas(tform_dir, logger)
+    if canvas is None:
+        boxes = np.asarray(boxes)
+        canvas = [int(np.floor(boxes[:, 0].min())),
+                  int(np.floor(boxes[:, 1].min())),
+                  int(np.ceil(boxes[:, 2].max())),
+                  int(np.ceil(boxes[:, 3].max()))]
+    z_max = tconf.get('z_max') or (max(z for z, _, _ in tform_list) + 1)
+    writer = TensorStoreWriter.create(
+        out_dir, canvas, z_max,
+        driver=tconf.get('driver', 'neuroglancer_precomputed'),
+        chunk_shape=tconf.get('chunk_shape', [2048, 2048, 16]),
+        read_chunk_shape=tconf.get('read_chunk_shape'),
+        resolution=config.montage_resolution(),
+        thickness=config.section_thickness(),
+        jpeg_compression=tconf.get('jpeg_compression', False))
+    vr = VolumeRenderer(tform_list[z_lo:z_hi:args.step], loaders, writer,
+                        flag_dir=join_paths(out_dir, 'render_flags'),
+                        logger=logger,
+                        remap_interp=tconf.get('remap_interp', 'LINEAR'),
+                        device_render=tconf.get('device_render', None))
+    n = vr.render_volume(num_workers=tconf.get('num_workers', 1),
+                         chunks_per_job=tconf.get(
+                             'chunks_per_job',
+                             tconf.get('max_tile_per_job') or 16))
+    logger.info(f'tsr: wrote {n} chunks to {out_dir}')
 
 
 def tsd_main(args, conf, logger):
-    raise NotImplementedError(
-        'align --mode tsd: feabas_tpu.mipmap.mip_one_level_tensorstore_3d '
-        '(tensorstore volumes) is not ported; the GPU host has no '
-        'tensorstore')
+    """Downsample the rendered volume to lower mips (reference:
+    align_main.py:519), into the volume's own directory unless
+    ``tensorstore_downsample.out_dir`` names another."""
+    from feabas_tpu_torch.mipmap import mip_one_level_tensorstore_3d
+    work_dir = config.get_work_dir()
+    tconf = conf.get('tensorstore_downsample', {}) or {}
+    src_dir = conf.get('tensorstore_rendering', {}).get('out_dir') \
+        or join_paths(work_dir, 'aligned_tensorstore')
+    out_dir = tconf.get('out_dir')
+    if getattr(args, 'filter', None):
+        # the filtered sub-volume lives under <dir>/<filter>; an explicit
+        # out_dir is isolated the same way so its scales never land in
+        # the full volume's multiscale metadata
+        src_dir = join_paths(src_dir, args.filter)
+        if out_dir:
+            out_dir = join_paths(out_dir, args.filter)
+    out_dir = out_dir or src_dir
+    n = mip_one_level_tensorstore_3d(
+        src_dir, out_dir, mip_levels=tconf.get('mip_levels', [1, 3, 5, 7]),
+        downsample_z=tconf.get('downsample_z', 'auto'),
+        z_range=tconf.get('z_range'), logger=logger,
+        keep_chunk_layout=tconf.get('keep_chunk_layout', True),
+        cache_capacity=tconf.get('cache_capacity'),
+        jpeg_compression=tconf.get('jpeg_compression'))
+    logger.info(f'tsd: generated {n} mip level(s)')
 
 
 def parse_args(argv=None):
@@ -468,7 +549,9 @@ def parse_args(argv=None):
                    choices=modes)
     p.add_argument('--filter', type=str, default=None,
                    help='render/downsample only sections whose name '
-                        'contains this substring')
+                        'contains this substring; tsr/tsd outputs go to an '
+                        'isolated <out_dir>/<filter> sub-volume with z '
+                        'renumbered from 0')
     p.add_argument('--slurm_config', type=str, default=None,
                    help='YAML with slurm dispatch settings; optimization '
                         'windows are then handed to sbatch workers')

@@ -6,9 +6,10 @@ rendering, with the flags and work-dir protocol of scripts/stitch_main.py.
 
 Coordinate files in ``stitch/stitch_coord/*.txt``; matches to
 ``stitch/match_h5/{sec}.h5``; transforms to ``stitch/tform/{sec}.h5``;
-rendered tiles to ``stitched_sections/mip0/``. Existing outputs are
-skipped. The compute device comes from FEABAS_TORCH_DEVICE (the CUDA card
-when unset; set it to 'cpu' to run on the CPU).
+rendered tiles (or, with a volume ``rendering.driver``, one volume a
+section) to ``stitched_sections/mip0/``. Existing outputs are skipped.
+The compute device comes from FEABAS_TORCH_DEVICE (the CUDA card when
+unset; set it to 'cpu' to run on the CPU).
 """
 
 import argparse
@@ -121,34 +122,43 @@ def optimize_main(sections, conf, logger):
 
 
 def render_main(sections, conf, logger):
+    """Render each section to PNG tiles (driver ``image``) or into a
+    chunked volume of its own (neuroglancer_precomputed, zarr, n5), with
+    its ``metadata.txt`` or the volume's ``info`` as the done flag."""
     from feabas_tpu_torch.stitcher import MontageRenderer
     work_dir = config.get_work_dir()
     tform_dir = storage.join_paths(work_dir, 'stitch', 'tform')
     rconf = conf.get('rendering', {})
     driver = rconf.get('driver', 'image')
-    if driver != 'image':
-        raise NotImplementedError(
-            f'rendering driver {driver!r}: feabas_tpu.stitcher.MontageRenderer.'
-            'render_series_to_tensorstore is not ported yet')
     out_root = rconf.get('out_dir') or storage.join_paths(work_dir, 'stitched_sections')
     out_root = storage.join_paths(out_root, 'mip0')
     fname_conf = rconf.get('filename_settings') or {}
     for name, _ in sections:
         src = storage.join_paths(tform_dir, name + '.h5')
         out_dir = storage.join_paths(out_root, name)
-        done_flag = storage.join_paths(out_dir, 'metadata.txt')
+        done_flag = storage.join_paths(
+            out_dir, 'metadata.txt' if driver == 'image' else 'info')
         if storage.file_exists(done_flag, use_cache=True) or not storage.file_exists(src):
             continue
         t0 = time.time()
         mr = MontageRenderer.from_h5(
             src, loader_config=rconf.get('loader_settings') or {},
             **(rconf.get('render_settings') or {}))
-        tiles = mr.render_series_to_file(
-            out_dir, tile_size=tuple(rconf.get('tile_size', (4096, 4096))),
-            pattern=fname_conf.get('pattern', '_tr{ROW_IND}-tc{COL_IND}.png'),
-            one_based=fname_conf.get('one_based', True),
-            num_workers=rconf.get('num_workers', 1))
-        logger.info(f'{name}: rendered {len(tiles)} tiles in '
+        if driver == 'image':
+            tiles = mr.render_series_to_file(
+                out_dir, tile_size=tuple(rconf.get('tile_size', (4096, 4096))),
+                pattern=fname_conf.get('pattern', '_tr{ROW_IND}-tc{COL_IND}.png'),
+                one_based=fname_conf.get('one_based', True),
+                num_workers=rconf.get('num_workers', 1))
+            n_out = len(tiles)
+        else:
+            n_out = mr.render_series_to_tensorstore(
+                out_dir, driver=driver,
+                read_chunk_size=tuple(rconf.get('read_chunk_size', (256, 256))),
+                jpeg_compression=rconf.get('jpeg_compression', False),
+                pad_to_tile_size=rconf.get(
+                    'pad_to_tile_size', rconf.get('jpeg_compression', False)))
+        logger.info(f'{name}: rendered {n_out} tiles in '
                     f'{time.time() - t0:.1f}s')
 
 

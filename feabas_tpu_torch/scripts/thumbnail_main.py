@@ -12,8 +12,8 @@ Work-dir protocol: mipmaps to ``stitched_sections/mip{n}``, thumbnails to
 ``section_order.txt`` in the work dir reorders sections; ``alignment``
 chains matching, optimization and render. The compute device comes from
 FEABAS_TORCH_DEVICE (the CUDA card when unset; 'cpu' runs on the CPU).
-Thumbnails of tensorstore-rendered sections are not ported: the GPU host
-has no tensorstore.
+A section rendered into a volume gets its thumbnail straight from the
+volume (``mipmap.create_thumbnail_tensorstore``).
 """
 
 import argparse

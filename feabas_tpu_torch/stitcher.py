@@ -932,6 +932,65 @@ class MontageRenderer:
                 f.write(f'{fname}\t{bbox[0]}\t{bbox[1]}\t{bbox[2]}\t{bbox[3]}\n')
         return rendered
 
+    def render_series_to_tensorstore(self, out_dir, **kwargs):
+        """Render the stitched section into a chunked volume (z-depth 1),
+        e.g. neuroglancer_precomputed, through ``dal.TensorStoreWriter``
+        (reference driver options: stitcher.py:753-817). Superblocks of
+        chunks render through ``crop`` (on a CUDA device, the montage
+        blend) and every chunk is written from them. Returns the number of
+        chunks written."""
+        from feabas_tpu_torch.dal import TensorStoreWriter
+        bounds = self.bounds
+        canvas = kwargs.pop('canvas_bbox', None) or [
+            int(np.floor(bounds[0])), int(np.floor(bounds[1])),
+            int(np.ceil(bounds[2])), int(np.ceil(bounds[3]))]
+        canvas = [int(v) for v in canvas]
+        chunk = list(kwargs.pop('read_chunk_size', (256, 256)))
+        jpeg = kwargs.pop('jpeg_compression', False)
+        if kwargs.pop('pad_to_tile_size', jpeg):
+            # pad the canvas to whole chunks so every (esp. jpeg-encoded)
+            # chunk is full-size (reference: stitcher.py:1635,1672-1674)
+            canvas[2] = canvas[0] + int(
+                np.ceil((canvas[2] - canvas[0]) / chunk[0])) * chunk[0]
+            canvas[3] = canvas[1] + int(
+                np.ceil((canvas[3] - canvas[1]) / chunk[1])) * chunk[1]
+        writer = TensorStoreWriter.create(
+            out_dir, canvas, 1,
+            driver=kwargs.pop('driver', 'neuroglancer_precomputed'),
+            chunk_shape=chunk + [1],
+            resolution=self.loader.resolution or config.montage_resolution(),
+            thickness=config.section_thickness(),
+            jpeg_compression=jpeg)
+        # render SUPERBLOCKS of read chunks, then slice chunk writes out of
+        # each: per-crop overhead (tile-hit query + per-tile rasterize) is
+        # amortized ~superblock_chunks^2 times vs cropping per 256px chunk
+        sb = max(int(kwargs.pop('superblock_chunks', 8)), 1)
+        fv = kwargs.get('fillval', self.loader.default_fillval)
+        # unwritten chunks read back as the driver's missing-chunk value
+        # (0), not our render fillval: leaving a chunk sparse is only
+        # equivalent to writing it when fillval is 0
+        sparse_ok = (fv == 0)
+        groups = {}
+        for bbox in writer.plan_chunks():
+            key = ((bbox[0] - canvas[0]) // (chunk[0] * sb),
+                   (bbox[1] - canvas[1]) // (chunk[1] * sb))
+            groups.setdefault(key, []).append(bbox)
+        n = 0
+        for grp in groups.values():
+            g = (min(b[0] for b in grp), min(b[1] for b in grp),
+                 max(b[2] for b in grp), max(b[3] for b in grp))
+            blk = self.crop(g, return_empty=True, **kwargs)
+            if blk is None:
+                continue
+            for bbox in grp:
+                sub = blk[bbox[1] - g[1]:bbox[3] - g[1],
+                          bbox[0] - g[0]:bbox[2] - g[0]]
+                if sparse_ok and not sub.any():
+                    continue   # keep all-zero chunks sparse (unwritten)
+                writer.write_single_chunk(bbox, 0, sub)
+                n += 1
+        return n
+
 
 def subprocess_render_montage_tiles(src_h5, loader_config, init_kwargs, plan,
                                     out_dir, crop_kwargs):

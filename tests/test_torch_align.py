@@ -583,11 +583,25 @@ def test_port_align_cli_with_wrinkle_masks_matches_jax(tmp_path, monkeypatch,
 
 
 def test_port_align_cli_refuses_tensorstore(tmp_path, monkeypatch):
+    """Without tensorstore (the port's ``_tslite`` bound in its place) the
+    volume modes refuse what only tensorstore serves, naming it: ``tsr``
+    into zarr (blosc), and ``tsd`` of a volume that is not there."""
+    from feabas_tpu import storage
+    from feabas_tpu_torch import _tslite
     from feabas_tpu_torch.scripts import align_main as port_main
+    monkeypatch.setattr(pdal, 'ts', _tslite)
     cfg, wd, names, _ = _align_workdir(str(tmp_path))
-    for mode in ('tsr', 'tsd'):
-        with pytest.raises(NotImplementedError, match='tensorstore'):
-            _run_cli(port_main.main, cfg, (mode,), monkeypatch)
+    _run_cli(port_main.main, cfg, ('meshing',), monkeypatch)
+    shutil.copytree(os.path.join(wd, 'align', 'mesh'),
+                    os.path.join(wd, 'align', 'tform'))
+    conf_path = os.path.join(wd, 'configs', 'alignment_configs.yaml')
+    conf = storage.load_yaml(conf_path)
+    conf['tensorstore_rendering'] = {'driver': 'zarr'}
+    storage.save_yaml(conf_path, conf)
+    with pytest.raises(_tslite.UnsupportedSpec, match='zarr.*blosc'):
+        _run_cli(port_main.main, cfg, ('tsr',), monkeypatch)
+    with pytest.raises(ValueError, match='NOT_FOUND'):
+        _run_cli(port_main.main, cfg, ('tsd',), monkeypatch)
 
 
 def test_port_align_cli_runs_chunked_optimization(tmp_path, monkeypatch):

@@ -1,5 +1,6 @@
 """The port stands alone: no file of it imports the JAX package, a fresh
-interpreter without h5py imports every module of it and stitches without
+interpreter without h5py and tensorstore imports every module of it,
+stitches and renders a volume (which the JAX package reads) without
 importing jax or the JAX package, its copies of the host plane agree with
 the JAX package's, the work-dir files pass between the two packages both
 ways, and its device is the CUDA card unless the CPU is asked for."""
@@ -73,8 +74,10 @@ def test_no_file_of_the_port_imports_the_jax_package():
 
 
 _ALONE = r'''
-import importlib, json, pkgutil, sys
+import hashlib, importlib, json, os, pkgutil, sys
+import numpy as np
 sys.modules['h5py'] = None          # a host without h5py
+sys.modules['tensorstore'] = None   # nor tensorstore
 import feabas_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(feabas_tpu_torch.__path__,
                                               'feabas_tpu_torch.')]
@@ -86,7 +89,29 @@ table = config.material_table()
 factory = common.str_to_func('feabas_tpu.material::asymmetrical_elasticity')
 for mode in ('matching', 'optimization', 'rendering'):
     stitch_main.main(['--mode', mode])
+# a two-section volume through the port's own store
+from feabas_tpu_torch import dal
+from feabas_tpu_torch.mesh import Mesh
+from feabas_tpu_torch.renderer import VolumeRenderer
+vol_dir = os.path.join(config.get_work_dir(), 'volume')
+writer = dal.TensorStoreWriter.create(vol_dir, (0, 0, 100, 70), 2,
+                                      chunk_shape=[32, 32, 2])
+tforms, loaders = [], {}
+for z in range(2):
+    img = np.random.default_rng(9 + z).integers(0, 256, (60, 80)).astype(
+        np.uint8)
+    mesh = Mesh.from_bbox((0, 0, 80, 60), cartesian=True, mesh_size=30,
+                          name=f's{z}', uid=z)
+    mesh.set_translation((3 + 4 * z, 5))
+    tforms.append((z, f's{z}', mesh))
+    loaders[f's{z}'] = dal.StreamLoader(img)
+n_chunks = VolumeRenderer(tforms, loaders, writer,
+                          device_render=False).render_volume()
+vol = dal.ts.open({'driver': 'neuroglancer_precomputed', 'kvstore': {
+    'driver': 'file', 'path': vol_dir}}).result()[..., 0].read().result()
 print(json.dumps({
+    'ts': dal.ts.__name__, 'volume': vol_dir, 'chunks': n_chunks,
+    'voxels': hashlib.sha256(np.ascontiguousarray(vol).tobytes()).hexdigest(),
     'modules': len(mods),
     'thumbnail_modules': sorted(m for m in mods if m.endswith(
         ('.thumbnail', '.ops.lradon', '.scripts.thumbnail_main'))),
@@ -133,10 +158,11 @@ def _stitch_workdir(root, rows=1, cols=2):
 
 
 def test_port_alone_imports_every_module_and_stitches(tmp_path):
-    """Without h5py and without the JAX package: every module of the port
-    imports, the default material table loads (its nonlinear material
-    names ``feabas_tpu.material``), and the stitch CLI runs end to end;
-    neither jax nor any ``feabas_tpu`` module gets imported."""
+    """Without h5py, tensorstore and the JAX package: every module of the
+    port imports, the default material table loads (its nonlinear
+    material names ``feabas_tpu.material``), the stitch CLI runs end to
+    end, and ``VolumeRenderer`` writes a precomputed volume through
+    ``_tslite``; neither jax nor any ``feabas_tpu`` module gets imported."""
     cfg, wd, true_bb = _stitch_workdir(str(tmp_path))
     env = dict(os.environ, FEABAS_TPU_CONFIG_DIR=cfg,
                FEABAS_TORCH_DEVICE='cpu', PYTHONPATH=REPO,
@@ -147,6 +173,22 @@ def test_port_alone_imports_every_module_and_stitches(tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     n_mods = len(list(pkgutil.walk_packages(feabas_tpu_torch.__path__,
                                             'feabas_tpu_torch.')))
+    # the JAX package, with tensorstore, reads the port's volume: the same
+    # voxels, each section at its integer translation
+    import hashlib
+    from feabas_tpu.dal import TensorStoreLoader
+    spec = {'driver': 'neuroglancer_precomputed',
+            'kvstore': {'driver': 'file', 'path': out.pop('volume')}}
+    vol = np.stack([TensorStoreLoader(spec, z=z).crop((0, 0, 100, 70)).T
+                    for z in range(2)], -1)
+    assert hashlib.sha256(vol.tobytes()).hexdigest() == out.pop('voxels')
+    for z in range(2):
+        img = np.random.default_rng(9 + z).integers(0, 256, (60, 80))
+        x0 = 3 + 4 * z
+        assert np.array_equal(vol[x0 + 1:x0 + 79, 6:64, z].T,
+                              img[1:59, 1:79])
+    assert out.pop('chunks') == 9           # the chunks the sections meet
+    assert out.pop('ts') == 'feabas_tpu_torch._tslite'
     assert out == {'modules': n_mods,
                    'thumbnail_modules': [
                        'feabas_tpu_torch.ops.lradon',

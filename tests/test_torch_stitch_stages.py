@@ -299,3 +299,42 @@ def test_generate_roi_mask_matches_jax(workdir, tmp_path):
         jmr.generate_roi_mask(scale=1 / 16, canvas_bbox=box)
     mask = pmr.generate_roi_mask(scale=1 / 16, canvas_bbox=box)
     assert mask.shape == (10, 18) and (mask[:, :17] == 255).all()
+
+
+@pytest.mark.parametrize('store', ['tensorstore', '_tslite'])
+def test_render_to_tensorstore_matches_jax(workdir, tmp_path, monkeypatch,
+                                           store):
+    """tests/test_stitcher_stages.py::test_stitch_render_to_tensorstore in
+    both packages, the port on either store it binds: the same chunks
+    written, the volume within 1 LSB of the JAX package's, and the
+    reference test's own check on the port's."""
+    import tensorstore as ts
+    from feabas_tpu_torch import _tslite
+    from feabas_tpu_torch import dal as pdal
+    from synthutil import texture
+    monkeypatch.setattr(pdal, 'ts', ts if store == 'tensorstore' else _tslite)
+    world = texture(np.random.default_rng(42), 120, 200)
+    p0, p1 = str(tmp_path / 'x.png'), str(tmp_path / 'y.png')
+    cv2.imwrite(p0, world[:, :120])
+    cv2.imwrite(p1, world[:, 80:])
+    vols, counts = {}, {}
+    for name, mod in (('jax', jstitcher), ('port', pstitcher)):
+        st = mod.Stitcher([p0, p1], [(0, 0, 120, 120), (80, 0, 200, 120)])
+        st.initialize_meshes(mesh_sizes=[60])
+        for m, bb in zip(st.meshes, st.init_bboxes):
+            m.set_translation((bb[0], bb[1]), gear=('INITIAL', 'MOVING'))
+        vols[name] = str(tmp_path / f'{name}_sec')
+        counts[name] = mod.MontageRenderer.from_stitcher(st) \
+            .render_series_to_tensorstore(vols[name],
+                                          driver='neuroglancer_precomputed',
+                                          read_chunk_size=(64, 64))
+    assert counts['port'] == counts['jax'] > 0
+    got, want = [ts.open({'driver': 'neuroglancer_precomputed', 'kvstore': {
+        'driver': 'file', 'path': vols[k]}}).result().read().result()
+        for k in ('port', 'jax')]
+    assert got.shape == want.shape
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    blk = np.swapaxes(got[20:100, 20:100, 0, 0], 0, 1)
+    cc = np.corrcoef(blk.astype(float).ravel(),
+                     world[20:100, 20:100].astype(float).ravel())[0, 1]
+    assert cc > 0.98, cc

@@ -496,11 +496,13 @@ def test_thumbnail_mask_equals_jax_and_tensorstore_raises(tmp_path):
     a, b = imread(out_p), imread(out_j)
     assert np.array_equal(a, b) and set(np.unique(a)) == {0, 255}
     assert (a == 0).mean() > 0.8
-    with pytest.raises(NotImplementedError, match='create_thumbnail_tensorstore'):
-        pmipmap.create_thumbnail_tensorstore(str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        pmipmap.downsample_section_thumbnail(
-            's9', str(tmp_path), str(tmp_path), {}, 2)
+    # a directory that holds no volume raises in both packages
+    for mod in (pmipmap, jmipmap):
+        with pytest.raises(RuntimeError, match='not a tensorstore volume'):
+            mod.create_thumbnail_tensorstore(str(tmp_path))
+        with pytest.raises(RuntimeError, match='not a tensorstore volume'):
+            mod.downsample_section_thumbnail(
+                's9', str(tmp_path), str(tmp_path), {}, 2)
 
 
 # --------------------------------- the CLI --------------------------------- #
