@@ -19,7 +19,7 @@ import os
 import numpy as np
 import torch
 
-from feabas_tpu_torch import common, config, logging, storage
+from feabas_tpu_torch import common, config, logging, storage, trace
 from feabas_tpu_torch import constant as const
 from feabas_tpu_torch.caching import generate_cache
 from feabas_tpu_torch.common import Match
@@ -36,6 +36,7 @@ DELIMITER = '__to__'
 SOLVER_DTYPE = torch.float32
 
 
+@trace.spanned('io.h5')
 def read_matches_from_h5(fname, target_resolution=None):
     """Load a match H5 (xy0/xy1/weight/strain/resolution), rescaled to
     ``target_resolution``."""
@@ -54,6 +55,7 @@ def read_matches_from_h5(fname, target_resolution=None):
     return Match(xy0, xy1, weight, strain)
 
 
+@trace.spanned('io.h5')
 def save_matches_to_h5(fname, match, resolution):
     with H5File(fname, 'w') as f:
         f.create_dataset('xy0', data=match.xy0, compression='gzip')

@@ -16,7 +16,7 @@ import cv2
 import numpy as np
 from scipy.ndimage import gaussian_filter1d
 
-from feabas_tpu_torch import storage
+from feabas_tpu_torch import storage, trace
 from feabas_tpu_torch.config import DEFAULT_AVG_DEFORM
 
 # A batch of point correspondences between two sections/tiles.
@@ -31,17 +31,22 @@ Match = namedtuple('Match', ('xy0', 'xy1', 'weight', 'strain'),
 def imread(path, **kwargs):
     flag = kwargs.get('flag', cv2.IMREAD_UNCHANGED)
     path = str(path)
-    if storage.is_cloud_path(path):
-        with storage.File(path, 'rb') as f:
-            buf = np.frombuffer(f.read(), dtype=np.uint8)
-        img = cv2.imdecode(buf, flag)
-    else:
-        img = cv2.imread(path, flag)
-    if img is not None and img.ndim == 3:
-        img = img[..., ::-1]  # BGR -> RGB
+    with trace.span('loader.decode'):
+        if storage.is_cloud_path(path):
+            with storage.File(path, 'rb') as f:
+                buf = np.frombuffer(f.read(), dtype=np.uint8)
+            img = cv2.imdecode(buf, flag)
+        else:
+            img = cv2.imread(path, flag)
+    if img is not None:
+        trace.count('loader.decodes')
+        trace.count('loader.decoded_px', img.shape[0] * img.shape[1])
+        if img.ndim == 3:
+            img = img[..., ::-1]  # BGR -> RGB
     return img
 
 
+@trace.spanned('blender.encode')
 def imwrite(path, img, **kwargs):
     path = str(path)
     if img.ndim == 3:

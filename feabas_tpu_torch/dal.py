@@ -14,7 +14,7 @@ import json
 import cv2
 import numpy as np
 
-from feabas_tpu_torch import common, storage
+from feabas_tpu_torch import common, storage, trace
 from feabas_tpu_torch.caching import generate_cache
 from feabas_tpu_torch.utils.spatial_index import GridIndex
 
@@ -22,6 +22,12 @@ try:
     import tensorstore as ts
 except ImportError:     # the port's precomputed subset stands in for it
     from feabas_tpu_torch import _tslite as ts
+
+
+def _count_lookup(hit):
+    trace.count('loader.cache_lookups')
+    if hit:
+        trace.count('loader.cache_hits')
 
 
 def _apply_clahe(img, cliplimit=2.0):
@@ -159,6 +165,7 @@ class AbstractImageLoader:
         # atomic get: a concurrent insert+trim may evict between a
         # membership check and the indexing (threaded mip fan-out)
         img = self._cache.get(path)
+        _count_lookup(img is not None)
         if img is not None:
             return img
         img = common.imread(path, flag=cv2.IMREAD_UNCHANGED)
@@ -233,6 +240,7 @@ class StaticImageLoader(AbstractImageLoader):
         covering = []
         for bi, bb in enumerate(blocks):
             blk = self._cache.get((path, bi))  # atomic vs concurrent evict
+            _count_lookup(blk is not None)
             if blk is not None:
                 covering.append((bb, blk))
         out = np.empty((lb[3] - lb[1], lb[2] - lb[0]), self.dtype) \

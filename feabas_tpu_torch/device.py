@@ -11,23 +11,23 @@ runs them at ``Precision.HIGHEST`` for the same reason).
 
 Every hand-written kernel's wrapper adds one to its counter here where it
 launches the kernel, and nowhere else, so a run can show which kernels
-its main path went through.
+its main path went through. The counters live in ``trace`` (as
+``launch.<kernel>``); the functions here are views of them.
 """
 
 import os
 
 import torch
 
+from feabas_tpu_torch import trace
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 DEVICE_ENV = 'FEABAS_TORCH_DEVICE'
 
-_LAUNCHES = {'dog_filter': 0, 'gaussian_blur': 0, 'mesh_raster': 0,
-             'peak_detect': 0, 'lradon_patch': 0, 'lradon_match': 0,
-             'montage_blend': 0, 'fem_operator': 0}
-# the same launches, by the shape the wrapper gave its kernel
-_BY_SHAPE = {k: {} for k in _LAUNCHES}
+KERNELS = ('dog_filter', 'gaussian_blur', 'mesh_raster', 'peak_detect',
+           'lradon_patch', 'lradon_match', 'montage_blend', 'fem_operator')
 
 
 def get_device(name=None):
@@ -48,34 +48,38 @@ def get_device(name=None):
 def launch_on(index, fn, *args):
     """``fn(*args, stream)``, a kernel's C launcher, with CUDA device
     ``index`` current and the raw handle of its current stream last;
-    returns the launcher's CUDA error code."""
+    returns the launcher's CUDA error code. The launch runs inside the
+    span ``launch``: a profiler links a launch made from C to the innermost
+    range open around it, and this one starts inside the caller's own."""
     get = getattr(torch._C, '_cuda_getCurrentRawStream', None)
 
     def stream():
         return get(index) if get is not None \
             else torch.cuda.current_stream(index).cuda_stream
-    if torch.cuda.current_device() == index:
-        return fn(*args, stream())
-    with torch.cuda.device(index):
-        return fn(*args, stream())
+    with trace.span('launch'):
+        if torch.cuda.current_device() == index:
+            return fn(*args, stream())
+        with torch.cuda.device(index):
+            return fn(*args, stream())
 
 
 def count_launch(kernel, shape=None):
-    _LAUNCHES[kernel] += 1
-    key = 'x'.join(str(int(d)) for d in shape) if shape is not None else '?'
-    _BY_SHAPE[kernel][key] = _BY_SHAPE[kernel].get(key, 0) + 1
+    if kernel not in KERNELS:
+        raise KeyError(kernel)
+    trace.count_launch(kernel, shape)
 
 
 def reset_launch_counts():
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
-        _BY_SHAPE[k].clear()
+    """Zeroes every counter of ``trace``, the launch counters with them."""
+    trace.reset_counters()
 
 
 def launch_counts():
-    return dict(_LAUNCHES)
+    c = trace.counters()
+    return {k: c.get('launch.' + k, 0) for k in KERNELS}
 
 
 def launch_counts_by_shape():
     """{kernel: {'NxHxW': launches}} since the last reset."""
-    return {k: dict(v) for k, v in _BY_SHAPE.items()}
+    by = trace.launches_by_shape()
+    return {k: by.get(k, {}) for k in KERNELS}

@@ -17,7 +17,7 @@ import tempfile
 import threading
 import time
 
-from feabas_tpu_torch import config, storage
+from feabas_tpu_torch import config, storage, trace
 
 _LEVELS = {'DEBUG': logging.DEBUG, 'INFO': logging.INFO,
            'WARNING': logging.WARNING, 'ERROR': logging.ERROR,
@@ -158,8 +158,9 @@ def terminate_logger(logger_info, logger=None):
 
 
 class stage_timer:
-    """Context manager logging a pipeline stage's wall time (the in-driver
-    stage timing the reference scatters through its CLIs,
+    """Context manager timing a pipeline stage: the span ``trace.span(stage)``
+    for its duration, and its wall time logged (the in-driver stage timing
+    the reference scatters through its CLIs,
     reference: stitch_main.py:43,210, aligner.py:741).
 
     Usage::
@@ -168,7 +169,9 @@ class stage_timer:
             ...
 
     Logs "<stage> [k=v ...]: <dt>s" at INFO on success; failures log the
-    elapsed time at ERROR and re-raise. Nesting is fine.
+    elapsed time at ERROR and re-raise. With ``logger=None`` it logs
+    nothing: the span alone, and ``elapsed`` for the caller's own line.
+    Nesting is fine.
     """
 
     def __init__(self, logger, stage, level=logging.INFO, **context):
@@ -177,8 +180,11 @@ class stage_timer:
         self._level = level
         self._context = context
         self._t0 = None
+        self._span = None
 
     def __enter__(self):
+        self._span = trace.span(self._stage)
+        self._span.__enter__()
         self._t0 = time.perf_counter()
         return self
 
@@ -192,6 +198,7 @@ class stage_timer:
 
     def __exit__(self, exc_type, exc, tb):
         dt = self.elapsed
+        self._span.__exit__(exc_type, exc, tb)
         if self._logger is None:
             return False
         if exc_type is None:

@@ -17,6 +17,7 @@ import scipy.sparse.csgraph as csgraph
 
 from feabas_tpu_torch import constant as const
 from feabas_tpu_torch import spatial as sp
+from feabas_tpu_torch import trace
 from feabas_tpu_torch import triangulation as tri_mod
 from feabas_tpu_torch.material import MaterialTable
 from feabas_tpu_torch.storage import H5File, join_paths
@@ -215,6 +216,7 @@ class Mesh:
         out.update(overrides)
         return out
 
+    @trace.spanned('io.h5')
     def save_to_h5(self, fname, save_material=True, compression=True, prefix='',
                    **overrides):
         out = self.get_init_dict(save_material=save_material, **overrides)
@@ -241,6 +243,7 @@ class Mesh:
                 _write(f)
 
     @classmethod
+    @trace.spanned('io.h5')
     def from_h5(cls, fname, prefix='', **kwargs):
         if prefix and not prefix.endswith('/'):
             prefix += '/'

@@ -17,7 +17,7 @@ import ctypes
 import numpy as np
 import torch
 
-from feabas_tpu_torch import build
+from feabas_tpu_torch import build, trace
 from feabas_tpu_torch import device as device_mod
 
 # Voigt selector: [du/dx, dv/dy, du/dy + dv/dx] from the flat gradient
@@ -725,7 +725,9 @@ def cg_solve(matvec, b, diag=None, x0=None, tol=1e-7, atol=0.0, maxiter=1000,
     ``_CHECK_EVERY`` iterations, which only changes how many frozen
     iterations run, never the result. The returned x is each system's
     best-so-far iterate by residual norm. Returns (x_best, iterations,
-    best_residual_norm), the last two per system.
+    best_residual_norm), the last two per system. Adds one to the counter
+    ``solver.cg_calls`` and the loop trips the host ran (frozen systems'
+    included) to ``solver.cg_iters``.
     """
     single = b.dim() == 2
     if single:
@@ -757,6 +759,7 @@ def cg_solve(matvec, b, diag=None, x0=None, tol=1e-7, atol=0.0, maxiter=1000,
     bnorm = norm(b)
     limit = torch.clamp(tol * bnorm, min=atol)
     max_stall = maxiter + 1 if chances is None else int(chances)
+    trips = 0
     r = b - matvec(x0)
     z = precond(r)
     p = z
@@ -771,6 +774,7 @@ def cg_solve(matvec, b, diag=None, x0=None, tol=1e-7, atol=0.0, maxiter=1000,
         active = (it < maxiter) & (rn > limit) & (stall <= max_stall)
         if k % _CHECK_EVERY == 0 and not bool(active.any()):
             break
+        trips += 1
         a3 = active[:, None, None]
         Ap = matvec(p)
         pAp = dot(p, Ap)
@@ -792,6 +796,8 @@ def cg_solve(matvec, b, diag=None, x0=None, tol=1e-7, atol=0.0, maxiter=1000,
         rz = torch.where(active, rz_new, rz)
         rn = torch.where(active, rn_new, rn)
         it = it + active.to(it.dtype)
+    trace.count('solver.cg_calls')
+    trace.count('solver.cg_iters', trips)
     if single:
         return best_x[0], it[0], best_rn[0]
     return best_x, it, best_rn

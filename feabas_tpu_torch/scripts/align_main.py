@@ -18,14 +18,14 @@ aligned stack into one chunked volume (``aligned_tensorstore``) and
 """
 
 import argparse
-import time
 
 import numpy as np
 
-from feabas_tpu_torch import config, storage
+from feabas_tpu_torch import config, storage, trace
 from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch.common import unique_prefix_arg
-from feabas_tpu_torch.logging import initialize_main_logger, terminate_logger
+from feabas_tpu_torch.logging import (initialize_main_logger, stage_timer,
+                                      terminate_logger)
 from feabas_tpu_torch.storage import join_paths
 
 
@@ -184,49 +184,52 @@ def matching_main(args, conf, logger):
         out = join_paths(out_dir, match_name(sec0, sec1))
         if storage.file_exists(out, use_cache=True):
             continue
-        t0 = time.time()
-        mesh0 = Mesh.from_h5(join_paths(mesh_dir, sec0 + '.h5'))
-        mesh1 = Mesh.from_h5(join_paths(mesh_dir, sec1 + '.h5'))
-        mesh0.change_resolution(res)
-        mesh1.change_resolution(res)
-        mesh0.uid, mesh1.uid = 0.0, 1.0
-        mesh0.locked = True
-        loader0 = section_loader(metas[sec0], **loader_config)
-        loader1 = section_loader(metas[sec1], **loader_config)
-        if mip_scale != 1.0:
-            loader0 = _ScaledLoader(loader0, mip_scale)
-            loader1 = _ScaledLoader(loader1, mip_scale)
-        # a section that fits in memory at working resolution is cropped
-        # once and its blocks are warped on the device
-        loader0 = _maybe_stream(loader0, mesh0, max_px)
-        loader1 = _maybe_stream(loader1, mesh1, max_px)
-        thumb_match = join_paths(thumb_match_dir, match_name(sec0, sec1))
-        if storage.file_exists(thumb_match):
-            coarse = read_matches_from_h5(thumb_match, target_resolution=res)
-            slm = SLM([mesh0, mesh1])
-            slm.add_link_from_coordinates(0.0, 1.0, coarse.xy0, coarse.xy1,
-                                          weight=coarse.weight)
-            slm.optimize_affine_cascade(start_gear=const.MESH_GEAR_INITIAL)
-        else:
-            # translation seed from the whole-section overlap
-            bb0 = mesh0.bbox(gear=const.MESH_GEAR_INITIAL)
-            bb1 = mesh1.bbox(gear=const.MESH_GEAR_INITIAL)
-            dx, dy, _ = global_translation_matcher(
-                loader0.crop(bb0).astype(np.float32),
-                loader1.crop(bb1).astype(np.float32),
-                sigma=matcher_config.get('sigma', 3.5))
-            c0 = np.array([(bb0[0] + bb0[2]) / 2, (bb0[1] + bb0[3]) / 2])
-            c1 = np.array([(bb1[0] + bb1[2]) / 2, (bb1[1] + bb1[3]) / 2])
-            mesh1.set_translation(c0 - c1 - np.array([dx, dy]))
-        match = section_matcher(
-            mesh0, mesh1, loader0, loader1,
-            **{k: v for k, v in matcher_config.items() if k in _MATCHER_KEYS})
-        if match is None:
-            logger.warning(f'{sec0} -> {sec1}: matching failed')
-            continue
-        save_matches_to_h5(out, match, res)
-        logger.info(f'{sec0} -> {sec1}: {len(match.weight)} matches '
-                    f'in {time.time() - t0:.1f}s')
+        with stage_timer(None, 'align.matching.pair') as timer:
+            mesh0 = Mesh.from_h5(join_paths(mesh_dir, sec0 + '.h5'))
+            mesh1 = Mesh.from_h5(join_paths(mesh_dir, sec1 + '.h5'))
+            mesh0.change_resolution(res)
+            mesh1.change_resolution(res)
+            mesh0.uid, mesh1.uid = 0.0, 1.0
+            mesh0.locked = True
+            loader0 = section_loader(metas[sec0], **loader_config)
+            loader1 = section_loader(metas[sec1], **loader_config)
+            if mip_scale != 1.0:
+                loader0 = _ScaledLoader(loader0, mip_scale)
+                loader1 = _ScaledLoader(loader1, mip_scale)
+            # a section that fits in memory at working resolution is cropped
+            # once and its blocks are warped on the device
+            loader0 = _maybe_stream(loader0, mesh0, max_px)
+            loader1 = _maybe_stream(loader1, mesh1, max_px)
+            thumb_match = join_paths(thumb_match_dir, match_name(sec0, sec1))
+            if storage.file_exists(thumb_match):
+                coarse = read_matches_from_h5(thumb_match,
+                                              target_resolution=res)
+                slm = SLM([mesh0, mesh1])
+                slm.add_link_from_coordinates(0.0, 1.0, coarse.xy0, coarse.xy1,
+                                              weight=coarse.weight)
+                slm.optimize_affine_cascade(start_gear=const.MESH_GEAR_INITIAL)
+            else:
+                # translation seed from the whole-section overlap
+                bb0 = mesh0.bbox(gear=const.MESH_GEAR_INITIAL)
+                bb1 = mesh1.bbox(gear=const.MESH_GEAR_INITIAL)
+                with trace.span('matcher.seed'):
+                    dx, dy, _ = global_translation_matcher(
+                        loader0.crop(bb0).astype(np.float32),
+                        loader1.crop(bb1).astype(np.float32),
+                        sigma=matcher_config.get('sigma', 3.5))
+                c0 = np.array([(bb0[0] + bb0[2]) / 2, (bb0[1] + bb0[3]) / 2])
+                c1 = np.array([(bb1[0] + bb1[2]) / 2, (bb1[1] + bb1[3]) / 2])
+                mesh1.set_translation(c0 - c1 - np.array([dx, dy]))
+            match = section_matcher(
+                mesh0, mesh1, loader0, loader1,
+                **{k: v for k, v in matcher_config.items()
+                   if k in _MATCHER_KEYS})
+            if match is None:
+                logger.warning(f'{sec0} -> {sec1}: matching failed')
+                continue
+            save_matches_to_h5(out, match, res)
+            logger.info(f'{sec0} -> {sec1}: {len(match.weight)} matches '
+                        f'in {timer.elapsed:.1f}s')
 
 
 def _maybe_stream(loader, mesh, max_px, margin=64):
@@ -263,7 +266,8 @@ class _ScaledLoader:
             return None
         h = int(round(bbox[3] - bbox[1]))
         w = int(round(bbox[2] - bbox[0]))
-        return cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)
+        with trace.span('loader.resize'):
+            return cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)
 
 
 def _apply_section_order(work_dir, sections):
@@ -302,11 +306,11 @@ def downsample_main(args, conf, logger):
     loader_cfg = dict(dconf.get('loader_config') or {})
     if within or num_workers <= 1:
         for name, meta in pairs:
-            t0 = time.time()
-            mip_map_one_section(name, meta, out_root, max_mip=max_mip,
-                                fmt=fmt, num_workers=num_workers,
-                                **loader_cfg)
-            logger.info(f'{name}: mipmapped in {time.time() - t0:.1f}s')
+            with stage_timer(None, 'align.downsample.section') as timer:
+                mip_map_one_section(name, meta, out_root, max_mip=max_mip,
+                                    fmt=fmt, num_workers=num_workers,
+                                    **loader_cfg)
+                logger.info(f'{name}: mipmapped in {timer.elapsed:.1f}s')
     else:
         jobs = [(n, m, out_root) for n, m in pairs]
         list(submit_to_workers(
@@ -422,29 +426,29 @@ def render_main(args, conf, logger):
         if storage.file_exists(join_paths(out_dir, 'metadata.txt'),
                                use_cache=True):
             continue
-        t0 = time.time()
-        loader = section_loader(meta, **(rconf.get('loader_config') or {}))
-        # render->mip fusion: emit_mips = K also writes mip1..K tile dirs
-        emit_mips = int(rconf.get('emit_mips', 0) or 0)
-        mip_dirs = [join_paths(str(out_root).replace('mip0', f'mip{l}'),
-                               prefix_name)
-                    for l in range(1, emit_mips + 1)]
-        tiles = render_whole_mesh(
-            Mesh.from_h5(t), loader, join_paths(out_dir, prefix_name),
-            interpolation=interp_from_name(rconf.get('remap_interp')),
-            tile_size=tuple(rconf.get('tile_size', (4096, 4096))),
-            pattern=rconf.get('pattern', '_tr{ROW_IND}-tc{COL_IND}.png'),
-            one_based=rconf.get('one_based', True),
-            num_workers=int(rconf.get('num_workers', 1) or 1),
-            device_render=rconf.get('device_render', None),
-            mip_dirs=mip_dirs, canvas_bbox=canvas)
-        with storage.File(join_paths(out_dir, 'metadata.txt'), 'w') as f:
-            f.write('{ROOT_DIR}\t' + str(out_dir) + '\n')
-            for fname, bbox in tiles.items():
-                f.write(f'{storage.base_name(fname)}\t{bbox[0]}\t{bbox[1]}'
-                        f'\t{bbox[2]}\t{bbox[3]}\n')
-        logger.info(f'{name}: rendered {len(tiles)} tiles in '
-                    f'{time.time() - t0:.1f}s')
+        with stage_timer(None, 'align.rendering.section') as timer:
+            loader = section_loader(meta, **(rconf.get('loader_config') or {}))
+            # render->mip fusion: emit_mips = K also writes mip1..K tile dirs
+            emit_mips = int(rconf.get('emit_mips', 0) or 0)
+            mip_dirs = [join_paths(str(out_root).replace('mip0', f'mip{l}'),
+                                   prefix_name)
+                        for l in range(1, emit_mips + 1)]
+            tiles = render_whole_mesh(
+                Mesh.from_h5(t), loader, join_paths(out_dir, prefix_name),
+                interpolation=interp_from_name(rconf.get('remap_interp')),
+                tile_size=tuple(rconf.get('tile_size', (4096, 4096))),
+                pattern=rconf.get('pattern', '_tr{ROW_IND}-tc{COL_IND}.png'),
+                one_based=rconf.get('one_based', True),
+                num_workers=int(rconf.get('num_workers', 1) or 1),
+                device_render=rconf.get('device_render', None),
+                mip_dirs=mip_dirs, canvas_bbox=canvas)
+            with storage.File(join_paths(out_dir, 'metadata.txt'), 'w') as f:
+                f.write('{ROOT_DIR}\t' + str(out_dir) + '\n')
+                for fname, bbox in tiles.items():
+                    f.write(f'{storage.base_name(fname)}\t{bbox[0]}\t{bbox[1]}'
+                            f'\t{bbox[2]}\t{bbox[3]}\n')
+            logger.info(f'{name}: rendered {len(tiles)} tiles in '
+                        f'{timer.elapsed:.1f}s')
 
 
 def tsr_main(args, conf, logger):
@@ -563,7 +567,6 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    from feabas_tpu_torch.logging import stage_timer
     args = parse_args(argv)
     # the CUDA card unless FEABAS_TORCH_DEVICE names another device: raises
     # here, before any work, when it is absent

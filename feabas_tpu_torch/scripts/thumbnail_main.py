@@ -17,14 +17,14 @@ volume (``mipmap.create_thumbnail_tensorstore``).
 """
 
 import argparse
-import time
 
 import numpy as np
 
 from feabas_tpu_torch import config, storage
 from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch.common import unique_prefix_arg
-from feabas_tpu_torch.logging import initialize_main_logger, terminate_logger
+from feabas_tpu_torch.logging import (initialize_main_logger, stage_timer,
+                                      terminate_logger)
 from feabas_tpu_torch.scripts.align_main import \
     stitched_section_list as stitched_sections
 from feabas_tpu_torch.storage import join_paths
@@ -49,10 +49,10 @@ def downsample_main(args, conf, logger):
     pairs = list(stitched_sections(work_dir, args))
     if within or num_workers <= 1:
         for name, meta in pairs:
-            t0 = time.time()
-            downsample_section_thumbnail(name, meta, work_dir, dconf,
-                                         thumb_mip, fmt)
-            logger.info(f'{name}: downsampled in {time.time() - t0:.1f}s')
+            with stage_timer(None, 'thumbnail.downsample.section') as timer:
+                downsample_section_thumbnail(name, meta, work_dir, dconf,
+                                             thumb_mip, fmt)
+                logger.info(f'{name}: downsampled in {timer.elapsed:.1f}s')
     else:
         # worker lives in the mipmap module so remote backends (slurm
         # spool) can import it — script-local functions are rejected
@@ -107,53 +107,53 @@ def matching_main(args, conf, logger):
             sec0, sec1, aconf.get('match_name_delimiter', '__to__')))
         if storage.file_exists(out, use_cache=True):
             continue
-        t0 = time.time()
+        with stage_timer(None, 'thumbnail.matching.pair') as timer:
 
-        def load(name):
-            if name in cache:
+            def load(name):
+                if name in cache:
+                    return cache[name]
+                img = imread(thumb_path(work_dir, name, fmt), flag=cv2.IMREAD_GRAYSCALE)
+                mfile = join_paths(mask_dir, name + '.png')
+                mask = None
+                if storage.file_exists(mfile):
+                    mask = imread(mfile, flag=cv2.IMREAD_GRAYSCALE) != 255
+                    if mask.shape != img.shape:
+                        # the mask and the thumbnail rasterize the same canvas
+                        # independently (mesh bboxes vs volume/mosaic extent)
+                        # and may disagree by a px of ceil; conform, padding
+                        # as excluded
+                        m = np.zeros(img.shape[:2], dtype=bool)
+                        h = min(mask.shape[0], img.shape[0])
+                        w = min(mask.shape[1], img.shape[1])
+                        m[:h, :w] = mask[:h, :w]
+                        mask = m
+                kps = prepare_image(img, mask=mask,
+                                    **dict(aconf.get('feature_matching', {}) or {}))
+                cache[name] = (img, mask, kps)
                 return cache[name]
-            img = imread(thumb_path(work_dir, name, fmt), flag=cv2.IMREAD_GRAYSCALE)
-            mfile = join_paths(mask_dir, name + '.png')
-            mask = None
-            if storage.file_exists(mfile):
-                mask = imread(mfile, flag=cv2.IMREAD_GRAYSCALE) != 255
-                if mask.shape != img.shape:
-                    # the mask and the thumbnail rasterize the same canvas
-                    # independently (mesh bboxes vs volume/mosaic extent)
-                    # and may disagree by a px of ceil; conform, padding
-                    # as excluded
-                    m = np.zeros(img.shape[:2], dtype=bool)
-                    h = min(mask.shape[0], img.shape[0])
-                    w = min(mask.shape[1], img.shape[1])
-                    m[:h, :w] = mask[:h, :w]
-                    mask = m
-            kps = prepare_image(img, mask=mask,
-                                **dict(aconf.get('feature_matching', {}) or {}))
-            cache[name] = (img, mask, kps)
-            return cache[name]
 
-        img0, mask0, kps0 = load(sec0)
-        img1, mask1, kps1 = load(sec1)
-        settings = {
-            'match_mode': aconf.get('match_mode', 'feature'),
-            'feature_matching': dict(aconf.get('feature_matching', {}) or {},
-                                     kps0=kps0, kps1=kps1),
-            'block_matching': aconf.get('block_matching', {}),
-        }
-        match, coarse = align_two_thumbnails(img0, img1, mask0=mask0,
-                                             mask1=mask1, return_coarse=True,
-                                             **settings)
-        if match is None:
-            logger.warning(f'{sec0} -> {sec1}: thumbnail matching failed')
-            continue
-        if aconf.get('save_feature_match', False) and coarse is not None:
-            fdir = join_paths(work_dir, 'thumbnail_align', 'feature_matches')
-            save_matches_to_h5(join_paths(fdir, match_name(
-                sec0, sec1, aconf.get('match_name_delimiter', '__to__'))),
-                coarse, res)
-        save_matches_to_h5(out, match, res)
-        logger.info(f'{sec0} -> {sec1}: {len(match.weight)} coarse matches '
-                    f'in {time.time() - t0:.1f}s')
+            img0, mask0, kps0 = load(sec0)
+            img1, mask1, kps1 = load(sec1)
+            settings = {
+                'match_mode': aconf.get('match_mode', 'feature'),
+                'feature_matching': dict(aconf.get('feature_matching', {}) or {},
+                                         kps0=kps0, kps1=kps1),
+                'block_matching': aconf.get('block_matching', {}),
+            }
+            match, coarse = align_two_thumbnails(img0, img1, mask0=mask0,
+                                                 mask1=mask1, return_coarse=True,
+                                                 **settings)
+            if match is None:
+                logger.warning(f'{sec0} -> {sec1}: thumbnail matching failed')
+                continue
+            if aconf.get('save_feature_match', False) and coarse is not None:
+                fdir = join_paths(work_dir, 'thumbnail_align', 'feature_matches')
+                save_matches_to_h5(join_paths(fdir, match_name(
+                    sec0, sec1, aconf.get('match_name_delimiter', '__to__'))),
+                    coarse, res)
+            save_matches_to_h5(out, match, res)
+            logger.info(f'{sec0} -> {sec1}: {len(match.weight)} coarse matches '
+                        f'in {timer.elapsed:.1f}s')
 
 
 def optimize_main(args, conf, logger):
@@ -280,7 +280,6 @@ def main(argv=None):
     conf = config.thumbnail_configs()
     info, logger = initialize_main_logger(prefix=f'thumb_{args.mode}',
                                           mp_queue=False)
-    from feabas_tpu_torch.logging import stage_timer
     # 'alignment' chains the three z-alignment stages in one run
     # (reference: thumbnail_main.py:398,470-)
     stages = {'downsample': [downsample_main], 'matching': [matching_main],

@@ -12,7 +12,7 @@ import numpy as np
 import scipy.sparse as sparse
 import torch
 
-from feabas_tpu_torch import common, config, storage
+from feabas_tpu_torch import common, config, storage, trace
 from feabas_tpu_torch import constant as const
 from feabas_tpu_torch import spatial as sp
 from feabas_tpu_torch.common import (Match, bbox_centers, intersect_bbox,
@@ -193,6 +193,7 @@ class Stitcher:
 
     # ------------------------- H5 IO ------------------------- #
 
+    @trace.spanned('io.h5')
     def save_to_h5(self, fname, save_matches=True, save_meshes=True):
         with H5File(fname, 'w') as f:
             f.create_dataset('imgpaths', data=str_to_numpy_ascii('\n'.join(self.imgpaths)))
@@ -223,6 +224,7 @@ class Stitcher:
                     mesh.save_to_h5(f, prefix=f'meshes/{i}', save_material=(i == 0))
 
     @classmethod
+    @trace.spanned('io.h5')
     def from_h5(cls, fname, load_matches=True, load_meshes=True, **kwargs):
         with H5File(fname, 'r') as f:
             imgpaths = numpy_to_str_ascii(f['imgpaths'][()]).split('\n')

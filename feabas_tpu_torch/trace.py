@@ -1,0 +1,102 @@
+"""Spans and counters of the port's host work.
+
+``span(name)`` is a profiler range named ``feabas.<name>`` around a piece
+of host work: with no profiler attached it costs about a microsecond;
+under ``torch.profiler`` (a benchmark's traced run, or an operator's own
+session) it lands on the profiler's clock beside the device's events, so
+an idle stretch of the card can be put down to the span the host was in.
+The range is a function-scope record, not a user annotation: a user
+annotation also gets a copy on the device's timeline, which a reader of
+the device events would count as device work. A span never synchronizes.
+
+``count(name, n)`` adds a host integer to a counter; ``counters()`` reads
+them all and ``reset_counters()`` zeroes them. A counter is given what the
+host already holds (a loop's trips, an image's shape), never a device
+tensor, so counting adds no device work and no sync. The hand-written
+kernels' launches are counters too (``launch.<kernel>``, and by the shape
+the wrapper gave the kernel), read through ``device.launch_counts``.
+
+Spans and counters in the port:
+
+- ``loader.decode`` (span), ``loader.decodes``, ``loader.decoded_px``:
+  each image file decoded (``common.imread``);
+- ``loader.resize``: the align loader's area downscale to the working mip;
+- ``loader.cache_lookups``, ``loader.cache_hits``: the image loaders'
+  cache gets (whole images and border bands);
+- ``blender.encode``: each image file encoded (``common.imwrite``);
+- ``matcher.seed``: the align matcher's global translation seed;
+- ``io.h5``: mesh, match and stitcher H5 reads and writes;
+- ``solver.cg_calls``, ``solver.cg_iters``: each CG solve and the loop
+  trips it ran;
+- ``<cli>.<mode>`` and ``<cli>.<mode>.<unit>``: the CLI drivers' stages
+  and their per-section or per-pair work (``logging.stage_timer``);
+- ``launch``: each kernel launch made through ``device.launch_on``.
+
+A span is an operator range to the profiler, so a kernel launched from C
+(with no operator of its own) is linked to the innermost span open around
+it: ``launch`` keeps that span at the launch itself.
+"""
+
+import functools
+import threading
+
+import torch
+
+PREFIX = 'feabas.'
+
+# a function-scope range (``record_function`` opens a user annotation)
+_Range = torch._C._profiler._RecordFunctionFast
+
+_LOCK = threading.Lock()
+_COUNTS = {}
+# {kernel: {'NxHxW': launches}}
+_BY_SHAPE = {}
+
+
+def span(name):
+    """Context manager: the profiler range ``feabas.<name>``."""
+    return _Range(PREFIX + name)
+
+
+def spanned(name):
+    """Decorator: every call of the function inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def count(name, n=1):
+    with _LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + int(n)
+
+
+def count_launch(kernel, shape=None):
+    key = 'x'.join(str(int(d)) for d in shape) if shape is not None else '?'
+    with _LOCK:
+        name = 'launch.' + kernel
+        _COUNTS[name] = _COUNTS.get(name, 0) + 1
+        by = _BY_SHAPE.setdefault(kernel, {})
+        by[key] = by.get(key, 0) + 1
+
+
+def counters():
+    """{name: count} since the last reset (a copy)."""
+    with _LOCK:
+        return dict(_COUNTS)
+
+
+def launches_by_shape():
+    """{kernel: {'NxHxW': launches}} since the last reset (a copy)."""
+    with _LOCK:
+        return {k: dict(v) for k, v in _BY_SHAPE.items()}
+
+
+def reset_counters():
+    """Zero every counter, the launch counters too."""
+    with _LOCK:
+        _COUNTS.clear()
+        _BY_SHAPE.clear()
