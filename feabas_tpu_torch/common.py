@@ -10,6 +10,8 @@ The port's copy of ``feabas_tpu/common.py``, cut to what the port reaches.
 import base64
 import importlib
 import json
+import struct
+import zlib
 from collections import namedtuple
 
 import cv2
@@ -44,6 +46,56 @@ def imread(path, **kwargs):
         if img.ndim == 3:
             img = img[..., ::-1]  # BGR -> RGB
     return img
+
+
+_PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
+# IHDR colour type -> the channels ``cv2.imread(..., IMREAD_UNCHANGED)``
+# decodes (grey + alpha comes out BGRA), and the bit depths the format
+# allows it; palette PNGs (type 3) are left out, since cv2 gives them
+# three or four channels by their tRNS chunk
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 4, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 4: (8, 16), 6: (8, 16)}
+
+
+def image_meta(path):
+    """``(height, width, dtype_name, channels)`` of an image file as
+    ``imread(path)`` decodes it, read from the file's header alone.
+
+    Answers for a local PNG from its signature and IHDR chunk, and the
+    chunk headers up to the first IDAT: bit depth 1-8 is ``uint8``, 16
+    ``uint16``. None where the header does not settle what the decode
+    gives: a palette PNG, a PNG with a tRNS chunk (cv2 then adds an alpha
+    channel to RGB), any other format, a cloud path, an unreadable file,
+    a bad signature or IHDR."""
+    path = str(path)
+    if storage.is_cloud_path(path):
+        return None
+    try:
+        with open(path, 'rb') as f:
+            head = f.read(33)
+            if (len(head) < 33 or head[:8] != _PNG_SIGNATURE
+                    or head[8:16] != b'\x00\x00\x00\x0dIHDR'
+                    or zlib.crc32(head[12:29]) != struct.unpack('>I', head[29:])[0]):
+                return None
+            w, h, depth, ctype, comp, filt, interlace = struct.unpack(
+                '>IIBBBBB', head[16:29])
+            if (not w or not h or depth not in _PNG_DEPTHS.get(ctype, ())
+                    or comp or filt or interlace > 1):
+                return None
+            while True:
+                chunk = f.read(8)
+                if len(chunk) < 8:
+                    return None
+                n, kind = struct.unpack('>I4s', chunk)
+                if kind == b'IDAT':
+                    break
+                if kind == b'tRNS':
+                    return None
+                f.seek(n + 4, 1)   # the chunk's data and CRC
+    except OSError:
+        return None
+    trace.count('loader.meta_headers')
+    return h, w, 'uint16' if depth == 16 else 'uint8', _PNG_CHANNELS[ctype]
 
 
 @trace.spanned('blender.encode')

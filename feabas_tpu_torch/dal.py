@@ -30,6 +30,21 @@ def _count_lookup(hit):
         trace.count('loader.cache_hits')
 
 
+def _file_meta(path):
+    """``(height, width, dtype_name, channels)`` of an image file: from its
+    header where ``common.image_meta`` reads one, else from a whole decode
+    (counted as ``loader.meta_decodes``); None where neither reads it."""
+    meta = common.image_meta(path)
+    if meta is not None:
+        return meta
+    img = common.imread(path, flag=cv2.IMREAD_UNCHANGED)
+    if img is None:
+        return None
+    trace.count('loader.meta_decodes')
+    return (img.shape[0], img.shape[1], img.dtype.name,
+            1 if img.ndim == 2 else img.shape[-1])
+
+
 def _apply_clahe(img, cliplimit=2.0):
     clahe = cv2.createCLAHE(clipLimit=cliplimit, tileGridSize=(8, 8))
     if img.ndim == 2:
@@ -281,12 +296,12 @@ class StaticImageLoader(AbstractImageLoader):
         if not self.imgpaths:
             return
         try:
-            img = common.imread(self.abs_path(0), flag=cv2.IMREAD_UNCHANGED)
-            if img is not None:
+            meta = _file_meta(self.abs_path(0))
+            if meta is not None:
                 if self._dtype is None:
-                    self._dtype = img.dtype.name
+                    self._dtype = meta[2]
                 if self._number_of_channels is None:
-                    self._number_of_channels = 1 if img.ndim == 2 else img.shape[-1]
+                    self._number_of_channels = meta[3]
         except Exception:
             pass
 
@@ -335,10 +350,10 @@ class StaticImageLoader(AbstractImageLoader):
             else:
                 imgpaths = [pat]
         if tile_size is None:
-            img = common.imread(imgpaths[0], flag=cv2.IMREAD_UNCHANGED)
-            if img is None:
+            meta = _file_meta(imgpaths[0])
+            if meta is None:
                 raise RuntimeError(f'failed to read {imgpaths[0]}')
-            tile_size = (img.shape[0], img.shape[1])
+            tile_size = meta[:2]
         bboxes = []
         for fname in imgpaths:
             bbox = np.asarray(

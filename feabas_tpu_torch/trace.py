@@ -20,6 +20,10 @@ Spans and counters in the port:
 
 - ``loader.decode`` (span), ``loader.decodes``, ``loader.decoded_px``:
   each image file decoded (``common.imread``);
+- ``loader.meta_headers``, ``loader.meta_decodes``: an image file's dtype,
+  channels and size read from its header (``common.image_meta``), or
+  from a whole decode where the header does not settle them
+  (``dal._file_meta``: the loaders' first-tile probe);
 - ``loader.resize``: the align loader's area downscale to the working mip;
 - ``loader.cache_lookups``, ``loader.cache_hits``: the image loaders'
   cache gets (whole images and border bands);

@@ -360,6 +360,85 @@ def test_a_stitch_run_records_its_spans_and_counters(tmp_path, monkeypatch):
     assert c['solver.cg_iters'] >= c['solver.cg_calls']
 
 
+def _written(wd):
+    """{path under the work dir: contents} of what the stitch CLI wrote:
+    the bytes of each file, and of an H5 file its datasets and
+    attributes, since HDF5 stamps each object with its write time."""
+    import h5py
+    files = {}
+    for sub in ('stitch', 'stitched_sections'):
+        top = os.path.join(wd, sub)
+        for d, _, fns in os.walk(top):
+            for fn in fns:
+                path = os.path.join(d, fn)
+                key = os.path.relpath(path, top)
+                if fn.endswith('.h5'):
+                    got = files[key] = {}
+
+                    def take(n, o, got=got):
+                        if isinstance(o, h5py.Dataset):
+                            got[n] = o[()]
+                        got.update({f'{n}@{a}': v for a, v in o.attrs.items()})
+                    with h5py.File(path, 'r') as f:
+                        take('', f)
+                        f.visititems(take)
+                else:
+                    with open(path, 'rb') as f:
+                        files[key] = f.read()
+    return files
+
+
+def test_a_stitch_run_reads_its_first_tiles_header_not_the_tile(
+        tmp_path, monkeypatch):
+    """The same small section through the stitch CLI twice: as shipped,
+    and with the header read off, so that each loader built decodes its
+    first tile for its dtype. The shipped run decodes exactly the
+    matcher's and the blender's probe tile less, and both write the same
+    files, in the same place."""
+    import shutil
+    from synthutil import tile_grid
+    from feabas_tpu_torch import config
+    from feabas_tpu_torch.scripts import stitch_main
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(7)
+    _, tiles, _, stage_bb = tile_grid(rng, rows=1, cols=2, tile_h=200,
+                                      tile_w=300, overlap=120, jitter=2.0)
+    runs = {}
+    for name in ('shipped', 'decode_probe'):
+        shutil.rmtree(tmp_path / 'run', ignore_errors=True)
+        cfg, wd = _stitch_workdir(str(tmp_path / 'run'), tiles, stage_bb)
+        monkeypatch.setenv('FEABAS_TPU_CONFIG_DIR', cfg)
+        config.clear_config_caches()
+        trace.reset_counters()
+        try:
+            with monkeypatch.context() as m:
+                if name == 'decode_probe':
+                    m.setattr(common, 'image_meta', lambda path: None)
+                for mode in ('matching', 'optimization', 'rendering'):
+                    stitch_main.main(['--mode', mode])
+        finally:
+            config.clear_config_caches()
+        runs[name] = (trace.counters(), _written(wd))
+    (c, files), (c_probe, files_probe) = runs['shipped'], runs['decode_probe']
+    assert c['loader.meta_headers'] == 2
+    assert 'loader.meta_decodes' not in c
+    assert 'loader.meta_headers' not in c_probe
+    assert c_probe['loader.meta_decodes'] == 2
+    assert c['loader.decodes'] == c_probe['loader.decodes'] - 2
+    assert c['loader.decoded_px'] == c_probe['loader.decoded_px'] - 2 * 200 * 300
+    assert any(k.endswith('.png') for k in files)
+    assert sorted(files) == sorted(files_probe)
+    for k, got in files.items():
+        if not k.endswith('.h5'):
+            assert got == files_probe[k], k
+            continue
+        assert sorted(got) == sorted(files_probe[k]), k
+        assert got
+        for n, v in got.items():
+            np.testing.assert_array_equal(v, files_probe[k][n],
+                                          err_msg=f'{k}:{n}')
+
+
 @pytest.mark.cuda
 def test_spans_leave_no_range_on_the_device_timeline():
     """On the card: a span around kernel launches lands on the host side
