@@ -1,0 +1,9 @@
+"""The LRadon descriptors' patch kernel (K16) share of its roofline: the
+bound of every call (``roofline/lradon_patch.py``, from the call's
+arguments) over the device time of everything the calls launched."""
+
+import roofline.share
+
+
+def read(t):
+    return roofline.share.of(t, 'lradon_patch')

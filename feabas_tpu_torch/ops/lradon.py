@@ -22,6 +22,12 @@ table with a validity mask, ordered as ``jax.lax.top_k`` orders it (equal
 responses by ascending flat index), and descriptor counts are padded to
 power-of-two buckets, so the row layout of ``des_dev`` equals the JAX
 package's.
+
+A pair prepared together (``pair_features_device``: both images' features
+and the round-0 match) runs inside the span ``thumbnail.features``, as
+``thumbnail.prepare_image`` does for one image. Each kernel launches
+through ``device.launch_on`` (inside the span ``launch``) and is counted as
+``launch.<kernel>``.
 """
 
 import ctypes
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from feabas_tpu_torch import build
+from feabas_tpu_torch import build, trace
 from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch.ops.filters import masked_dog_filter
 
@@ -46,10 +52,6 @@ def _require_cuda(name, **tensors):
                              f'{t.device}')
         if not t.is_contiguous():
             raise ValueError(f'{name}: {key} must be contiguous')
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ------------------------- detection ------------------------- #
@@ -107,10 +109,10 @@ def peak_response(f, mask=None, size=10):
                          f'{MAX_PEAK_SIZE}')
     h, w = f.shape
     resp = torch.empty_like(f)
-    with torch.cuda.device(f.device):
-        err = _peak_lib().peak_detect_f32(
-            f.data_ptr(), None if mask is None else mask.data_ptr(),
-            resp.data_ptr(), h, w, size, _stream(f))
+    err = device_mod.launch_on(
+        f.device.index, _peak_lib().peak_detect_f32, f.data_ptr(),
+        None if mask is None else mask.data_ptr(), resp.data_ptr(), h, w,
+        size)
     if err != 0:
         raise RuntimeError(f'peak_detect launch failed: CUDA error {err}')
     device_mod.count_launch('peak_detect', (h, w))
@@ -346,11 +348,10 @@ def lradon_patch(img, z, f, tables, proj_num, Rp):
     if K == 0:
         return out
     h, w = img.shape
-    with torch.cuda.device(img.device):
-        err = _patch_lib().lradon_patch_f32(
-            img.data_ptr(), h, w, z.data_ptr(), f.data_ptr(), off.data_ptr(),
-            wts.data_ptr(), S, out.data_ptr(), K, Dp, PB, int(Rp) + 1,
-            _stream(img))
+    err = device_mod.launch_on(
+        img.device.index, _patch_lib().lradon_patch_f32, img.data_ptr(), h,
+        w, z.data_ptr(), f.data_ptr(), off.data_ptr(), wts.data_ptr(), S,
+        out.data_ptr(), K, Dp, PB, int(Rp) + 1)
     if err != 0:
         raise RuntimeError(f'lradon_patch launch failed: CUDA error {err}')
     device_mod.count_launch('lradon_patch', (K, PB))
@@ -560,13 +561,13 @@ def lradon_match(d0, v0, d1, v1, proj_num, exhaustive=True):
     conf = torch.empty(K1, dtype=torch.float32, device=dev)
     mutual = torch.empty(K1, dtype=torch.bool, device=dev)
     best_rot = torch.empty((), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _match_lib().lradon_match_f32(
-            d0.data_ptr(), v0.data_ptr(), d1.data_ptr(), v1.data_ptr(),
-            perms.data_ptr(), nvar, d0t.data_ptr(), gmax.data_ptr(),
-            rowkeys.data_ptr(), colkey.data_ptr(), i0.data_ptr(),
-            top.data_ptr(), conf.data_ptr(), mutual.data_ptr(),
-            best_rot.data_ptr(), K0, K1, dlen, chunks1, chunks2, _stream(d0))
+    err = device_mod.launch_on(
+        dev.index, _match_lib().lradon_match_f32, d0.data_ptr(),
+        v0.data_ptr(), d1.data_ptr(), v1.data_ptr(), perms.data_ptr(), nvar,
+        d0t.data_ptr(), gmax.data_ptr(), rowkeys.data_ptr(),
+        colkey.data_ptr(), i0.data_ptr(), top.data_ptr(), conf.data_ptr(),
+        mutual.data_ptr(), best_rot.data_ptr(), K0, K1, dlen, chunks1,
+        chunks2)
     if err != 0:
         raise RuntimeError(f'lradon_match launch failed: CUDA error {err}')
     device_mod.count_launch('lradon_match', (K1, K0, nvar))
@@ -718,6 +719,7 @@ def features_device(img, mask=None, sigma=3.5, min_spacing=10,
     return _finish_features(feat, des)
 
 
+@trace.spanned('thumbnail.features')
 def pair_features_device(img0, img1, mask0=None, mask1=None, sigma=3.5,
                          min_spacing=10, num_features=5000, proj_num=6,
                          beam_num=8, beam_wd=3, beam_radius=15,

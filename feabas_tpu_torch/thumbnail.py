@@ -11,12 +11,21 @@ matcher. The device routes run on the device that ``device.get_device``
 resolves (``ops/lradon``: three CUDA kernels on a card); the filters, the
 subpixel refinement and the host routes are numpy/scipy/cv2 as in the JAX
 package, with the same seeded draws.
+
+Spans (``trace``): ``thumbnail.features`` (detect + describe),
+``thumbnail.feature_match`` (a robustness round's descriptor match and
+strain filter), ``thumbnail.ransac``, ``thumbnail.subpixel``,
+``thumbnail.verify`` and ``thumbnail.refine`` (the PMCC block matching).
+Counters, of what the host already holds: ``thumbnail.keypoints`` (kept per
+image), ``thumbnail.match_rounds``, ``thumbnail.ransac_calls`` and
+``thumbnail.ransac_trials`` (each affine fit's draws),
+``thumbnail.coarse_matches`` and ``thumbnail.refined_matches``.
 """
 
 import numpy as np
 from scipy.ndimage import maximum_filter, uniform_filter1d
 
-from feabas_tpu_torch import common, config
+from feabas_tpu_torch import common, config, trace
 from feabas_tpu_torch import constant as const
 from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch.common import Match
@@ -302,10 +311,15 @@ def filter_match_pairwise_strain(xy0, xy1, conf=None, strain_limit=0.2,
     return votes / trials >= inlier_thresh
 
 
-def filter_match_global_ransac(xy0, xy1, conf=None, dis_tol=4, maxiter=10000,
-                               **kwargs):
-    """Weighted affine RANSAC (reference: thumbnail.py:835). Returns
-    (inlier_mask, T) with T the best row-vector affine xy1->xy0."""
+@trace.spanned('thumbnail.ransac')
+def filter_match_global_ransac(xy0, xy1, conf=None, **kwargs):
+    """Weighted affine RANSAC (reference: thumbnail.py:835): inliers
+    within ``dis_tol`` (4 px), at most ``maxiter`` (10000; 500 drawn).
+    Returns (inlier_mask, T) with T the best row-vector affine xy1->xy0."""
+    return _global_ransac(xy0, xy1, conf, **kwargs)
+
+
+def _global_ransac(xy0, xy1, conf=None, dis_tol=4, maxiter=10000, **kwargs):
     n = xy0.shape[0]
     if n < 3:
         return np.ones(n, bool), np.eye(3)
@@ -317,7 +331,9 @@ def filter_match_global_ransac(xy0, xy1, conf=None, dis_tol=4, maxiter=10000,
     if conf is not None and np.sum(conf) > 0:
         p = np.asarray(conf, np.float64)
         p = p / p.sum()
+    trials = 0
     for _ in range(iters):
+        trials += 1
         sel = rng.choice(n, 3, replace=False, p=p)
         try:
             T = fit_affine(xy0[sel], xy1[sel], avoid_flip=True)
@@ -330,6 +346,8 @@ def filter_match_global_ransac(xy0, xy1, conf=None, dis_tol=4, maxiter=10000,
             best_T = T
             if mask.mean() > 0.8:
                 break
+    trace.count('thumbnail.ransac_calls')
+    trace.count('thumbnail.ransac_trials', trials)
     if best_mask.sum() >= 3:
         best_T = fit_affine(xy0[best_mask], xy1[best_mask])
         r = np.linalg.norm(apply_affine(xy1, best_T) - xy0, axis=-1)
@@ -337,6 +355,7 @@ def filter_match_global_ransac(xy0, xy1, conf=None, dis_tol=4, maxiter=10000,
     return best_mask, best_T
 
 
+@trace.spanned('thumbnail.ransac')
 def filter_match_sequential_ransac(xy0, xy1, conf=None, class0=None,
                                    class1=None, min_features_ratio=0.1,
                                    max_rounds=10, mixed_class=False, **kwargs):
@@ -359,8 +378,7 @@ def filter_match_sequential_ransac(xy0, xy1, conf=None, class0=None,
         if remaining.size < 3:
             break
         c = None if conf is None else conf[remaining]
-        inl, T = filter_match_global_ransac(xy0[remaining], xy1[remaining],
-                                            c, **kwargs)
+        inl, T = _global_ransac(xy0[remaining], xy1[remaining], c, **kwargs)
         if inl.sum() < 3:
             break
         if (not mixed_class) and class0 is not None and class1 is not None:
@@ -379,6 +397,7 @@ def filter_match_sequential_ransac(xy0, xy1, conf=None, class0=None,
     return groups
 
 
+@trace.spanned('thumbnail.verify')
 def verify_match_elastic(xy0, xy1, weight, settled, img_shape0, img_shape1,
                          dis_tol=10.0, mesh_size=None, device=None):
     """Verify a small candidate match group against the deformation
@@ -440,6 +459,7 @@ def _kp_from_device_features(feat, mask):
     return kp
 
 
+@trace.spanned('thumbnail.features')
 def prepare_image(img, mask=None, device=None, **settings):
     """Detect + describe in one call; cached by callers
     (reference: thumbnail.py:279).
@@ -454,12 +474,16 @@ def prepare_image(img, mask=None, device=None, **settings):
         kw = {k: detect[k] for k in _DETECT_KEYS if k in detect}
         kw.update({k: extract[k] for k in _EXTRACT_KEYS if k in extract})
         feat = lradon.features_device(img, mask=mask, device=device, **kw)
-        return _kp_from_device_features(feat, mask)
-    kp = detect_extrema_log(img, mask=mask, device=device, **detect)
-    return extract_LRadon_feature(np.asarray(img, np.float32), kp,
-                                  device=device, **extract)
+        kp = _kp_from_device_features(feat, mask)
+    else:
+        kp = detect_extrema_log(img, mask=mask, device=device, **detect)
+        kp = extract_LRadon_feature(np.asarray(img, np.float32), kp,
+                                    device=device, **extract)
+    trace.count('thumbnail.keypoints', kp.num_points)
+    return kp
 
 
+@trace.spanned('thumbnail.subpixel')
 def refine_matches_subpixel(img0, img1, xy0, xy1, sigma=3.5, patch=32,
                             search=6):
     """Subpixel refinement of matched keypoint pairs by local DoG
@@ -625,6 +649,7 @@ def match_two_thumbnails_LRadon(img0, img1, mask0=None, mask1=None,
                 **kw)
             kp0 = _kp_from_device_features(f0, mask0)
             kp1 = _kp_from_device_features(f1, mask1)
+            trace.count('thumbnail.keypoints', kp0.num_points + kp1.num_points)
     if kp0 is None:
         kp0 = prepare_image(img0, mask=mask0, device=device, **settings)
     if kp1 is None:
@@ -640,41 +665,44 @@ def match_two_thumbnails_LRadon(img0, img1, mask0=None, mask1=None,
     for _round in range(max_rounds):
         if int(active0.sum()) < 3 or int(active1.sum()) < 3:
             break
-        if use_masked:
-            # descriptors stay device-resident; each round uploads only
-            # the active masks and fetches the surviving global indices
-            if _round == 0 and pre_match is not None:
-                i0, i1, conf, rot = pre_match
+        trace.count('thumbnail.match_rounds')
+        with trace.span('thumbnail.feature_match'):
+            if use_masked:
+                # descriptors stay device-resident; each round uploads only
+                # the active masks and fetches the surviving global indices
+                if _round == 0 and pre_match is not None:
+                    i0, i1, conf, rot = pre_match
+                else:
+                    from feabas_tpu_torch.ops import lradon
+                    m0 = np.zeros(kp0.des_dev.shape[0], bool)
+                    m0[:kp0.num_points] = active0
+                    m1 = np.zeros(kp1.des_dev.shape[0], bool)
+                    m1[:kp1.num_points] = active1
+                    i0, i1, conf, rot = lradon.match_lradon_device_masked(
+                        kp0.des_dev, m0, kp1.des_dev, m1,
+                        exhaustive=matching.get('exhaustive', True),
+                        conf_thresh=matching.get('conf_thresh', 0.3))
+                src0, src1 = kp0, kp1        # global indices
             else:
-                from feabas_tpu_torch.ops import lradon
-                m0 = np.zeros(kp0.des_dev.shape[0], bool)
-                m0[:kp0.num_points] = active0
-                m1 = np.zeros(kp1.des_dev.shape[0], bool)
-                m1[:kp1.num_points] = active1
-                i0, i1, conf, rot = lradon.match_lradon_device_masked(
-                    kp0.des_dev, m0, kp1.des_dev, m1,
-                    exhaustive=matching.get('exhaustive', True),
-                    conf_thresh=matching.get('conf_thresh', 0.3))
-            src0, src1 = kp0, kp1        # global indices
-        else:
-            k0 = kp0.filter_by_mask(active0)
-            k1 = kp1.filter_by_mask(active1)
-            i0, i1, conf, rot = match_LRadon_feature(
-                k0, k1, exhaustive=matching.get('exhaustive', True),
-                conf_thresh=matching.get('conf_thresh', 0.3), device=device)
-            src0, src1 = k0, k1          # compacted indices
-        if i0.size < 3:
-            break
-        xy0 = src0.xy[i0]
-        xy1 = src1.xy[i1]
-        keep = filter_match_pairwise_strain(xy0, xy1, conf, **strain_f)
-        if _round > 0 and keep.sum() < 3:
-            # later rounds see only leftover pieces: the pairwise-strain
-            # vote can starve; fall back to raw RANSAC on the candidates
-            keep = np.ones(xy0.shape[0], bool)
-        if keep.sum() < 3:
-            break
-        xy0, xy1, conf = xy0[keep], xy1[keep], conf[keep]
+                k0 = kp0.filter_by_mask(active0)
+                k1 = kp1.filter_by_mask(active1)
+                i0, i1, conf, rot = match_LRadon_feature(
+                    k0, k1, exhaustive=matching.get('exhaustive', True),
+                    conf_thresh=matching.get('conf_thresh', 0.3),
+                    device=device)
+                src0, src1 = k0, k1          # compacted indices
+            if i0.size < 3:
+                break
+            xy0 = src0.xy[i0]
+            xy1 = src1.xy[i1]
+            keep = filter_match_pairwise_strain(xy0, xy1, conf, **strain_f)
+            if _round > 0 and keep.sum() < 3:
+                # later rounds see only leftover pieces: the pairwise-strain
+                # vote can starve; fall back to raw RANSAC on the candidates
+                keep = np.ones(xy0.shape[0], bool)
+            if keep.sum() < 3:
+                break
+            xy0, xy1, conf = xy0[keep], xy1[keep], conf[keep]
         cls0 = src0.class_id[i0][keep]
         cls1 = src1.class_id[i1][keep]
         groups = filter_match_sequential_ransac(
@@ -735,9 +763,11 @@ def match_two_thumbnails_LRadon(img0, img1, mask0=None, mask1=None,
     if settings.get('refine_subpixel', True):
         sigma = (settings.get('detect_settings', {}) or {}).get('sigma', 3.5)
         xy0 = refine_matches_subpixel(img0, img1, xy0, xy1, sigma=sigma)
+    trace.count('thumbnail.coarse_matches', xy0.shape[0])
     return Match(xy0, xy1, w, config.DEFAULT_AVG_DEFORM)
 
 
+@trace.spanned('thumbnail.refine')
 def match_two_thumbnails_pmcc(img0, img1, mask0=None, mask1=None,
                               initial_match=None, device=None, **settings):
     """Mesh-based block refinement of a coarse match
@@ -762,7 +792,7 @@ def match_two_thumbnails_pmcc(img0, img1, mask0=None, mask1=None,
     block = dict(settings.get('block_matching', {}) or {})
     block.setdefault('spacings', [150, 50])
     block.setdefault('sigma', 3.5)
-    return section_matcher(mesh0, mesh1, StreamLoader(np.asarray(img0)),
+    match = section_matcher(mesh0, mesh1, StreamLoader(np.asarray(img0)),
                            StreamLoader(np.asarray(img1)), device=device,
                            **{k: v for k, v in block.items()
                               if k in ('spacings', 'sigma', 'conf_thresh',
@@ -777,6 +807,9 @@ def match_two_thumbnails_pmcc(img0, img1, mask0=None, mask1=None,
                                        'stiffness_multiplier_threshold',
                                        'envelope_normalize',
                                        'subpixel_upsample')})
+    if match is not None:
+        trace.count('thumbnail.refined_matches', match.xy0.shape[0])
+    return match
 
 
 def align_two_thumbnails(img0, img1, mask0=None, mask1=None,

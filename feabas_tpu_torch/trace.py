@@ -32,6 +32,12 @@ Spans and counters in the port:
 - ``io.h5``: mesh, match and stitcher H5 reads and writes;
 - ``solver.cg_calls``, ``solver.cg_iters``: each CG solve and the loop
   trips it ran;
+- ``thumbnail.features``, ``thumbnail.feature_match``, ``thumbnail.ransac``,
+  ``thumbnail.subpixel``, ``thumbnail.verify``, ``thumbnail.refine``
+  (spans), ``thumbnail.keypoints``, ``thumbnail.match_rounds``,
+  ``thumbnail.ransac_calls``, ``thumbnail.ransac_trials``,
+  ``thumbnail.coarse_matches``, ``thumbnail.refined_matches``: the
+  thumbnail matcher's stages and what they kept (``thumbnail.py``);
 - ``<cli>.<mode>`` and ``<cli>.<mode>.<unit>``: the CLI drivers' stages
   and their per-section or per-pair work (``logging.stage_timer``);
 - ``launch``: each kernel launch made through ``device.launch_on``.
