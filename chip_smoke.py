@@ -53,7 +53,14 @@ Phases (each prints its lines; any failure exits non-zero):
      version and bit-equal to itself, with its device time at each G, and
      at the G its tables chose beside one ``torch.sparse.mm`` of the
      assembled matrix, with the registers, spills and resident blocks a SM
-     of that instantiation (the path systems in phases 4 to 7);
+     of that instantiation (the path systems in phases 4 to 7); then the
+     subpixel refinement of the thumbnail matches (``check_subpixel``):
+     the same kept set as its plain version and shifts within 1e-4 px, on
+     a 4096^2 pair of a sigma-1.5 texture shifted by (17.3, -9.6) px with
+     1,369 matches (the thumbnail cell's size), windows at every bound of
+     the images and one match; the first timed beside its device time
+     from a CUDA-graph replay and the host route it replaces (scipy DoGs,
+     FFT correlation, numpy Lucas-Kanade steps) on the same pair;
   4. the stitch slice: a synthetic 2x3 grid of 3000x4000 uint8 tiles
      (10% overlap, 3 px stage jitter, made on the card from a seed) goes
      through ``feabas_tpu_torch.scripts.stitch_main`` matching,
@@ -134,7 +141,7 @@ it, bit-equal to itself and to what the path got (a difference fails the
 run).
 Each slice resets the kernels' launch counts just before it and reads
 them just after (in total and by shape), and fails if a kernel of its
-path never launched. Then one JSON line lists each of the eight kernels with
+path never launched. Then one JSON line lists each of the nine kernels with
 its launches (in all and by path), its worst error, and the times, bound
 and library time of the checked shape the paths launched most, then all its
 phase-3 checks; the line before
@@ -179,6 +186,8 @@ KERNELS = {
     'lradon_match': ('lradon_match', 'feabas_tpu/ops/lradon.py:301'),
     'montage_blend': ('montage_blend', 'feabas_tpu/ops/montage_render.py:62'),
     'fem_operator': ('fem_operator', 'feabas_tpu/optimizer.py:1192'),
+    # no TPU kernel: the JAX package fits these shifts on the host
+    'subpixel_refine': ('subpixel_refine', 'feabas_tpu/thumbnail.py:464'),
 }
 KERNEL_SOURCES = sorted({src for src, _ in KERNELS.values()})
 
@@ -366,6 +375,10 @@ def check_kernels(dev):
     # and the refinement's blocks of 192^2 and 64^2
     check((128, 192, 192), torch.float32, 3.5, True, ', tiles')
     check((128, 64, 64), torch.float32, 3.5, True, device=True)
+    # the subpixel refinement's whole uint8 thumbnails: 2048^2 (phase 6)
+    # and 4096^2 (the shipped mip 6)
+    check((1, 2048, 2048), torch.uint8, 3.5, True, ', tiles')
+    check((1, 4096, 4096), torch.uint8, 3.5, True, ', tiles', iters=5)
     # reference stacks kept from earlier runs: 8 pairs x 128 blocks of
     # 128^2, 512^2 uint8 blocks, and the low band of all 6 tiles at once
     check((1024, 128, 128), torch.float32, 2.5, True)
@@ -2976,6 +2989,147 @@ def check_lradon(dev):
     return rows
 
 
+# phase 3: the thumbnail matches' subpixel refinement
+SUBPIXEL_SHIFT = (17.3, -9.6)         # the content at p in img1 is at p + t
+SUBPIXEL_ATOL = 1e-4                  # px: f32 sums in another order
+
+
+def subpixel_case(dev, size=4096, side=37, blur=1.5, seed=SEED):
+    """Two size^2 uint8 views of one texture (``make_texture``, ``blur``
+    px), the second shifted by SUBPIXEL_SHIFT (bilinear), their DoGs at the
+    detector's sigma 3.5 (the DoG kernel), and side^2 matches: xy1 on a
+    grid 64 px inside the image, xy0 = xy1 + t + N(0, 1.5 px). Returns a
+    dict of the images img0, img1, dog0, dog1, the centres c0, c1
+    (rounded, on the host), xy0, xy1 and the truth xy1 + t."""
+    import numpy as np
+    import torch
+    from feabas_tpu_torch.ops.filters import masked_dog_filter
+    tx, ty = SUBPIXEL_SHIFT
+    world = make_texture(dev, size + 64, size + 64, seed, blur).float()
+    ix, iy = int(np.floor(tx)), int(np.floor(ty))
+    fx, fy = tx - ix, ty - iy
+
+    def at(dy, dx):
+        y, x = 32 + iy + dy, 32 + ix + dx
+        return world[y:y + size, x:x + size]
+    img1 = ((1 - fy) * ((1 - fx) * at(0, 0) + fx * at(0, 1))
+            + fy * ((1 - fx) * at(1, 0) + fx * at(1, 1)))
+    img0 = world[32:32 + size, 32:32 + size]
+    rng = np.random.default_rng(seed)
+    g = np.linspace(64, size - 64, side)
+    xy1 = np.stack(np.meshgrid(g, g + 0.3), -1).reshape(-1, 2)
+    truth = xy1 + np.asarray(SUBPIXEL_SHIFT)
+    xy0 = truth + rng.normal(0, 1.5, xy1.shape)
+
+    img0, img1 = (torch.round(i).to(torch.uint8) for i in (img0, img1))
+    return {'img0': img0, 'img1': img1, 'dog0': masked_dog_filter(img0, 3.5),
+            'dog1': masked_dog_filter(img1, 3.5), 'xy0': xy0, 'xy1': xy1,
+            'truth': truth, 'c0': np.rint(xy0).astype(np.int64),
+            'c1': np.rint(xy1).astype(np.int64)}
+
+
+def subpixel_compare(case):
+    """One launch of the subpixel kernel on ``case`` against its plain
+    version on the card. Returns (max abs shift error, kept, the kernel's
+    (K, 3) rows); raises where the kept sets differ or a shift is off by
+    more than SUBPIXEL_ATOL."""
+    import numpy as np
+    import torch
+    from feabas_tpu_torch.ops import subpixel
+    d0, d1, c0, c1 = (case[k] for k in ('dog0', 'dog1', 'c0', 'c1'))
+    got = subpixel.subpixel_refine(d0, d1, c0, c1)
+    centres = torch.from_numpy(np.concatenate([c0, c1], 1).astype(
+        np.int32)).to(d0.device)
+    want = subpixel.subpixel_refine_plain(d0, d1, centres)
+    torch.cuda.synchronize()
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    kept = g[:, 2] > 0
+    if not np.array_equal(kept, w[:, 2] > 0):
+        raise RuntimeError(f'subpixel_refine: the kept sets differ in '
+                           f'{int((kept != (w[:, 2] > 0)).sum())} matches')
+    err = float(np.abs(g[kept, :2] - w[kept, :2]).max()) if kept.any() \
+        else 0.0
+    if not err <= SUBPIXEL_ATOL:
+        raise RuntimeError(f'subpixel_refine: max abs error {err} px')
+    return err, int(kept.sum()), g
+
+
+def subpixel_bound(k, kept, patch=32, search=6):
+    """Bound of one call: each window read once, the centres read and the
+    rows written once; per match the means and energies (4 FLOP a window
+    value), the correlation (2 FLOP a product) and its maximum, and per
+    kept match the 8 steps (11 FLOP a window px: the bilinear sample and
+    p1 +- W; 14 an interior px: gradients, products and sums)."""
+    n, lags, q = patch + 2 * search, (2 * search + 1) ** 2, patch - 2
+    win = n * n + patch * patch
+    flop = (k * (4 * win + 2 * lags * patch * patch + lags)
+            + kept * 8 * (11 * patch * patch + 14 * q * q))
+    return bound(flop, k * (4 * win + 16 + 12))
+
+
+def check_subpixel(dev):
+    """Phase 3, the subpixel refinement's kernel: the cell-sized pair
+    (timed: the wrapper call, the kernel's device time from a CUDA-graph
+    replay, the plain version, and once the host route it replaces on the
+    same thumbnails), windows at every bound of the images, and one
+    match."""
+    import numpy as np
+    import torch
+    from feabas_tpu_torch import thumbnail
+    from feabas_tpu_torch.ops import subpixel
+    case = subpixel_case(dev)
+    d0, d1 = case['dog0'], case['dog1']
+    h, w = d0.shape
+    # the outermost centres whose windows fit: 22 px (16 + the search of 6)
+    # from each edge of image 0, 16 px from each edge of image 1
+    def bounds(m):
+        return np.array([[m, m], [w - m, m], [m, h - m], [w - m, h - m],
+                         [m, h // 2], [w // 2, m]])
+    rows = []
+    for name, c, edge in (
+            ('4096^2 sigma 1.5, 1369 matches', case, False),
+            ('windows at every bound',
+             dict(case, c0=bounds(22), c1=bounds(16)), True),
+            ('one match',
+             dict(case, c0=case['c0'][:1], c1=case['c1'][:1]), True)):
+        err, kept, g = subpixel_compare(c)
+        k = c['c0'].shape[0]
+        iters, warm = (3, 0.01) if edge else (10, 0.1)
+        ms = cuda_time(lambda: subpixel.subpixel_refine(
+            d0, d1, c['c0'], c['c1']), iters, warm)
+        centres = torch.from_numpy(np.concatenate(
+            [c['c0'], c['c1']], 1).astype(np.int32)).to(dev)
+        out = torch.empty((k, 3), dtype=torch.float32, device=dev)
+        pms = cuda_time(lambda: subpixel.subpixel_refine_plain(
+            d0, d1, centres), 3, warm)
+        row = kernel_row('subpixel_refine', (k, 32, 6), name, err, ms, pms,
+                         subpixel_bound(k, kept))
+        row['device_us'] = graph_time(lambda: subpixel.launch(
+            d0, d1, centres, out, 32, 6), 5 if edge else 20)
+        row['edge'] = edge
+        row['kept'] = kept
+        rows.append(row)
+        if not edge:
+            good = g[:, 2] > 0
+            xy = c['c0'][good] + g[good, :2] + (c['xy1'][good]
+                                                - c['c1'][good])
+            truth_err = float(np.median(np.linalg.norm(
+                xy - c['truth'][good], axis=1)))
+    log_rows(rows)
+    # the host route the kernel replaced, on the same thumbnails
+    t = time.perf_counter()
+    ii, _, _ = thumbnail._subpixel_shifts_host(
+        case['img0'].cpu().numpy(), case['img1'].cpu().numpy(), case['c0'],
+        case['c1'], 3.5, 32, 6)
+    host_ms = (time.perf_counter() - t) * 1e3
+    log(f'[kernel] subpixel_refine: {rows[0]["kept"]} of '
+        f'{case["c0"].shape[0]} matches kept, median error against the '
+        f'truth {truth_err:.4f} px; the host route on the same pair '
+        f'{host_ms:.1f} ms, {ii.size} kept')
+    rows[0]['host_ms'] = host_ms
+    return rows
+
+
 # phase 6: the thumbnail stack
 THUMB_S = 6
 THUMB_MIP = 2                         # 2048^2 thumbnails at 16 nm
@@ -3254,7 +3408,7 @@ def run_thumbnail(dev, size=SECTION, profile=False):
                                f'errors {r_errs}')
         if cuda:
             for name in ('dog_filter', 'peak_detect', 'lradon_patch',
-                         'lradon_match', 'fem_operator'):
+                         'lradon_match', 'fem_operator', 'subpixel_refine'):
                 if launches[name] <= 0:
                     raise RuntimeError(f'{name} was not launched by the '
                                        'thumbnail path')
@@ -3721,6 +3875,7 @@ def main(argv=None):
         rows += check_montage(dev)
         rows += check_lradon(dev)
         rows += check_fem(dev)
+        rows += check_subpixel(dev)
     # phase 9 works on copies of phase 4's and phase 5's work dirs
     kept = {} if 'volume' in args.phases else None
     paths = {'stitch': lambda d: run_slice(d, profile=args.profile,
@@ -3784,7 +3939,7 @@ def main(argv=None):
                 'bound_by', 'library_ms', 'close_rows', 'device_us', 'K',
                 'real_per_cell', 'kept_per_tile', 'kept_rows_per_cell',
                 'covered_per_px', 'form', 'form_device_us', 'registers',
-                'local_bytes', 'blocks_per_sm')
+                'local_bytes', 'blocks_per_sm', 'kept', 'host_ms')
                 if k in r}
                 for r in checks]})
     log(json.dumps({'kernels': entries}))

@@ -27,7 +27,8 @@ torch.backends.cudnn.allow_tf32 = False
 DEVICE_ENV = 'FEABAS_TORCH_DEVICE'
 
 KERNELS = ('dog_filter', 'gaussian_blur', 'mesh_raster', 'peak_detect',
-           'lradon_patch', 'lradon_match', 'montage_blend', 'fem_operator')
+           'lradon_patch', 'lradon_match', 'montage_blend', 'fem_operator',
+           'subpixel_refine')
 
 
 def get_device(name=None):

@@ -8,8 +8,10 @@ cyclic shifts — exhaustive normalized-dot matching over rotations, geometric
 consistency filters (pairwise strain + affine RANSAC), and a template
 fallback. Produces coarse ``Match`` sets that seed the fine PMCC block
 matcher. The device routes run on the device that ``device.get_device``
-resolves (``ops/lradon``: three CUDA kernels on a card); the filters, the
-subpixel refinement and the host routes are numpy/scipy/cv2 as in the JAX
+resolves (``ops/lradon``: three CUDA kernels on a card), and the subpixel
+refinement of the coarse matches follows the feature stage there
+(``ops/subpixel``: one more kernel); the filters, the host routes and the
+subpixel refinement after host features are numpy/scipy/cv2 as in the JAX
 package, with the same seeded draws.
 
 Spans (``trace``): ``thumbnail.features`` (detect + describe),
@@ -19,7 +21,10 @@ strain filter), ``thumbnail.ransac``, ``thumbnail.subpixel``,
 Counters, of what the host already holds: ``thumbnail.keypoints`` (kept per
 image), ``thumbnail.match_rounds``, ``thumbnail.ransac_calls`` and
 ``thumbnail.ransac_trials`` (each affine fit's draws),
-``thumbnail.coarse_matches`` and ``thumbnail.refined_matches``.
+``thumbnail.coarse_matches``, ``thumbnail.refined_matches``, and
+``thumbnail.subpixel_calls``, ``.subpixel_on_device`` and
+``.subpixel_kept`` (the subpixel refinement's calls, those on the card,
+and the matches whose measured shift it wrote).
 """
 
 import numpy as np
@@ -485,7 +490,7 @@ def prepare_image(img, mask=None, device=None, **settings):
 
 @trace.spanned('thumbnail.subpixel')
 def refine_matches_subpixel(img0, img1, xy0, xy1, sigma=3.5, patch=32,
-                            search=6):
+                            search=6, device=None):
     """Subpixel refinement of matched keypoint pairs by local DoG
     cross-correlation.
 
@@ -501,16 +506,25 @@ def refine_matches_subpixel(img0, img1, xy0, xy1, sigma=3.5, patch=32,
     Returns xy0_refined (xy1 is kept; only the correspondence target
     moves). Pairs whose correlation peak is weak, on the search border,
     or out of image bounds keep their original coordinates.
+
+    With ``device`` a CUDA device (the one the feature stage ran on), both
+    DoGs and the per-match fit run on the card (``ops.filters``' DoG
+    kernel, then ``ops.subpixel``'s kernel): one upload of each image and
+    of the centres, one copy back. Otherwise (None, or the CPU) the host
+    computes it with scipy and numpy, as the JAX package does.
+
+    Counters: ``thumbnail.subpixel_calls``, ``thumbnail.subpixel_on_device``
+    (calls on the card) and ``thumbnail.subpixel_kept`` (matches whose
+    measured shift was written).
     """
-    from scipy import fft
-    img0f = common.masked_dog_filter(np.asarray(img0, np.float32),
-                                     float(sigma), signed=True)
-    img1f = common.masked_dog_filter(np.asarray(img1, np.float32),
-                                     float(sigma), signed=True)
+    dev = None if device is None else device_mod.get_device(device)
+    on_card = dev is not None and dev.type == 'cuda'
+    trace.count('thumbnail.subpixel_calls')
+    if on_card:
+        trace.count('thumbnail.subpixel_on_device')
     P, s = int(patch), int(search)
-    N = P + 2 * s
-    h0, w0 = img0f.shape
-    h1, w1 = img1f.shape
+    h0, w0 = np.shape(img0)[:2]
+    h1, w1 = np.shape(img1)[:2]
     c0 = np.rint(xy0).astype(np.int64)
     c1 = np.rint(xy1).astype(np.int64)
     ok = ((c0[:, 0] >= P // 2 + s) & (c0[:, 0] < w0 - P // 2 - s)
@@ -521,11 +535,56 @@ def refine_matches_subpixel(img0, img1, xy0, xy1, sigma=3.5, patch=32,
     idx = np.nonzero(ok)[0]
     if idx.size == 0:
         return out
-    p0 = np.empty((idx.size, N, N), np.float32)
-    p1 = np.zeros((idx.size, N, N), np.float32)
-    for k, i in enumerate(idx):
-        x0, y0 = c0[i]
-        x1, y1 = c1[i]
+    if on_card:
+        ii, dx, dy = _subpixel_shifts_card(img0, img1, c0[idx], c1[idx],
+                                           float(sigma), P, s, dev)
+    else:
+        ii, dx, dy = _subpixel_shifts_host(img0, img1, c0[idx], c1[idx],
+                                           float(sigma), P, s)
+    trace.count('thumbnail.subpixel_kept', ii.size)
+    # the measured correspondence is (c0 + d) <-> c1 (integer window
+    # centers); translate back to the caller's fractional xy1 anchor:
+    # content at xy1 = c1 + frac pairs with c0 + d + frac
+    g = idx[ii]
+    frac = np.asarray(xy1, np.float64)[g] - c1[g]
+    out[g, 0] = c0[g, 0] + dx + frac[:, 0]
+    out[g, 1] = c0[g, 1] + dy + frac[:, 1]
+    return out
+
+
+def _subpixel_shifts_card(img0, img1, c0, c1, sigma, P, s, dev):
+    """``_subpixel_shifts_host`` on the CUDA device ``dev``: (ii, dx, dy)
+    of the matches whose measured shift is kept, from the DoG kernel and
+    the subpixel kernel."""
+    import torch
+    from feabas_tpu_torch.ops import filters, subpixel
+
+    def dog(img):
+        t = torch.from_numpy(np.ascontiguousarray(img)).to(dev)
+        return filters.masked_dog_filter(t, sigma)
+    res = subpixel.subpixel_refine(dog(img0), dog(img1), c0, c1, P,
+                                   s).cpu().numpy()
+    ii = np.nonzero(res[:, 2] > 0)[0]
+    return (ii, res[ii, 0].astype(np.float64),
+            res[ii, 1].astype(np.float64))
+
+
+def _subpixel_shifts_host(img0, img1, c0, c1, sigma, P, s):
+    """(ii, dx, dy): the rows of the in-bounds centres ``c0``, ``c1`` whose
+    correlation peak is strong and inside the lags, and their measured
+    shifts of c0's content, with scipy and numpy."""
+    from scipy import fft
+    img0f = common.masked_dog_filter(np.asarray(img0, np.float32),
+                                     sigma, signed=True)
+    img1f = common.masked_dog_filter(np.asarray(img1, np.float32),
+                                     sigma, signed=True)
+    N = P + 2 * s
+    n = c0.shape[0]
+    p0 = np.empty((n, N, N), np.float32)
+    p1 = np.zeros((n, N, N), np.float32)
+    for k in range(n):
+        x0, y0 = c0[k]
+        x1, y1 = c1[k]
         p0[k] = img0f[y0 - P // 2 - s:y0 + (P + 1) // 2 + s,
                       x0 - P // 2 - s:x0 + (P + 1) // 2 + s]
         p1[k, :P, :P] = img1f[y1 - P // 2:y1 + (P + 1) // 2,
@@ -534,18 +593,18 @@ def refine_matches_subpixel(img0, img1, xy0, xy1, sigma=3.5, patch=32,
     p1[:, :P, :P] -= p1[:, :P, :P].mean(axis=(1, 2), keepdims=True)
     C = fft.irfft2(fft.rfft2(p0) * np.conj(fft.rfft2(p1)), s=(N, N))
     C = C[:, :2 * s + 1, :2 * s + 1]          # valid lags only (no wrap)
-    flat = C.reshape(idx.size, -1)
+    flat = C.reshape(n, -1)
     arg = np.argmax(flat, axis=-1)
     py, px = np.divmod(arg, 2 * s + 1)
     # discard border peaks (no room to refine) and weak peaks
     interior = (px > 0) & (px < 2 * s) & (py > 0) & (py < 2 * s)
     e0 = np.sqrt((p0 ** 2).sum(axis=(1, 2)))
     e1 = np.sqrt((p1 ** 2).sum(axis=(1, 2)))
-    strong = flat[np.arange(idx.size), arg] > 0.1 * e0 * e1 * (P / N)
+    strong = flat[np.arange(n), arg] > 0.1 * e0 * e1 * (P / N)
     good = interior & strong
-    if not good.any():
-        return out
     ii = np.nonzero(good)[0]
+    if ii.size == 0:
+        return ii, np.zeros(0), np.zeros(0)
     K = ii.size
     # ---- subpixel: Lucas-Kanade gradient refinement around the integer
     # peak. The DoG-filtered correlation peak is several px wide here, so
@@ -599,16 +658,7 @@ def refine_matches_subpixel(img0, img1, xy0, xy1, sigma=3.5, patch=32,
         dyk = (a11 * by - a12 * bx) / det
         sub[:, 0] = np.clip(sub[:, 0] + dxk, -1.0, 1.0)
         sub[:, 1] = np.clip(sub[:, 1] + dyk, -1.0, 1.0)
-    dx = px[ii] + sub[:, 0] - s
-    dy = py[ii] + sub[:, 1] - s
-    # the measured correspondence is (c0 + d) <-> c1 (integer window
-    # centers); translate back to the caller's fractional xy1 anchor:
-    # content at xy1 = c1 + frac pairs with c0 + d + frac
-    g = idx[ii]
-    frac = np.asarray(xy1, np.float64)[g] - c1[g]
-    out[g, 0] = c0[g, 0] + dx + frac[:, 0]
-    out[g, 1] = c0[g, 1] + dy + frac[:, 1]
-    return out
+    return ii, px[ii] + sub[:, 0] - s, py[ii] + sub[:, 1] - s
 
 
 def match_two_thumbnails_LRadon(img0, img1, mask0=None, mask1=None,
@@ -762,7 +812,11 @@ def match_two_thumbnails_LRadon(img0, img1, mask0=None, mask1=None,
         return None
     if settings.get('refine_subpixel', True):
         sigma = (settings.get('detect_settings', {}) or {}).get('sigma', 3.5)
-        xy0 = refine_matches_subpixel(img0, img1, xy0, xy1, sigma=sigma)
+        # on the device the feature stage resolved, where its descriptors
+        # stay; the host where they were made on the host
+        xy0 = refine_matches_subpixel(
+            img0, img1, xy0, xy1, sigma=sigma,
+            device=kp0.des_dev.device if use_masked else None)
     trace.count('thumbnail.coarse_matches', xy0.shape[0])
     return Match(xy0, xy1, w, config.DEFAULT_AVG_DEFORM)
 
