@@ -116,52 +116,12 @@ def fft_batch():
 
 def device_render():
     """general_configs ``device.render``: route MeshRenderer crops through
-    the on-device rasterize+warp program (feabas_tpu_torch/ops/render.py) by
-    default; per-call ``device_render=`` kwargs override.
-
-    Values: ``false`` (host cv2 path), ``true`` (pure device),
-    ``hybrid`` (host AND device lanes share one work queue — throughput
-    is the SUM of both paths, never less than either), ``auto`` (the
-    shipped default: hybrid whenever an accelerator is attached)."""
+    the device engine (feabas_tpu_torch/ops/render.py); per-call
+    ``device_render=`` kwargs override. ``auto`` (the shipped default) is
+    the device engine on a CUDA device and the host cv2 path elsewhere
+    (``renderer.resolve_device_render``)."""
     dev = general_settings().get('device', {}) or {}
     return dev.get('render', 'auto')
-
-
-def render_group_cap():
-    """general_configs ``device.render_group_cap``: blocks per batched
-    device render dispatch; 'auto' -> link-probe-driven (1 on slow
-    tunnels, 4 on local links — see ops.render.resolve_group_cap)."""
-    dev = general_settings().get('device', {}) or {}
-    v = dev.get('render_group_cap', 'auto')
-    return v if isinstance(v, str) else int(v)
-
-
-def render_host_lanes():
-    """general_configs ``device.render_host_lanes``: host-path worker
-    threads in the hybrid render scheduler (cv2 is internally threaded,
-    so 1 lane already drives the host's cores)."""
-    dev = general_settings().get('device', {}) or {}
-    return max(1, int(dev.get('render_host_lanes', 1) or 1))
-
-
-def device_thumbnail():
-    """general_configs ``device.thumbnail``: run the thumbnail feature
-    pipeline (DoG detect, LRadon descriptors, match reduction) on the
-    device (feabas_tpu_torch/ops/lradon.py); per-call ``use_device=`` kwargs
-    override. 'auto' is the device: only an explicit false value takes the
-    host routes."""
-    dev = general_settings().get('device', {}) or {}
-    return dev.get('thumbnail', 'auto')
-
-
-def resolve_device_thumbnail(val=None):
-    """Map a device.thumbnail value onto a concrete route (see
-    :func:`device_thumbnail`)."""
-    if val is None:
-        val = device_thumbnail()
-    if isinstance(val, str) and val.strip().lower() == 'auto':
-        return True
-    return bool(val)
 
 
 def get_work_dir():

@@ -18,7 +18,8 @@ PyTorch after either, its blur through ``ops.dog.gaussian_blur``.
 
 ``DeviceRenderEngine`` is the host side: candidate selection, tables,
 source crops or a resident whole-section source, grouping of same-shape
-blocks into batches.
+blocks, taken in order, into batches (``_group_cap``: a rule of block
+size alone).
 """
 
 import ctypes
@@ -44,11 +45,9 @@ _SRC_ALIGN = 256
 _OUT_ALIGN = 512
 # sources at most this large stay device-resident across blocks
 WHOLE_SRC_CAP = 256 * 1024 * 1024
-# 'auto' group sizing targets this many output pixels per batch
+# a batch groups blocks until it covers this many output pixels
 _GROUP_TARGET_PIXELS = 1 << 20
 _GROUP_CAP_MAX = 16
-# batches in flight before the hybrid scheduler's device lane claims more
-_MAX_INFLIGHT = 3
 
 _OUT_KINDS = {'u8': (0, torch.uint8), 'u16': (1, torch.uint16),
               'f32': (2, torch.float32)}
@@ -56,22 +55,11 @@ _OUT_KINDS = {'u8': (0, torch.uint8), 'u16': (1, torch.uint16),
 _LIBS = {}
 
 
-def resolve_group_cap(flag=None, block_pixels=None):
-    """Blocks per batch. None defers to general_configs
-    ``device.render_group_cap``; 'auto' takes 1 on a slow host<->device
-    link and 4 otherwise, and batches small blocks until a batch covers
-    ~``_GROUP_TARGET_PIXELS`` output pixels."""
-    if flag is None:
-        from feabas_tpu_torch import config
-        flag = config.render_group_cap()
-    if isinstance(flag, str):
-        from feabas_tpu_torch.ops.link_probe import is_slow_link
-        cap = 1 if is_slow_link() else 4
-        if block_pixels:
-            floor = _GROUP_TARGET_PIXELS // max(int(block_pixels), 1)
-            cap = max(cap, min(floor, _GROUP_CAP_MAX))
-        return max(1, cap)
-    return max(1, int(flag))
+def _group_cap(block_pixels):
+    """Blocks per batch: 4, or more small blocks until a batch covers
+    ~``_GROUP_TARGET_PIXELS`` output pixels (at most ``_GROUP_CAP_MAX``)."""
+    return max(4, min(_GROUP_TARGET_PIXELS // max(int(block_pixels), 1),
+                      _GROUP_CAP_MAX))
 
 
 def _flat_len(h, w, n_mips):
@@ -598,27 +586,18 @@ class DeviceRenderEngine:
 
     def render_blocks(self, blocks, loader, fillval, out_dtype,
                       wts=None, shortcircuit=None, emit_mips=0,
-                      mip_blur=0.0, claim=None, group_cap=None,
-                      **crop_kwargs):
+                      mip_blur=0.0, **crop_kwargs):
         """Render output blocks [(x0, y0, x1, y1)] through the mesh.
 
         Returns [(array | None)] aligned with ``blocks``; None when the
         block has no mesh coverage. With ``emit_mips`` = k each covered
         result is a tuple (mip0, ..., mipk); blocks whose dims do not
         divide 2**k (or that pad) return mip0 only and the caller finishes
-        the chain. ``claim`` (callable -> block index or None) replaces
-        in-order iteration, so the hybrid host+device scheduler can feed
-        both lanes from one queue. ``group_cap`` overrides blocks per batch
-        (None -> config/link-probe auto).
+        the chain.
         """
         out_kind = _out_kind(out_dtype)
         if wts is None:
             wts = self._w
-        if group_cap is None:
-            # the raw flag ('auto' or int): 'auto' resolves per group key
-            # so the cap can scale with the block size
-            from feabas_tpu_torch import config
-            group_cap = config.render_group_cap()
         resident = None
         from feabas_tpu_torch.dal import StreamLoader
         if isinstance(loader, StreamLoader):
@@ -676,18 +655,9 @@ class DeviceRenderEngine:
                     mips.append(blk)
                 results[i] = tuple(mips) if emit_mips else mips[0]
 
-        # hybrid backpressure: a claimed block leaves the host lane's
-        # queue, so the device lane holds only what it can keep in flight
-        pace = None
-        if claim is not None:
-            def pace():
-                while len(launched) >= _MAX_INFLIGHT:
-                    consume(launched.pop(0))
-
         self._render_prepare_dispatch(
             blocks, loader, fillval, out_kind, wts, shortcircuit,
-            resident, prepared, pending, dispatch, crop_kwargs,
-            emit_mips, group_cap, claim, pace=pace)
+            resident, prepared, pending, dispatch, crop_kwargs, emit_mips)
         for key, idxs in pending.items():
             dispatch(key, idxs)
         for entry in launched:
@@ -697,35 +667,10 @@ class DeviceRenderEngine:
     def _render_prepare_dispatch(self, blocks, loader, fillval, out_kind,
                                  wts, shortcircuit, resident, prepared,
                                  pending, dispatch, crop_kwargs,
-                                 emit_mips=0, group_cap=1,
-                                 claim=None, pace=None):
+                                 emit_mips=0):
         """Host prep: per-block candidate selection, coefficient table,
-        source crop; groups dispatch as soon as they fill. ``pace`` (from
-        the hybrid scheduler) blocks until the device has room before the
-        next claim."""
-        if claim is None:
-            order = iter(range(len(blocks)))
-
-            def claim():
-                return next(order, None)
-
-        caps = {}
-
-        def cap_for(key):
-            c = caps.get(key)
-            if c is None:
-                c = resolve_group_cap(group_cap,
-                                      block_pixels=key[0] * key[1])
-                caps[key] = c
-            return c
-
-        while True:
-            if pace is not None:
-                pace()
-            i = claim()
-            if i is None:
-                break
-            bbox = blocks[i]
+        source crop; groups dispatch as soon as they fill."""
+        for i, bbox in enumerate(blocks):
             x0 = int(np.floor(bbox[0]))
             y0 = int(np.floor(bbox[1]))
             x1 = int(np.ceil(bbox[2]))
@@ -787,5 +732,5 @@ class DeviceRenderEngine:
             prepared[i] = (h, w, key, tab, src, cand)
             grp = pending.setdefault(key, [])
             grp.append(i)
-            if len(grp) >= cap_for(key):
+            if len(grp) >= _group_cap(key[0] * key[1]):
                 dispatch(key, pending.pop(key))

@@ -5,15 +5,15 @@ output pixels live in the mesh's MOVING world frame; each pixel finds its
 triangle (scanline rasterization of the deformed mesh), and the triangle's
 affine map sends it back to INITIAL-frame source coordinates, which are
 sampled bilinearly. The host path (rasterize, field, cv2 remap, affine
-short-circuit) is the JAX package's host code; the device and hybrid lanes
-render on a torch device through ``ops.render.DeviceRenderEngine`` (the
-mesh-raster kernel on CUDA) and ``ops.link_probe``. ``VolumeRenderer``
+short-circuit) is the JAX package's host code; the device path renders on
+a torch device through ``ops.render.DeviceRenderEngine`` (the mesh-raster
+kernel on CUDA). The compute device picks the path
+(``resolve_device_render``), then what the engine can take
+(``MeshRenderer._device_render_ok``). ``VolumeRenderer``
 renders aligned sections into a chunked volume (``dal.TensorStoreWriter``);
 it renders on the device in this process, and fans chunks out to process
 workers only on the host path.
 """
-
-import threading
 
 import numpy as np
 
@@ -42,13 +42,14 @@ def resolve_section_source(src):
 
 
 def resolve_device_render(flag, device):
-    """Resolve a per-call device_render flag against the compute device.
+    """Whether to render on the device engine: a per-call device_render
+    flag resolved against the compute device.
 
-    None defers to general_configs ``device.render``. Returns False (host
-    path), True (pure device) or 'hybrid' (host and device lanes drain one
-    work queue), as ``feabas_tpu.renderer.resolve_device_render`` does:
-    'auto' is 'hybrid' when ``device`` is a CUDA device and the host path
-    otherwise.
+    None defers to general_configs ``device.render``. None and 'auto' give
+    True on a CUDA device and False (the host path) elsewhere; 'hybrid',
+    a name of the JAX package's host-and-device lanes, reads as the device
+    engine, like 'true', 'on', 'device' and '1'; any other value is read as
+    a bool.
     """
     if flag is None:
         from feabas_tpu_torch import config
@@ -56,10 +57,8 @@ def resolve_device_render(flag, device):
     if isinstance(flag, str):
         f = flag.strip().lower()
         if f == 'auto':
-            return 'hybrid' if device.type == 'cuda' else False
-        if f == 'hybrid':
-            return 'hybrid'
-        return f in ('true', 'on', 'device', '1')
+            return device.type == 'cuda'
+        return f in ('hybrid', 'true', 'on', 'device', '1')
     return bool(flag)
 
 
@@ -489,17 +488,14 @@ class MeshRenderer:
                 self._tri_render_weight, colors=colors, device=self.device)
         return self._dev_engine
 
-    def _crop_device_multi(self, bboxes, loader, hybrid=False, **kwargs):
+    def _crop_device_multi(self, bboxes, loader, **kwargs):
         """Device render of several output bboxes in one dispatch wave
         (all block programs in flight before the first fetch, so uploads,
         compute and downloads pipeline through the host<->device link).
 
-        With ``hybrid``, a host lane (the cv2 path) and the device lane
-        drain one shared work queue — combined throughput is the sum of
-        both paths on any deployment (the work-stealing split adapts to
-        however fast each lane runs). With ``emit_mips`` = k (kwarg),
-        every bbox must be a single render block and each result is a
-        tuple (mip0, ..., mipk) — the fused render->mip pipeline.
+        With ``emit_mips`` = k (kwarg), every bbox must be a single render
+        block and each result is a tuple (mip0, ..., mipk) — the fused
+        render->mip pipeline.
         """
         eng = self._get_device_engine()
         thr = kwargs.get('render_weight_threshold', None)
@@ -537,22 +533,14 @@ class MeshRenderer:
         _managed = ('render_weight_threshold', 'fillval', 'dtype_out',
                     'block_size', 'return_empty', 'affine_approx_tol',
                     'interpolation', 'log_sigma', 'device_remap',
-                    'emit_mips', 'mip_blur', 'group_cap')
+                    'emit_mips', 'mip_blur')
         crop_kwargs = {k: v for k, v in kwargs.items() if k not in _managed}
-        if hybrid and len(flat) > 1:
-            res = self._render_hybrid(eng, flat, loader, fillval, dtype_out,
-                                      wts, sc, emit_mips, mip_blur,
-                                      crop_kwargs, kwargs)
-        else:
-            res = eng.render_blocks(flat, loader, float(fillval), dtype_out,
-                                    wts=wts, shortcircuit=sc,
-                                    emit_mips=emit_mips, mip_blur=mip_blur,
-                                    group_cap=kwargs.get('group_cap'),
-                                    **crop_kwargs)
-            if emit_mips:
-                res = [None if r is None else
-                       _complete_mip_tuple(r, emit_mips, mip_blur)
-                       for r in res]
+        res = eng.render_blocks(flat, loader, float(fillval), dtype_out,
+                                wts=wts, shortcircuit=sc, emit_mips=emit_mips,
+                                mip_blur=mip_blur, **crop_kwargs)
+        if emit_mips:
+            res = [None if r is None else
+                   _complete_mip_tuple(r, emit_mips, mip_blur) for r in res]
         out = []
         for ib, sl, blocks in per_bbox:
             parts = res[sl.start:sl.stop]
@@ -573,88 +561,14 @@ class MeshRenderer:
             out.append(imgt)
         return out
 
-    def _render_hybrid(self, eng, flat, loader, fillval, dtype_out, wts,
-                       sc, emit_mips, mip_blur, crop_kwargs, kwargs):
-        """Work-stealing host+device render of the flat block list: the
-        device lane claims blocks from the front of the queue, host lane
-        threads claim from the back and run the host path; whichever lane
-        is faster ends up doing more blocks. Over a slow link with a
-        blockwise source every block goes to the host lane."""
-        from feabas_tpu_torch import config as fconfig
-        from feabas_tpu_torch.ops import link_probe
-        n = len(flat)
-        results = [None] * n
-        host_kwargs = dict(kwargs)
-        host_kwargs['return_empty'] = True
-        for k in ('emit_mips', 'mip_blur', 'group_cap'):
-            host_kwargs.pop(k, None)
-
-        def host_block(i):
-            blk = self.crop(flat[i], image_loader=loader,
-                            device_render=False, **host_kwargs)
-            if blk is not None and emit_mips:
-                blk = _host_mip_tuple(blk, emit_mips, mip_blur)
-            results[i] = blk
-
-        if (not eng.source_can_reside(loader)
-                and link_probe.is_slow_link(
-                    link_probe.link_profile(device=self.device))):
-            for i in range(n):
-                host_block(i)
-            return results
-        state = {'lo': 0, 'hi': n}
-        lock = threading.Lock()
-
-        def claim_front():
-            with lock:
-                if state['lo'] >= state['hi']:
-                    return None
-                state['lo'] += 1
-                return state['lo'] - 1
-
-        def claim_back():
-            with lock:
-                if state['lo'] >= state['hi']:
-                    return None
-                state['hi'] -= 1
-                return state['hi']
-
-        def host_worker():
-            while True:
-                i = claim_back()
-                if i is None:
-                    return
-                host_block(i)
-
-        threads = [threading.Thread(target=host_worker, daemon=True)
-                   for _ in range(fconfig.render_host_lanes())]
-        for t in threads:
-            t.start()
-        try:
-            dev_out = eng.render_blocks(
-                flat, loader, float(fillval), dtype_out, wts=wts,
-                shortcircuit=sc, emit_mips=emit_mips, mip_blur=mip_blur,
-                group_cap=kwargs.get('group_cap'), claim=claim_front,
-                **crop_kwargs)
-        finally:
-            for t in threads:
-                t.join()
-        for i, v in enumerate(dev_out):
-            if v is not None:
-                results[i] = (_complete_mip_tuple(v, emit_mips, mip_blur)
-                              if emit_mips else v)
-        return results
-
     def crop(self, bbox, image_loader=None, **kwargs):
         """Render the output block covering bbox (reference: renderer.py:566)."""
         loader = image_loader or self._image_loader
         if loader is None:
             raise RuntimeError('no image loader linked')
-        mode = self._device_render_requested(kwargs)
-        if mode and self._device_render_ok(loader, kwargs):
-            return self._crop_device_multi([bbox], loader,
-                                           hybrid=(mode == 'hybrid'),
-                                           **kwargs)[0]
+        if (self._device_render_requested(kwargs)
+                and self._device_render_ok(loader, kwargs)):
+            return self._crop_device_multi([bbox], loader, **kwargs)[0]
         map_x, map_y, mask = self.crop_field(bbox, **kwargs)
         if not mask.any():
             if kwargs.get('return_empty', False):
@@ -691,11 +605,9 @@ class MeshRenderer:
         bboxes = list(bboxes)
         if not bboxes:
             return []
-        mode = self._device_render_requested(kwargs)
-        if mode and self._device_render_ok(loader, kwargs):
-            return self._crop_device_multi(bboxes, loader,
-                                           hybrid=(mode == 'hybrid'),
-                                           **kwargs)
+        if (self._device_render_requested(kwargs)
+                and self._device_render_ok(loader, kwargs)):
+            return self._crop_device_multi(bboxes, loader, **kwargs)
         fields = [self.crop_field(b, **kwargs) for b in bboxes]
         if len(fields) == 1:
             mx, my, mk = fields[0]
@@ -797,7 +709,7 @@ def render_whole_mesh(mesh, image_loader, prefix, **kwargs):
         bbox = (x0 + c * wd, y0 + r * ht, x0 + (c + 1) * wd, y0 + (r + 1) * ht)
         fname = prefix + pattern.format(ROW_IND=r + offset, COL_IND=c + offset)
         jobs.append((fname, bbox))
-    mode = resolve_device_render(kwargs.get('device_render', None), dev)
+    on_device = resolve_device_render(kwargs.get('device_render', None), dev)
     out = {}
 
     def emit(fname, bbox, blk):
@@ -814,7 +726,7 @@ def render_whole_mesh(mesh, image_loader, prefix, **kwargs):
         out[fname] = bbox
 
     loader_spec = None
-    if num_workers > 1 and len(jobs) > 1 and not mode:
+    if num_workers > 1 and len(jobs) > 1 and not on_device:
         try:
             loader_spec = image_loader.to_dict()
         except Exception:
@@ -831,8 +743,8 @@ def render_whole_mesh(mesh, image_loader, prefix, **kwargs):
             out.update(rendered)
         _write_mip_metadata(out, mip_dirs, image_loader)
         return out
-    if mode:
-        kwargs['device_render'] = mode      # resolved: don't re-consult config
+    if on_device:
+        kwargs['device_render'] = True      # resolved: don't re-consult config
         if emit_mips:
             kwargs['emit_mips'] = emit_mips
             kwargs['mip_blur'] = mip_blur

@@ -7,12 +7,13 @@ DoG extrema detection, local-Radon (LRadon) descriptors — beam integrals at
 cyclic shifts — exhaustive normalized-dot matching over rotations, geometric
 consistency filters (pairwise strain + affine RANSAC), and a template
 fallback. Produces coarse ``Match`` sets that seed the fine PMCC block
-matcher. The device routes run on the device that ``device.get_device``
-resolves (``ops/lradon``: three CUDA kernels on a card), and the subpixel
+matcher. Detection, description and descriptor matching run on the device
+that ``device.get_device`` resolves (``ops/lradon``: its plain PyTorch
+versions on the CPU, three CUDA kernels on a card), and the subpixel
 refinement of the coarse matches follows the feature stage there
-(``ops/subpixel``: one more kernel); the filters, the host routes and the
-subpixel refinement after host features are numpy/scipy/cv2 as in the JAX
-package, with the same seeded draws.
+(``ops/subpixel``: one more kernel). The filters, and the subpixel
+refinement of keypoints carried in without device descriptors, are
+numpy/scipy as in the JAX package, with the same seeded draws.
 
 Spans (``trace``): ``thumbnail.features`` (detect + describe),
 ``thumbnail.feature_match`` (a robustness round's descriptor match and
@@ -28,12 +29,12 @@ and the matches whose measured shift it wrote).
 """
 
 import numpy as np
-from scipy.ndimage import maximum_filter, uniform_filter1d
 
 from feabas_tpu_torch import common, config, trace
 from feabas_tpu_torch import constant as const
 from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch.common import Match
+from feabas_tpu_torch.ops import lradon
 from feabas_tpu_torch.spatial import fit_affine, apply_affine
 
 
@@ -113,142 +114,39 @@ class KeyPointMatches:
 
 
 def detect_extrema_log(img, mask=None, sigma=3.5, min_spacing=10,
-                       num_features=5000, use_device=None, device=None):
+                       num_features=5000, device=None):
     """DoG band-pass + local-maximum keypoints (reference:
     thumbnail.py:605). Returns a KeyPoints (both polarities kept).
 
-    With ``use_device`` (default: general_configs ``device.thumbnail``)
-    the whole detect stage — DoG, max-pool peaks, top-k, subpixel
-    quadratic fit — runs on the device and only the (k, 2) keypoint table
-    is fetched."""
-    use_device = config.resolve_device_thumbnail(use_device)
-    if use_device:
-        from feabas_tpu_torch.ops import lradon
-        xy, resp, iyx = lradon.detect_log_device(
-            img, mask=mask, sigma=sigma, min_spacing=min_spacing,
-            num_features=num_features, device=device)
-        kp = KeyPoints(xy, resp)
-        if mask is not None and np.asarray(mask).dtype != bool:
-            kp.class_id = np.asarray(mask)[iyx[:, 0],
-                                           iyx[:, 1]].astype(np.int32)
-        return kp
-    f = common.masked_dog_filter(np.asarray(img, np.float32), sigma,
-                                 mask=mask, signed=False)
-    size = max(int(round(min_spacing)), 3)
-    mx = maximum_filter(f, size=size, mode='nearest')
-    peaks = (f >= mx) & (f > 0)
-    if mask is not None:
-        peaks &= np.asarray(mask) > 0
-    yy, xx = np.nonzero(peaks)
-    resp = f[yy, xx]
-    if num_features and num_features > 0 and resp.size > num_features:
-        order = np.argsort(resp)[::-1][:num_features]
-        yy, xx, resp = yy[order], xx[order], resp[order]
-    # subpixel localization: 3x3 quadratic fit of the response around each
-    # interior peak. Integer keypoints quantize BOTH sides of a
-    # correspondence at +-0.5 px — the floor on thumbnail match accuracy
-    # (the reference's peak_local_max keeps integers; measured here this
-    # halves the median pair error)
-    h, w = f.shape
-    inner = (yy > 0) & (yy < h - 1) & (xx > 0) & (xx < w - 1)
-    xs = xx.astype(np.float64)
-    ys = yy.astype(np.float64)
-    if inner.any():
-        yi, xi = yy[inner], xx[inner]
-        cxx = f[yi, xi - 1] + f[yi, xi + 1] - 2 * f[yi, xi]
-        cyy = f[yi - 1, xi] + f[yi + 1, xi] - 2 * f[yi, xi]
-        ox = np.where(cxx < 0,
-                      (f[yi, xi - 1] - f[yi, xi + 1]) / (2 * cxx), 0.0)
-        oy = np.where(cyy < 0,
-                      (f[yi - 1, xi] - f[yi + 1, xi]) / (2 * cyy), 0.0)
-        xs[inner] += np.clip(ox, -0.5, 0.5)
-        ys[inner] += np.clip(oy, -0.5, 0.5)
-    kp = KeyPoints(np.stack([xs, ys], -1), resp)
+    The whole detect stage — DoG, max-pool peaks, top-k, subpixel
+    quadratic fit — runs on ``device`` (``ops.lradon.detect_log_device``)
+    and only the (k, 2) keypoint table is fetched."""
+    xy, resp, iyx = lradon.detect_log_device(
+        img, mask=mask, sigma=sigma, min_spacing=min_spacing,
+        num_features=num_features, device=device)
+    kp = KeyPoints(xy, resp)
     if mask is not None and np.asarray(mask).dtype != bool:
-        kp.class_id = np.asarray(mask)[yy, xx].astype(np.int32)
+        kp.class_id = np.asarray(mask)[iyx[:, 0], iyx[:, 1]].astype(np.int32)
     return kp
 
 
 def extract_LRadon_feature(img, kps, proj_num=6, beam_num=8, beam_wd=3,
-                           beam_radius=15, use_device=None, device=None,
-                           **kwargs):
+                           beam_radius=15, device=None, **kwargs):
     """Local Radon descriptors (reference: thumbnail.py:634).
 
     For each keypoint, a disk patch is integrated along ``proj_num`` beam
     orientations (a local Radon transform) and sampled at ``beam_num``
     smoothed offsets. Descriptors are L2-normalized per keypoint; rotation
     acts as a cyclic shift of the projection axis (with sign flip of the
-    offset axis after half a turn).
-
-    Implementation: instead of gathering an (N, P, D, D) stack of rotated
-    patches (O(N*P*D^2) random reads — the old hot spot), the WHOLE image
-    is rotated once per orientation, box-filtered along the beam axis, and
-    then only (N, P, B) points are sampled. The beam integral at offset o
-    for keypoint k under orientation t is
-        mean_s img(xy_k + R(t) @ (s, o))  =  (W_t *box_x D)(k'_x, k'_y + o)
-    where W_t(q) = img(R(t) @ (q - q0)) is the rotated canvas and
-    k' = R(-t) @ xy_k + q0 (bilinear rotation replaces nearest patch
-    sampling).
+    offset axis after half a turn). They are computed on ``device``
+    (``ops.lradon.lradon_descriptors_device``).
     """
-    import cv2
-    img = np.asarray(img, np.float32)
-    h, w = img.shape
-    n = kps.num_points
-    if n == 0:
-        kps.des = np.zeros((0, proj_num, beam_num), np.float32)
-        return kps
-    use_device = config.resolve_device_thumbnail(use_device)
-    if use_device:
-        from feabas_tpu_torch.ops import lradon
-        des, _ = lradon.lradon_descriptors_device(
-            img, kps.xy, proj_num=proj_num, beam_num=beam_num,
-            beam_wd=beam_wd, beam_radius=beam_radius, device=device)
-        # fetched to host (K*P*B f32, ~1 MB at 5k keypoints) so the
-        # robustness loop's per-round keypoint slicing works unchanged
-        kps.des = des.cpu().numpy()[:n]
-        return kps
-    r = float(beam_radius)
-    D = 2 * int(round(r)) + 1        # beam-integral box width (odd int)
-    ax = np.linspace(-r, r, D)       # offsets honor a fractional radius
-    idx = np.linspace(0, D - 1, beam_num).round().astype(np.int64)
-    offs = ax[idx]                                            # (B,)
-    thetas = np.arange(proj_num) * np.pi / proj_num
-    margin = int(np.ceil(r)) + 2
-    corners = np.array([[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1]],
-                       np.float64)
-    des = np.empty((n, proj_num, beam_num), np.float32)
-    xy = kps.xy.astype(np.float64)
-    for ti, t in enumerate(thetas):
-        c, s = np.cos(t), np.sin(t)
-        Rinv = np.array([[c, -s], [s, c]])                    # R(-t)
-        cc = corners @ Rinv.T
-        q0 = -cc.min(axis=0) + margin
-        wc = int(np.ceil(cc[:, 0].max() - cc[:, 0].min())) + 2 * margin + 1
-        hc = int(np.ceil(cc[:, 1].max() - cc[:, 1].min())) + 2 * margin + 1
-        M = np.concatenate([Rinv, q0[:, None]], axis=1).astype(np.float64)
-        W = cv2.warpAffine(img, M, (wc, hc), flags=cv2.INTER_LINEAR,
-                           borderMode=cv2.BORDER_REPLICATE)
-        # beam integral along canvas x, offset smoothing along canvas y
-        W = cv2.blur(W, (D, 1), borderType=cv2.BORDER_REPLICATE)
-        if int(beam_wd) > 1:
-            W = cv2.blur(W, (1, int(beam_wd)),
-                         borderType=cv2.BORDER_REPLICATE)
-        kq = xy @ Rinv.T + q0                                 # (N, 2)
-        px = kq[:, 0]
-        py = kq[:, 1:2] + offs[None, :]                       # (N, B)
-        x0 = np.clip(np.floor(px).astype(np.int64), 0, wc - 2)
-        y0 = np.clip(np.floor(py).astype(np.int64), 0, hc - 2)
-        fx = np.clip(px - x0, 0.0, 1.0)[:, None]
-        fy = np.clip(py - y0, 0.0, 1.0)
-        x0 = x0[:, None]
-        des[:, ti, :] = ((W[y0, x0] * (1 - fy) + W[y0 + 1, x0] * fy)
-                         * (1 - fx)
-                         + (W[y0, x0 + 1] * (1 - fy)
-                            + W[y0 + 1, x0 + 1] * fy) * fx)
-    des -= des.mean(axis=(1, 2), keepdims=True)
-    nrm = np.linalg.norm(des.reshape(n, -1), axis=-1, keepdims=True)
-    des /= np.clip(nrm, 1e-6, None)[:, None]
-    kps.des = des
+    des, _ = lradon.lradon_descriptors_device(
+        img, kps.xy, proj_num=proj_num, beam_num=beam_num, beam_wd=beam_wd,
+        beam_radius=beam_radius, device=device)
+    # fetched to host (K*P*B f32, ~1 MB at 5k keypoints) so the
+    # robustness loop's per-round keypoint slicing works unchanged
+    kps.des = des.cpu().numpy()[:kps.num_points]
     return kps
 
 
@@ -263,7 +161,6 @@ def match_LRadon_feature(kps0, kps1, exhaustive=True, conf_thresh=0.5,
     if kps0.num_points == 0 or kps1.num_points == 0:
         return (np.zeros(0, int), np.zeros(0, int), np.zeros(0), 0)
     import torch
-    from feabas_tpu_torch.ops import lradon
     dev = device_mod.get_device(device)
     n0 = kps0.num_points
     n1 = kps1.num_points
@@ -442,17 +339,18 @@ def verify_match_elastic(xy0, xy1, weight, settled, img_shape0, img_shape1,
     return keep
 
 
-def _device_flags(settings):
-    """Resolve the detect/extract use_device flags (None -> config)."""
-    detect = dict(settings.get('detect_settings', {}) or {})
-    extract = dict(settings.get('extract_settings', {}) or {})
-    ud = config.resolve_device_thumbnail(detect.get('use_device', None))
-    ue = config.resolve_device_thumbnail(extract.get('use_device', None))
-    return ud, ue, detect, extract
-
-
 _DETECT_KEYS = ('sigma', 'min_spacing', 'num_features')
 _EXTRACT_KEYS = ('proj_num', 'beam_num', 'beam_wd', 'beam_radius')
+
+
+def _feature_kwargs(settings):
+    """The feature calls' keywords from ``detect_settings`` and
+    ``extract_settings``; other keys there are ignored."""
+    detect = settings.get('detect_settings', {}) or {}
+    extract = settings.get('extract_settings', {}) or {}
+    kw = {k: detect[k] for k in _DETECT_KEYS if k in detect}
+    kw.update({k: extract[k] for k in _EXTRACT_KEYS if k in extract})
+    return kw
 
 
 def _kp_from_device_features(feat, mask):
@@ -469,21 +367,12 @@ def prepare_image(img, mask=None, device=None, **settings):
     """Detect + describe in one call; cached by callers
     (reference: thumbnail.py:279).
 
-    When both detect and extract route to the device, the whole feature
-    extraction stays there (ops/lradon.features_device) and the
-    descriptors additionally stay device-resident for masked re-matching
-    across robustness rounds."""
-    ud, ue, detect, extract = _device_flags(settings)
-    if ud and ue:
-        from feabas_tpu_torch.ops import lradon
-        kw = {k: detect[k] for k in _DETECT_KEYS if k in detect}
-        kw.update({k: extract[k] for k in _EXTRACT_KEYS if k in extract})
-        feat = lradon.features_device(img, mask=mask, device=device, **kw)
-        kp = _kp_from_device_features(feat, mask)
-    else:
-        kp = detect_extrema_log(img, mask=mask, device=device, **detect)
-        kp = extract_LRadon_feature(np.asarray(img, np.float32), kp,
-                                    device=device, **extract)
+    The whole feature extraction stays on the device
+    (ops/lradon.features_device), and the descriptors stay resident there
+    for masked re-matching across robustness rounds."""
+    feat = lradon.features_device(img, mask=mask, device=device,
+                                  **_feature_kwargs(settings))
+    kp = _kp_from_device_features(feat, mask)
     trace.count('thumbnail.keypoints', kp.num_points)
     return kp
 
@@ -686,20 +575,15 @@ def match_two_thumbnails_LRadon(img0, img1, mask0=None, mask1=None,
     kp1 = settings.get('kps1')
     pre_match = None
     if kp0 is None and kp1 is None:
-        ud, ue, detect, extract = _device_flags(settings)
-        if ud and ue:
-            # whole pair prep + round-0 match stay on the device
-            from feabas_tpu_torch.ops import lradon
-            kw = {k: detect[k] for k in _DETECT_KEYS if k in detect}
-            kw.update({k: extract[k] for k in _EXTRACT_KEYS if k in extract})
-            f0, f1, pre_match = lradon.pair_features_device(
-                img0, img1, mask0=mask0, mask1=mask1,
-                exhaustive=matching.get('exhaustive', True),
-                conf_thresh=matching.get('conf_thresh', 0.3), device=device,
-                **kw)
-            kp0 = _kp_from_device_features(f0, mask0)
-            kp1 = _kp_from_device_features(f1, mask1)
-            trace.count('thumbnail.keypoints', kp0.num_points + kp1.num_points)
+        # whole pair prep + round-0 match stay on the device
+        f0, f1, pre_match = lradon.pair_features_device(
+            img0, img1, mask0=mask0, mask1=mask1,
+            exhaustive=matching.get('exhaustive', True),
+            conf_thresh=matching.get('conf_thresh', 0.3), device=device,
+            **_feature_kwargs(settings))
+        kp0 = _kp_from_device_features(f0, mask0)
+        kp1 = _kp_from_device_features(f1, mask1)
+        trace.count('thumbnail.keypoints', kp0.num_points + kp1.num_points)
     if kp0 is None:
         kp0 = prepare_image(img0, mask=mask0, device=device, **settings)
     if kp1 is None:
@@ -723,7 +607,6 @@ def match_two_thumbnails_LRadon(img0, img1, mask0=None, mask1=None,
                 if _round == 0 and pre_match is not None:
                     i0, i1, conf, rot = pre_match
                 else:
-                    from feabas_tpu_torch.ops import lradon
                     m0 = np.zeros(kp0.des_dev.shape[0], bool)
                     m0[:kp0.num_points] = active0
                     m1 = np.zeros(kp1.des_dev.shape[0], bool)
@@ -812,8 +695,8 @@ def match_two_thumbnails_LRadon(img0, img1, mask0=None, mask1=None,
         return None
     if settings.get('refine_subpixel', True):
         sigma = (settings.get('detect_settings', {}) or {}).get('sigma', 3.5)
-        # on the device the feature stage resolved, where its descriptors
-        # stay; the host where they were made on the host
+        # on the device the feature stage ran on, where its descriptors
+        # stay; on the host for keypoints carried in without them
         xy0 = refine_matches_subpixel(
             img0, img1, xy0, xy1, sigma=sigma,
             device=kp0.des_dev.device if use_masked else None)

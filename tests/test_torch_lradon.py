@@ -417,8 +417,8 @@ def test_features_device_equals_the_staged_chain_and_jax(workdir):
     mask = _int_mask(img.shape)
     kw = dict(sigma=3.0, min_spacing=8, num_features=400)
     feat = lradon.features_device(img, mask=mask, **kw)
-    kp = pthumb.detect_extrema_log(img, mask=mask, use_device=True, **kw)
-    kp = pthumb.extract_LRadon_feature(img, kp, use_device=True)
+    kp = pthumb.detect_extrema_log(img, mask=mask, **kw)
+    kp = pthumb.extract_LRadon_feature(img, kp)
     assert feat['n'] == kp.num_points == 400
     assert np.abs(feat['xy'] - kp.xy).max() < 1e-5
     assert np.array_equal(feat['cls'], kp.class_id)
@@ -456,9 +456,7 @@ def test_pair_features_equal_the_staged_chain_and_jax(workdir):
 
 def test_prepare_image_sets_the_device_tensor_and_pickling_drops_it(workdir):
     img = _section(seed=43)[:256, :256]
-    kp = pthumb.prepare_image(img, detect_settings={'min_spacing': 10,
-                                                    'use_device': True},
-                              extract_settings={'use_device': True})
+    kp = pthumb.prepare_image(img, detect_settings={'min_spacing': 10})
     assert isinstance(kp.des_dev, torch.Tensor)
     assert kp.des.shape[0] == kp.num_points
     assert kp.des_dev.shape[0] == lradon._kd_bucket(kp.num_points, 5000)

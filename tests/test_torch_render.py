@@ -1,7 +1,8 @@
 """The port's mesh raster (ops/render.py) and MeshRenderer against the JAX
 package: the plain raster against ``_raster_core`` / ``_raster_core_cells``
 (bit-equal state, u8 within 1 LSB), device crops against the host cv2
-crop, the hybrid lane, and the render-lane resolution. The port receives
+crop, 'hybrid' read as the device engine, and the route's resolution by
+the compute device. The port receives
 its own meshes (rebuilt from the JAX meshes' init dicts through ``state``)
 and its own loaders."""
 
@@ -30,7 +31,7 @@ from feabas_tpu_torch import config as pconfig
 from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch import state
 from feabas_tpu_torch.dal import StaticImageLoader, StreamLoader
-from feabas_tpu_torch.ops import link_probe, render
+from feabas_tpu_torch.ops import render
 from feabas_tpu_torch.renderer import MeshRenderer, resolve_device_render
 
 # the tier-1 run shares the cores among several pytest workers
@@ -262,9 +263,10 @@ def test_device_crops_match_host(workdir, tmp_path):
              max_mismatch_frac=0.02)
 
 
-def test_render_blocks_matches_jax_engine(workdir):
+@pytest.mark.parametrize('cap', [1, 4])
+def test_render_blocks_matches_jax_engine(cap, workdir, monkeypatch):
     """The port's engine against the JAX engine, over flat and cells
-    blocks, batches of 1 and 4, and the fused mips."""
+    blocks, batches of ``cap`` blocks, and the fused mips."""
     m = _smooth_mesh(N=768, mesh_size=40)
     img = _world(N=1024)
     jloader, loader = JStreamLoader(img), StreamLoader(img)
@@ -273,66 +275,65 @@ def test_render_blocks_matches_jax_engine(workdir):
     jr = HostRenderer.from_mesh(m, image_loader=jloader)._get_device_engine()
     pr = MeshRenderer.from_mesh(_p(m), image_loader=loader,
                                 device='cpu')._get_device_engine()
-    for cap in (1, 4):
-        want = jr.render_blocks(blocks, jloader, 0, np.uint8, group_cap=cap,
-                                emit_mips=1)
-        got = pr.render_blocks(blocks, loader, 0, np.uint8, group_cap=cap,
-                               emit_mips=1)
-        for g, w in zip(got, want):
-            assert (g is None) == (w is None)
-            if g is not None:
-                for a, b in zip(g, w):
-                    assert a.shape == b.shape
-                    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+    monkeypatch.setattr(render, '_group_cap', lambda block_pixels: cap)
+    want = jr.render_blocks(blocks, jloader, 0, np.uint8, group_cap=cap,
+                            emit_mips=1)
+    got = pr.render_blocks(blocks, loader, 0, np.uint8, emit_mips=1)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            for a, b in zip(g, w):
+                assert a.shape == b.shape
+                assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
 
 
-def test_hybrid_render_matches_host(workdir):
+def test_hybrid_reads_as_the_card_and_starts_no_host_lane(workdir,
+                                                          monkeypatch):
+    """'hybrid' renders 16 tiles on the device engine alone: no block
+    takes the host path, and the output is the device_render=True output,
+    bit for bit."""
     m = _p(_smooth_mesh(N=1024, mesh_size=128))
     r = MeshRenderer.from_mesh(m, image_loader=StreamLoader(_world(N=1024)),
                                device='cpu')
     tiles = [(x, y, x + 256, y + 256)
              for y in range(0, 1024, 256) for x in range(0, 1024, 256)]
-    host = r.crop_multiple(tiles, return_empty=True, device_render=False)
+    host_calls = []
+
+    def no_host_path(*a, **k):
+        host_calls.append(a)
+        raise AssertionError('the host path rendered a block')
+    monkeypatch.setattr(MeshRenderer, 'crop_field', no_host_path)
+    dev = r.crop_multiple(tiles, return_empty=True, device_render=True)
     hyb = r.crop_multiple(tiles, return_empty=True, device_render='hybrid')
-    assert len(hyb) == len(host)
-    for hb, yb in zip(host, hyb):
-        assert (hb is None) == (yb is None)
-        if hb is not None:
-            _compare(hb, yb)
+    assert host_calls == []
+    assert len(hyb) == len(dev) == 16
+    for db, hb in zip(dev, hyb):
+        assert db is not None and hb is not None
+        assert db.dtype == hb.dtype and np.array_equal(db, hb)
 
 
-def test_resolve_device_render_follows_the_jax_package(workdir):
-    """'auto' is the host path on the CPU and 'hybrid' on a CUDA device,
-    as feabas_tpu.renderer.resolve_device_render decides per backend;
-    'hybrid', 'true' and 'false' map as there."""
-    cuda = torch.device('cuda')
-    assert resolve_device_render('auto', CPU) is False
-    assert resolve_device_render('auto', cuda) == 'hybrid'
-    for dev in (CPU, cuda):
-        assert resolve_device_render('hybrid', dev) == 'hybrid'
-        assert resolve_device_render('true', dev) is True
-        assert resolve_device_render('false', dev) is False
-        assert resolve_device_render(True, dev) is True
-        assert resolve_device_render(False, dev) is False
-    # None reads general_configs device.render ('auto' by default)
-    assert resolve_device_render(None, cuda) == 'hybrid'
+@pytest.mark.parametrize('flag, on_cpu, on_cuda', [
+    (None, False, True), ('auto', False, True), ('hybrid', True, True),
+    ('true', True, True), ('false', False, False), (True, True, True),
+    (False, False, False)])
+def test_resolve_device_render_follows_the_compute_device(flag, on_cpu,
+                                                          on_cuda, workdir):
+    """'auto' (and None, which reads general_configs device.render,
+    'auto' by default) is the device engine on a CUDA device and the host
+    path elsewhere; 'hybrid' is the device engine on any device; every
+    answer is a bool."""
+    for dev, want in ((CPU, on_cpu), (torch.device('cuda'), on_cuda)):
+        got = resolve_device_render(flag, dev)
+        assert type(got) is bool and got is want
 
 
-def test_resolve_group_cap_follows_the_link_profile():
-    try:
-        link_probe.set_profile_for_testing(
-            {'platform': 'cuda', 'latency_s': 0.12,
-             'down_MBps': 40.0, 'up_MBps': 54.0})
-        assert render.resolve_group_cap('auto') == 1
-        assert render.resolve_group_cap('auto', block_pixels=128 * 128) == 16
-        assert render.resolve_group_cap('auto', block_pixels=2048 * 2048) == 1
-        link_probe.set_profile_for_testing(None)
-        assert link_probe.link_profile(device='cpu')['latency_s'] == 0.0
-        assert render.resolve_group_cap('auto') == 4
-        assert render.resolve_group_cap('auto', block_pixels=512 * 512) == 4
-        assert render.resolve_group_cap(2, block_pixels=128 * 128) == 2
-    finally:
-        link_probe.set_profile_for_testing(None)
+def test_resolve_group_cap_follows_the_block_size():
+    """At least 4 blocks a batch; small blocks batch up to ~1 Mpx, at
+    most 16."""
+    assert render._group_cap(128 * 128) == 16
+    assert render._group_cap(256 * 256) == 16
+    assert render._group_cap(512 * 512) == 4
+    assert render._group_cap(2048 * 2048) == 4
 
 
 # ------------------------------ the tile cull ------------------------------ #

@@ -188,12 +188,12 @@ def test_a_cuda_device_without_a_card_raises():
         thumbnail.refine_matches_subpixel(img, img, xy, xy, device='cuda')
 
 
-@pytest.mark.parametrize('use_device', [True, False])
-def test_the_matcher_refines_where_the_features_were_made(use_device,
+@pytest.mark.parametrize('made_here', [True, False])
+def test_the_matcher_refines_where_the_features_were_made(made_here,
                                                            monkeypatch):
-    """Features made on the device (the CPU here, by name) send the
-    refinement to that device; features made on the host send it to the
-    host route."""
+    """Features made here on the device (the CPU, by name) send the
+    refinement to that device; keypoints carried in without device
+    descriptors (``des_dev`` None) send it to the host route."""
     img0, img1 = _shifted_pair(13, 256, np.array([9.4, -5.2]))
     seen = []
     refine = thumbnail.refine_matches_subpixel
@@ -202,12 +202,16 @@ def test_the_matcher_refines_where_the_features_were_made(use_device,
         seen.append(k.get('device'))
         return refine(*a, **k)
     monkeypatch.setattr(thumbnail, 'refine_matches_subpixel', spy)
-    s = {'detect_settings': {'min_spacing': 12, 'num_features': 300,
-                             'use_device': use_device},
-         'extract_settings': {'use_device': use_device}, 'max_rounds': 1}
+    s = {'detect_settings': {'min_spacing': 12, 'num_features': 300},
+         'max_rounds': 1}
+    if not made_here:
+        for key in ('kps0', 'kps1'):
+            kp = thumbnail.prepare_image(img0 if key == 'kps0' else img1, **s)
+            kp.des_dev = None
+            s[key] = kp
     m = thumbnail.match_two_thumbnails_LRadon(img0, img1, **s)
     assert m is not None and len(seen) == 1
-    assert seen[0] == (torch.device('cpu') if use_device else None)
+    assert seen[0] == (torch.device('cpu') if made_here else None)
 
 
 # ---------------------- the benchmark's two readers ---------------------- #

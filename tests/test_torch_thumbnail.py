@@ -1,6 +1,6 @@
 """The port's thumbnail slice against the JAX package: config accessors,
 the keypoint containers and match filters on the same keypoints (carried
-across by ``state``), the host routes, the pair matcher and the two align
+across by ``state``), the subpixel fit, the pair matcher and the two align
 modes on the same images, the thumbnail and mask writers, and the whole
 thumbnail CLI on copies of one work dir."""
 
@@ -19,7 +19,6 @@ from feabas_tpu_torch import config as pconfig
 from feabas_tpu_torch import mipmap as pmipmap
 from feabas_tpu_torch import state
 from feabas_tpu_torch import thumbnail as pthumb
-from feabas_tpu_torch.ops import link_probe
 from synthutil import texture
 
 # the tier-1 run shares the cores among several pytest workers
@@ -74,28 +73,6 @@ def test_thumbnail_config_accessors_match_jax(workdir):
         {'sigma': 3.5, 'min_spacing': 10, 'num_features': 5000}
     assert pconfig.thumbnail_resolution() == jconfig.thumbnail_resolution() \
         == 32.0
-    assert pconfig.device_thumbnail() == jconfig.device_thumbnail() == 'auto'
-
-
-def test_resolve_device_thumbnail_auto_is_the_device(workdir):
-    """'auto' never takes the host routes, whatever the link probe reads:
-    only an explicit false value does."""
-    assert pconfig.resolve_device_thumbnail(None) is True
-    assert pconfig.resolve_device_thumbnail(False) is False
-    assert pconfig.resolve_device_thumbnail(0) is False
-    assert pconfig.resolve_device_thumbnail(True) is True
-    slow = {'platform': 'cuda', 'latency_s': 0.02, 'down_MBps': 50.0,
-            'up_MBps': 50.0}
-    try:
-        link_probe.set_profile_for_testing(slow)
-        assert link_probe.is_slow_link()
-        assert pconfig.resolve_device_thumbnail('auto') is True
-        assert pconfig.resolve_device_thumbnail('Auto') is True
-        assert pthumb._device_flags({})[:2] == (True, True)
-        assert pthumb._device_flags(
-            {'detect_settings': {'use_device': False}})[:2] == (False, True)
-    finally:
-        link_probe.set_profile_for_testing(None)
 
 
 # ------------------------ containers and filters ------------------------ #
@@ -190,28 +167,10 @@ def test_verify_match_elastic_matches_jax(rng):
     assert keep_p[4:].mean() > 0.8 and not keep_p[:4].any()
 
 
-# ------------------------------ host routes ------------------------------ #
+# --------------------------- features, subpixel --------------------------- #
 
-def test_host_routes_equal_the_jax_host_routes(rng, workdir):
-    """use_device=False: scipy detection and the cv2 canvas descriptors,
-    bit for bit; the subpixel refinement too."""
+def test_no_keypoints_give_no_descriptors(rng):
     img = texture(rng, 200, 200, blur=3)
-    mask = np.zeros((200, 200), np.uint8)
-    mask[:, :120] = 1
-    mask[:, 130:] = 3
-    for m in (None, mask, mask > 0):
-        kj = jthumb.detect_extrema_log(img, mask=m, sigma=3.0, min_spacing=8,
-                                       num_features=150, use_device=False)
-        kp = pthumb.detect_extrema_log(img, mask=m, sigma=3.0, min_spacing=8,
-                                       num_features=150, use_device=False)
-        assert kp.num_points == kj.num_points > 40
-        assert np.array_equal(kp.xy, kj.xy)
-        assert np.array_equal(kp.response, kj.response)
-        assert np.array_equal(kp.class_id, kj.class_id)
-    jthumb.extract_LRadon_feature(img, kj, use_device=False)
-    pthumb.extract_LRadon_feature(img, kp, use_device=False)
-    assert kp.des.shape == (kp.num_points, 6, 8)
-    assert np.array_equal(kp.des, kj.des)
     empty = pthumb.extract_LRadon_feature(img, pthumb.KeyPoints(np.zeros((0, 2))))
     assert empty.des.shape == (0, 6, 8)
 
@@ -259,9 +218,11 @@ def test_match_two_thumbnails_device_route_matches_jax(workdir):
     the same result from prepared keypoints."""
     t = np.array([11.0, -7.5])
     img0, img1 = _shifted_pair(47, 384, t)
-    s = {'detect_settings': {'min_spacing': 12, 'use_device': True},
-         'extract_settings': {'use_device': True}, 'max_rounds': 2}
-    mj = jthumb.match_two_thumbnails_LRadon(img0, img1, **s)
+    s = {'detect_settings': {'min_spacing': 12}, 'max_rounds': 2}
+    # the JAX package takes its device route by its use_device flags
+    js = {'detect_settings': {'min_spacing': 12, 'use_device': True},
+          'extract_settings': {'use_device': True}, 'max_rounds': 2}
+    mj = jthumb.match_two_thumbnails_LRadon(img0, img1, **js)
     mp = pthumb.match_two_thumbnails_LRadon(img0, img1, **s)
     assert mp is not None and abs(mp.xy0.shape[0] - mj.xy0.shape[0]) <= 2
     dj = np.median(mj.xy0 - mj.xy1, axis=0)
