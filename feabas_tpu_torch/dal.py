@@ -10,6 +10,11 @@ The port's copy of ``feabas_tpu/dal.py``, cut to what the port reaches.
 """
 
 import json
+import multiprocessing
+import os
+import threading
+from collections import deque
+from concurrent import futures
 
 import cv2
 import numpy as np
@@ -28,6 +33,50 @@ def _count_lookup(hit):
     trace.count('loader.cache_lookups')
     if hit:
         trace.count('loader.cache_hits')
+
+
+_POOL = None
+_POOL_LOCK = threading.Lock()
+
+
+def _cores():
+    return len(os.sched_getaffinity(0))
+
+
+def decode_pool():
+    """The process's one thread pool of tile decodes, made at first use,
+    one thread a core the process may run on. ``cv2.imread`` releases the
+    GIL, so the threads decode side by side; every loader and every
+    thread of a threaded fan-out shares the pool, so the process never
+    decodes on more threads than it has cores. A task on the pool never
+    submits to it."""
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is None:
+            _POOL = futures.ThreadPoolExecutor(
+                max_workers=_cores(), thread_name_prefix='feabas-decode')
+        return _POOL
+
+
+def _decode_width(reads):
+    """Tiles a crop decodes at once: as many as it has to read, up to the
+    cores; one in a process that multiprocessing started, whose siblings
+    already hold the cores."""
+    if reads < 2 or multiprocessing.parent_process() is not None:
+        return 1
+    return min(reads, _cores())
+
+
+def _paste_block(out, blk, at):
+    """Paste a tile's block at (row, col) ``at`` of out; False where the
+    block is empty. The image on disk may be smaller than its recorded
+    tile bbox (ragged edge tiles): only what was read is pasted, the rest
+    keeps the fill value."""
+    if blk.size == 0:
+        return False
+    bh, bw = blk.shape[:2]
+    out[at[0]:at[0] + bh, at[1]:at[1] + bw] = blk
+    return True
 
 
 def _file_meta(path):
@@ -176,19 +225,26 @@ class AbstractImageLoader:
                 f.write(s)
         return s
 
-    def _read_image(self, path):
+    def _cached(self, key):
         # atomic get: a concurrent insert+trim may evict between a
         # membership check and the indexing (threaded mip fan-out)
-        img = self._cache.get(path)
-        _count_lookup(img is not None)
-        if img is not None:
-            return img
+        val = self._cache.get(key)
+        _count_lookup(val is not None)
+        return val
+
+    def _decode(self, path):
+        """Decode an image file with the transfer function and the
+        preprocessing applied."""
         img = common.imread(path, flag=cv2.IMREAD_UNCHANGED)
         if img is None:
             raise RuntimeError(f'failed to read {path}')
-        img = self._apply_tf(img, path)
-        img = self.preprocess(img)
-        self._cache[path] = img
+        return self.preprocess(self._apply_tf(img, path))
+
+    def _read_image(self, path):
+        img = self._cached(path)
+        if img is None:
+            img = self._decode(path)
+            self._cache[path] = img
         return img
 
     def _blank(self, bbox, fillval=None):
@@ -241,21 +297,23 @@ class StaticImageLoader(AbstractImageLoader):
                 (bw, h - bh, w, h),          # bottom
                 (w - bw, 0, w, h - bh)]      # right
 
-    def _crop_tile_local(self, fileid, lb):
-        """Crop a tile in its local pixel frame with border-band caching.
-        lb: integer local bbox (x0, y0, x1, y1), already clipped."""
-        path = self.abs_path(fileid)
-        if self._cache_border_margin <= 0:
-            img = self._read_image(path)
-            return img[lb[1]:lb[3], lb[0]:lb[2]]
+    def _tile_bands(self, fileid):
         tw = int(round(self.bboxes[fileid, 2] - self.bboxes[fileid, 0]))
         th = int(round(self.bboxes[fileid, 3] - self.bboxes[fileid, 1]))
-        blocks = self._border_blocks(th, tw)
-        # fully inside cached bands? assemble from cache
+        return self._border_blocks(th, tw)
+
+    def _cached_tile_local(self, fileid, lb):
+        """Tile fileid's integer local bbox lb (x0, y0, x1, y1), already
+        clipped, as the cache holds it: from the whole image, or with
+        border-band caching assembled from the bands when they cover lb;
+        else None."""
+        path = self.abs_path(fileid)
+        if self._cache_border_margin <= 0:
+            img = self._cached(path)
+            return None if img is None else img[lb[1]:lb[3], lb[0]:lb[2]]
         covering = []
-        for bi, bb in enumerate(blocks):
-            blk = self._cache.get((path, bi))  # atomic vs concurrent evict
-            _count_lookup(blk is not None)
+        for bi, bb in enumerate(self._tile_bands(fileid)):
+            blk = self._cached((path, bi))
             if blk is not None:
                 covering.append((bb, blk))
         out = np.empty((lb[3] - lb[1], lb[2] - lb[0]), self.dtype) \
@@ -276,20 +334,21 @@ class StaticImageLoader(AbstractImageLoader):
                 cx0 - lb[0]:cx0 - lb[0] + sw] = sblk
             filled[cy0 - lb[1]:cy0 - lb[1] + sh,
                    cx0 - lb[0]:cx0 - lb[0] + sw] = True
-        if filled.all():
-            return out
-        # cache miss: read the file once, populate the border bands, but
-        # do NOT cache the full image
-        img = common.imread(path, flag=cv2.IMREAD_UNCHANGED)
-        if img is None:
-            raise RuntimeError(f'failed to read {path}')
-        img = self._apply_tf(img, path)
-        img = self.preprocess(img)
-        for bi, bb in enumerate(blocks):
-            key = (path, bi)
-            if key not in self._cache:
-                self._cache[key] = np.ascontiguousarray(
-                    img[bb[1]:bb[3], bb[0]:bb[2]])
+        return out if filled.all() else None
+
+    def _decode_tile_local(self, fileid, lb):
+        """Decode tile fileid, cache it (whole, or with border-band caching
+        its four bands alone) and crop lb from it."""
+        path = self.abs_path(fileid)
+        img = self._decode(path)
+        if self._cache_border_margin <= 0:
+            self._cache[path] = img
+        else:
+            for bi, bb in enumerate(self._tile_bands(fileid)):
+                key = (path, bi)
+                if key not in self._cache:
+                    self._cache[key] = np.ascontiguousarray(
+                        img[bb[1]:bb[3], bb[0]:bb[2]])
         return img[lb[1]:lb[3], lb[0]:lb[2]]
 
     def _probe_meta(self, kwargs):
@@ -379,8 +438,9 @@ class StaticImageLoader(AbstractImageLoader):
             self._index = GridIndex(self.bboxes)
         return self._index
 
-    def _paste_tile(self, out, bbox, fileid, return_empty):
-        """Paste tile fileid's intersection with world bbox into out."""
+    def _tile_window(self, bbox, fileid):
+        """(local bbox, (row, col) in the crop) of tile fileid's overlap
+        with world bbox, or None where they do not overlap."""
         tb = self.bboxes[fileid]
         x0, y0 = int(round(bbox[0])), int(round(bbox[1]))
         # derive the far corner from the SAME integerization ``_blank``
@@ -395,31 +455,68 @@ class StaticImageLoader(AbstractImageLoader):
         cx0, cx1 = max(x0, ix0), min(x1, ix1)
         cy0, cy1 = max(y0, iy0), min(y1, iy1)
         if cx0 >= cx1 or cy0 >= cy1:
-            return None if return_empty else out
-        blk = self._crop_tile_local(
-            int(fileid), (cx0 - ix0, cy0 - iy0, cx1 - ix0, cy1 - iy0))
-        # the image on disk may be smaller than the recorded tile bbox
-        # (ragged edge tiles): paste only what was actually read, leave
-        # the rest at the blank fill value
-        if blk.size == 0:
-            return None if return_empty else out
-        bh, bw = blk.shape[:2]
-        out[cy0 - y0:cy0 - y0 + bh, cx0 - x0:cx0 - x0 + bw] = blk
-        return out
+            return None
+        return ((cx0 - ix0, cy0 - iy0, cx1 - ix0, cy1 - iy0),
+                (cy0 - y0, cx0 - x0))
 
     def crop(self, bbox, fileid=None, return_empty=False, **kwargs):
-        """Crop the mosaic (or one indexed tile when fileid given)."""
+        """Crop the mosaic (or one indexed tile when fileid given).
+
+        The tiles are pasted in the file index's order (a later tile wins
+        where tiles overlap). Where two or more of them are not in the
+        cache, they decode on the process's decode pool while the calling
+        thread pastes, no more of them in flight than the crop's decode
+        width."""
         out = self._blank(bbox, kwargs.get('fillval'))
-        if fileid is not None:
-            return self._paste_tile(out, bbox, int(fileid), return_empty)
-        hits = self.file_index.query(bbox)
-        filled = False
-        for fid in hits:
-            res = self._paste_tile(out, bbox, int(fid), True)
-            filled = filled or (res is not None)
+        fids = [fileid] if fileid is not None else self.file_index.query(bbox)
+        parts = []
+        for fid in map(int, fids):
+            win = self._tile_window(bbox, fid)
+            if win is not None:
+                parts.append((fid, *win, self._cached_tile_local(fid, win[0])))
+        reads = [(fid, lb) for fid, lb, _, blk in parts if blk is None]
+        width = _decode_width(len(reads))
+        if width > 1:
+            with trace.span('loader.decode_batch'):
+                filled = self._paste_pooled(out, parts, reads, width)
+        else:
+            filled = False
+            for fid, lb, at, blk in parts:
+                if blk is None:
+                    blk = self._decode_tile_local(fid, lb)
+                filled = _paste_block(out, blk, at) or filled
         if not filled and return_empty:
             return None
         return out
+
+    def _paste_pooled(self, out, parts, reads, width):
+        """Paste parts into out in order, the tiles of reads decoded on the
+        decode pool, at most width of them ahead of the paste; True where
+        a block was pasted. A read's exception reaches the caller."""
+        trace.count('loader.decode_batches')
+        pool = decode_pool()
+        reads = iter(reads)
+        inflight = deque()
+
+        def submit():
+            r = next(reads, None)
+            if r is not None:
+                inflight.append(pool.submit(self._decode_tile_local, *r))
+        for _ in range(width):
+            submit()
+        filled = False
+        try:
+            for _, _, at, blk in parts:
+                if blk is None:
+                    blk = inflight.popleft().result()
+                    trace.count('loader.batched_decodes')
+                    submit()
+                filled = _paste_block(out, blk, at) or filled
+        finally:
+            for f in inflight:
+                f.cancel()
+            futures.wait(inflight)
+        return filled
 
     def to_dict(self):
         d = super().to_dict()
@@ -627,7 +724,7 @@ def _paste_crop(out, bbox, img, img_bbox, return_empty=False):
     """Paste the part of img (located at img_bbox) visible in bbox into out."""
     x0, y0 = int(round(bbox[0])), int(round(bbox[1]))
     # far corner from the same integerization as the canvas shape (see
-    # StaticImageLoader._paste_tile)
+    # StaticImageLoader._tile_window)
     x1 = x0 + int(round(bbox[2] - bbox[0]))
     y1 = y0 + int(round(bbox[3] - bbox[1]))
     ix0, iy0 = int(round(img_bbox[0])), int(round(img_bbox[1]))

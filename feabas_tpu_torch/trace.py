@@ -24,6 +24,10 @@ Spans and counters in the port:
   channels and size read from its header (``common.image_meta``), or
   from a whole decode where the header does not settle them
   (``dal._file_meta``: the loaders' first-tile probe);
+- ``loader.decode_batch`` (span), ``loader.decode_batches``,
+  ``loader.batched_decodes``: a crop whose uncached tiles decoded on the
+  decode pool, from the first submit to the last paste on the calling
+  thread, and the decodes it issued there (``dal.StaticImageLoader.crop``);
 - ``loader.resize``: the align loader's area downscale to the working mip;
 - ``loader.cache_lookups``, ``loader.cache_hits``: the image loaders'
   cache gets (whole images and border bands);
