@@ -82,9 +82,12 @@ Phases (each prints its lines; any failure exits non-zero):
   5. the align slice: 8 sections of 8192x8192 uint8 at 4 nm (a seeded
      texture moved by a cumulative N(0, 24 px) drift and a smooth warp,
      made on the card) go through ``feabas_tpu_torch.scripts.align_main``
-     meshing, matching (working mip 2), optimization and rendering; the
-     matches are checked against the analytic truth, the window against
-     the stacked solve, the render against section 0; the operator's
+     meshing, matching (working mip 2), optimization and rendering (at
+     LINEAR), then rendering again at the shipped LANCZOS with
+     ``device_render`` unset into a second out dir, which must launch the
+     raster's Lanczos-4 mode; the matches are checked against the analytic
+     truth, the window against the stacked solve, each render against
+     section 0 and the LANCZOS render against the LINEAR one; the operator's
      systems are held as in phase 4; the first stacked window solve runs
      twice more on its inputs, and ``relax_mesh`` three times on a
      section's mesh carried through its tform (``relax_check``);
@@ -141,7 +144,7 @@ it, bit-equal to itself and to what the path got (a difference fails the
 run).
 Each slice resets the kernels' launch counts just before it and reads
 them just after (in total and by shape), and fails if a kernel of its
-path never launched. Then one JSON line lists each of the nine kernels with
+path never launched. Then one JSON line lists each of the eleven kernels with
 its launches (in all and by path), its worst error, and the times, bound
 and library time of the checked shape the paths launched most, then all its
 phase-3 checks; the line before
@@ -188,6 +191,8 @@ KERNELS = {
     'fem_operator': ('fem_operator', 'feabas_tpu/optimizer.py:1192'),
     # no TPU kernel: the JAX package fits these shifts on the host
     'subpixel_refine': ('subpixel_refine', 'feabas_tpu/thumbnail.py:464'),
+    # no TPU kernel: the JAX package's LANCZOS renders go to cv2.remap
+    'mesh_raster_lanczos4': ('mesh_raster', 'feabas_tpu/common.py:235'),
 }
 KERNEL_SOURCES = sorted({src for src, _ in KERNELS.values()})
 
@@ -441,16 +446,23 @@ def _section_mesh(size, mesh_size, amp, period):
 # affines: 8) rounded to 1/32 px (6), the bounds test (4), the bilinear
 # corner and weights (10) and blend (11), the clamped u8 store (3)
 RASTER_FLOP_PER_PX = 13 + 8 + 6 + 4 + 10 + 11 + 3
+# ... and in the Lanczos-4 mode: the coverage test, the coordinate and its
+# snap as above, the window's four bounds tests (4), 64 taps of a
+# multiply-add and their 16 weight terms (144), the clamped u8 store (3)
+RASTER_LANCZOS_FLOP_PER_PX = 13 + 8 + 6 + 4 + 144 + 3
 
 
-def raster_bound(src, tabs, h, w):
+def raster_bound(src, tabs, h, w, interp='linear'):
     """Bound of one raster batch, from what the function needs: bytes of the
     u8 output, one source pixel per output pixel (at most the source given)
-    and the triangle tables, each read once; RASTER_FLOP_PER_PX for each
-    output pixel (one covering triangle tested)."""
+    and the triangle tables, each read once; RASTER_FLOP_PER_PX (or
+    RASTER_LANCZOS_FLOP_PER_PX) for each output pixel (one covering
+    triangle tested)."""
     px = tabs.shape[0] * h * w
     nbytes = px + min(src.numel(), px) * src.element_size() + tabs.numel() * 4
-    return bound(RASTER_FLOP_PER_PX * px, nbytes)
+    per_px = RASTER_LANCZOS_FLOP_PER_PX if interp == 'lanczos4' \
+        else RASTER_FLOP_PER_PX
+    return bound(per_px * px, nbytes)
 
 
 def graph_time(fn, n=20):
@@ -505,9 +517,10 @@ def _block_sel(eng, x0, y0, x1, y1):
                       & (tb[:, 3] > y0) & np.isfinite(eng._w))[0]
 
 
-def _crop_blocks(eng, img, origins, size):
-    """Per-block source crops (one common bucket shape), tables and cell
-    candidates of ``size``^2 blocks at ``origins``, as
+def _crop_blocks(eng, img, origins, size, halo=2):
+    """Per-block source crops (one common bucket shape, reaching ``halo``
+    px past the blocks' source coordinates), tables and cell candidates of
+    ``size``^2 blocks at ``origins``, as
     ``DeviceRenderEngine.render_blocks`` prepares a batch."""
     import numpy as np
     from feabas_tpu_torch.ops import render
@@ -516,8 +529,8 @@ def _crop_blocks(eng, img, origins, size):
     boxes = []
     for sel in sels:
         ps = eng._Psrc[sel].reshape(-1, 2)
-        lo = [int(np.floor(v)) - 2 for v in ps.min(axis=0)]
-        hi = [int(np.ceil(v)) + 2 for v in ps.max(axis=0)]
+        lo = [int(np.floor(v)) - halo for v in ps.min(axis=0)]
+        hi = [int(np.ceil(v)) + halo for v in ps.max(axis=0)]
         boxes.append((lo, [render._align_up(b - a, render._SRC_ALIGN,
                                             render._SRC_ALIGN)
                            for a, b in zip(lo, hi)]))
@@ -549,12 +562,13 @@ def _quad_mesh(x0, y0, x1, y1, shift):
 
 
 def raster_row(dev, name, args, geodesic=False, out_kind='u8', fillval=0.0,
-               covered=True, iters=20, warm_s=0.1, edge=False):
-    """One row of the mesh raster: ``args`` = (src, tables, cands, h, w) on
-    the card held bit-equal to the plain version with the expected
-    coverage flags, then timed (call ms, device us per launch from a
-    CUDA-graph replay, plain ms, bound, what the tile cull keeps). Returns
-    (row, the kernel's output)."""
+               covered=True, iters=20, warm_s=0.1, edge=False,
+               interp='linear'):
+    """One row of the mesh raster in the sampling mode ``interp``:
+    ``args`` = (src, tables, cands, h, w) on the card held bit-equal to the
+    plain version with the expected coverage flags, then timed (call ms,
+    device us per launch from a CUDA-graph replay, plain ms, bound, what
+    the tile cull keeps). Returns (row, the kernel's output)."""
     import torch
     from feabas_tpu_torch.ops import render
     tile_h = render.kernel_tile_h()
@@ -563,11 +577,11 @@ def raster_row(dev, name, args, geodesic=False, out_kind='u8', fillval=0.0,
 
     def kernel():
         return render.raster_blocks(src, tabs, cands, fillval, h, w,
-                                    geodesic, out_kind)
+                                    geodesic, out_kind, interp=interp)
 
     def plain():
         return render.raster_blocks_plain(src, tabs, cands, fillval, h, w,
-                                          geodesic, out_kind)
+                                          geodesic, out_kind, interp=interp)
     (got,), cov = kernel()
     (want,), pcov = plain()
     torch.cuda.synchronize()
@@ -585,7 +599,7 @@ def raster_row(dev, name, args, geodesic=False, out_kind='u8', fillval=0.0,
     ms = cuda_time(kernel, iters, warm_s)
     pms = cuda_time(plain, max(iters // 4, 2), warm_s)
     run, _, dt = render._prepare(src, tabs, cands, fillval, h, w,
-                                 geodesic, out_kind, None)
+                                 geodesic, out_kind, None, interp)
     into = (torch.empty((B, h, w), dtype=dt, device=dev),
             torch.empty(B, dtype=torch.bool, device=dev))
     us = graph_time(lambda: run(*into))
@@ -595,8 +609,9 @@ def raster_row(dev, name, args, geodesic=False, out_kind='u8', fillval=0.0,
            .expand(B, 1, -1))
     real = torch.isfinite(
         tabs[torch.arange(B, device=dev)[:, None, None], idx][..., 12])
-    row = kernel_row('mesh_raster', (B, h, w), name, err, ms, pms,
-                     raster_bound(src, tabs, h, w))
+    row = kernel_row('mesh_raster_lanczos4' if interp == 'lanczos4'
+                     else 'mesh_raster', (B, h, w), name, err, ms, pms,
+                     raster_bound(src, tabs, h, w, interp))
     row.update(edge=edge, device_us=us, K=int(keep.shape[-1]),
                real_per_cell=float(real.sum(-1).float().mean()),
                kept_per_tile=float(keep.sum(-1).float().mean()))
@@ -611,7 +626,9 @@ def check_raster(dev, texture):
     bound, and what the tile cull removes): (a) 1, 2, 3 and 4 x 2048^2
     blocks with cell-binned tables from a deformed section mesh (mesh_size
     600 on an 8192^2 section), each with its own source crop: the align
-    path's batches, and three 1536^2 blocks, the thumbnail path's; (b) four 512^2 flat-table blocks against one resident
+    path's batches, the same blocks' 1 and 4 at LANCZOS (the Lanczos-4
+    mode, crops reaching its halo: the align render cell's batches), and
+    three 1536^2 blocks, the thumbnail path's; (b) four 512^2 flat-table blocks against one resident
     source; (c) two identical triangles with equal weights, where the
     first row must win. Edges (checked, timed briefly): flat tables at
     1x1, 3x5 and 130x70 with u16 and f32 outputs, an f32 source, a folded
@@ -637,9 +654,10 @@ def check_raster(dev, texture):
             np.ascontiguousarray(a)).to(dev)
 
     def compare(name, args, geodesic=False, out_kind='u8', fillval=0.0,
-                covered=True, iters=20, warm_s=0.1, edge=False):
+                covered=True, iters=20, warm_s=0.1, edge=False,
+                interp='linear'):
         row, got = raster_row(dev, name, args, geodesic, out_kind, fillval,
-                              covered, iters, warm_s, edge)
+                              covered, iters, warm_s, edge, interp)
         rows.append(row)
         return got
 
@@ -654,6 +672,15 @@ def check_raster(dev, texture):
                 else '2048^2 cells, own crop',
                 (t(batches[n][0]), t(tt), t(cd), 2048, 2048),
                 iters=20 if n == 1 else 10)
+    # the align render cell's batches at LANCZOS: 1 and 4 x 2048^2 blocks,
+    # cells, crops reaching the Lanczos-4 halo
+    crops_l, tabs_l, cands_l = _crop_blocks(
+        eng, img, origins, 2048, halo=render._SRC_HALO['lanczos4'])
+    for n in (1, 4):
+        tt, cd = _pad_tables(tabs_l[:n], cands_l[:n])
+        compare(f'{n} x 2048^2 cells, own crops, Lanczos-4',
+                (t(np.stack(crops_l[:n])), t(tt), t(cd), 2048, 2048),
+                iters=10, interp='lanczos4')
     # the thumbnail path's render batches: 3 x 1536^2 blocks
     crops3, tabs3, cands3 = _crop_blocks(
         eng, img, [(1024, 1024), (2560, 1024), (1024, 2560)], 1536)
@@ -1564,6 +1591,35 @@ def setup_align_workdir(root, sections):
     return wd, names
 
 
+class shipped_rendering:
+    """Within: the align work dir's rendering at the shipped
+    ``remap_interp: LANCZOS`` and ``device_render: null``, into
+    ``out_dir``; the overrides ``setup_align_workdir`` wrote are put back
+    after."""
+
+    def __init__(self, wd, out_dir):
+        self.path = os.path.join(wd, 'configs', 'alignment_configs.yaml')
+        self.out_dir = out_dir
+
+    def __enter__(self):
+        import yaml
+        from feabas_tpu_torch import config
+        with open(self.path) as f:
+            self.saved = f.read()
+        over = yaml.safe_load(self.saved)
+        over['rendering'].update(remap_interp='LANCZOS', device_render=None,
+                                 out_dir=self.out_dir)
+        _save_yaml(self.path, over)
+        config.clear_config_caches()
+        return self
+
+    def __exit__(self, *exc):
+        from feabas_tpu_torch import config
+        with open(self.path, 'w') as f:
+            f.write(self.saved)
+        config.clear_config_caches()
+
+
 def _match_truth_error(match, z0, z1, drift):
     """|xy0 - truth| (working px) of matches between sections z0 and z1: the
     content at mip0 p1 of z1 sits where p0 + d_z0(p0) = p1 + d_z1(p1)."""
@@ -1599,24 +1655,33 @@ def align_pair_checks(wd, names, drift):
     return counts, errs
 
 
-def align_overlay_ccs(wd, names):
-    """cc of each rendered section against section 0 on a 2048^2 window at
-    the canvas center, over the pixels both cover."""
+def align_windows(wd, names, out_root=None):
+    """Each rendered section's 2048^2 window at the canvas center, read
+    from the render under ``out_root`` (the work dir's aligned_stack by
+    default)."""
     import numpy as np
     from feabas_tpu_torch.dal import StaticImageLoader
     with open(os.path.join(wd, 'align', 'tform', 'canvas.json')) as f:
         canvas = json.load(f)['mip0']
     cx, cy = (canvas[0] + canvas[2]) // 2, (canvas[1] + canvas[3]) // 2
     win = (cx - 1024, cy - 1024, cx + 1024, cy + 1024)
-    out = os.path.join(wd, 'aligned_stack', 'mip0')
-    rendered = [StaticImageLoader.from_coordinate_file(os.path.join(
+    out = os.path.join(out_root or os.path.join(wd, 'aligned_stack'), 'mip0')
+    return [StaticImageLoader.from_coordinate_file(os.path.join(
         out, f'{z:05d}_{n}', 'metadata.txt')).crop(win).astype(np.float64)
         for z, n in enumerate(names)]
-    ccs = []
-    for img in rendered[1:]:
-        ok = (rendered[0] > 0) & (img > 0)
-        ccs.append(float(np.corrcoef(rendered[0][ok], img[ok])[0, 1]))
-    return ccs
+
+
+def _cc(a, b):
+    import numpy as np
+    ok = (a > 0) & (b > 0)
+    return float(np.corrcoef(a[ok], b[ok])[0, 1])
+
+
+def align_overlay_ccs(wd, names, out_root=None):
+    """cc of each rendered section against section 0 on a 2048^2 window at
+    the canvas center, over the pixels both cover."""
+    rendered = align_windows(wd, names, out_root)
+    return [_cc(rendered[0], img) for img in rendered[1:]]
 
 
 def run_align(dev, chunked=False, keep=None):
@@ -1693,6 +1758,13 @@ def run_align(dev, chunked=False, keep=None):
             torch.cuda.synchronize()
             stage_s[mode] = time.perf_counter() - t
             fem_by_stage[mode] = device_mod.launch_counts()['fem_operator']
+        # the shipped rendering settings, into a second out dir
+        lanczos_root = os.path.join(wd, 'aligned_stack_lanczos')
+        with shipped_rendering(wd, lanczos_root):
+            t = time.perf_counter()
+            align_main.main(['--mode', 'rendering'])
+            torch.cuda.synchronize()
+            stage_s['rendering_lanczos'] = time.perf_counter() - t
         launches = device_mod.launch_counts()
         by_shape = device_mod.launch_counts_by_shape()
         ops.__exit__()
@@ -1714,9 +1786,21 @@ def run_align(dev, chunked=False, keep=None):
         if not min(ccs) > 0.85:
             raise RuntimeError(f'rendered overlay cc {ccs}, median match '
                                f'errors {errs}')
-        for name in ('dog_filter', 'mesh_raster', 'fem_operator'):
+        for name in ('dog_filter', 'mesh_raster', 'mesh_raster_lanczos4',
+                     'fem_operator'):
             if launches[name] <= 0:
                 raise RuntimeError(f'{name} was not launched by the align path')
+        lanczos_ccs = align_overlay_ccs(wd, names, lanczos_root)
+        lanczos_vs_linear = [_cc(a, b) for a, b in zip(
+            align_windows(wd, names), align_windows(wd, names, lanczos_root))]
+        if not (min(lanczos_ccs) > 0.85 and min(lanczos_vs_linear) > 0.95):
+            raise RuntimeError(f'LANCZOS render: overlay cc {lanczos_ccs}, '
+                               f'cc against LINEAR {lanczos_vs_linear}')
+        log(f'[align] LANCZOS render (shipped settings): '
+            f'{launches["mesh_raster_lanczos4"]} Lanczos-4 raster launches, '
+            f'overlay cc {min(lanczos_ccs):.5f}-{max(lanczos_ccs):.5f}, cc '
+            f'against the LINEAR render {min(lanczos_vs_linear):.5f}-'
+            f'{max(lanczos_vs_linear):.5f}')
         log(f'[align] fem_operator launches by stage (cumulative) '
             f'{fem_by_stage}')
         if raster_blocks[0] < device_blocks[0] or device_blocks[0] == 0:

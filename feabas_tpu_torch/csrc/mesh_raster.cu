@@ -68,8 +68,25 @@
 //     tile's source footprint into shared memory has nothing to win and is
 //     not made.
 //
-// Plain C interface, loaded with ctypes. mesh_raster launches on the given
-// stream, allocates nothing, and returns cudaGetLastError().
+// The Lanczos-4 mode (mesh_raster_lanczos4) shares the raster and the 1/32
+// px grid, and replaces the bilinear tap by OpenCV's INTER_LANCZOS4 one:
+// 8 x 8 source pixels from floor(x) - 3 to floor(x) + 4 (a 3 px halo
+// before the tap origin and 4 after it), weighted by a (32, 8) table of
+// normalised f32 weights, one row per 1/32 px fraction, that the caller
+// passes (ops/render.py:lanczos4_table; OpenCV's interpolateLanczos4).
+// A tap outside the source's real extents reads the fill value (OpenCV's
+// BORDER_CONSTANT), and a coordinate whose whole window lies outside gives
+// the fill. Each row of 8 is summed in order and the 8 rows weighted in
+// order, every product and sum rounded on its own (__fmul_rn, __fadd_rn),
+// as raster_blocks_plain spells it. There is no validity cut at the
+// source's edge, unlike the bilinear tap. The output is quantized as the
+// bilinear one: saturating to u8 / u16, f32 unclipped. The weight table
+// sits in shared memory at a row stride of 9 floats, so the 32 fractions a
+// warp may read fall in 32 different banks.
+//
+// Plain C interface, loaded with ctypes. mesh_raster and
+// mesh_raster_lanczos4 launch on the given stream, allocate nothing, and
+// return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -86,6 +103,11 @@ constexpr int kRows = 2;                // image rows per thread
 constexpr int kTileH = kWarps * kRows;
 static_assert(kTileW == 32 * kPx, "a warp spans the tile");
 static_assert(kTileW % kTileH == 0, "a tile lies inside one cell");
+constexpr int kLinear = 0;
+constexpr int kLanczos4 = 1;
+constexpr int kFrac = 32;               // the 1/32 px grid
+constexpr int kTaps = 8;                // Lanczos-4 taps an axis
+constexpr int kLzStride = kTaps + 1;    // shared row stride: no bank clash
 
 __device__ __forceinline__ float affine(float a, float b, float c, float x,
                                         float y) {
@@ -121,6 +143,50 @@ __device__ __forceinline__ void store1(void* out, long long i, float v) {
   }
 }
 
+// a source tap: the pixel at column xx of row p, or the fill value where
+// the row or the column lies outside the source's real extents
+template <typename S>
+__device__ __forceinline__ float tap(const S* p, bool row_in, int xx, int W,
+                                     float fillval) {
+  return (row_in && static_cast<unsigned>(xx) < static_cast<unsigned>(W))
+             ? load_f32(p + xx)
+             : fillval;
+}
+
+// Lanczos-4 sample of the (H, W) source at (xs, ys), both on the 1/32 px
+// grid; lw is the (32, kLzStride) weight table
+template <typename S>
+__device__ __forceinline__ float lanczos4(const S* sb, int stride, int H,
+                                          int W, float xs, float ys,
+                                          const float* lw, float fillval) {
+  if (!(xs >= -4.0f && xs < static_cast<float>(W + 3) && ys >= -4.0f &&
+        ys < static_cast<float>(H + 3)))
+    return fillval;
+  const float x0 = floorf(xs);
+  const float y0 = floorf(ys);
+  const float* wx =
+      lw + static_cast<int>(__fmul_rn(__fsub_rn(xs, x0), 32.0f)) * kLzStride;
+  const float* wy =
+      lw + static_cast<int>(__fmul_rn(__fsub_rn(ys, y0), 32.0f)) * kLzStride;
+  const int ix = static_cast<int>(x0) - 3;
+  const int iy = static_cast<int>(y0) - 3;
+  float val = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kTaps; ++r) {
+    const int yy = iy + r;
+    const bool row_in = static_cast<unsigned>(yy) < static_cast<unsigned>(H);
+    const S* p = sb + static_cast<long long>(row_in ? yy : 0) * stride;
+    float row = __fmul_rn(wx[0], tap(p, row_in, ix, W, fillval));
+#pragma unroll
+    for (int j = 1; j < kTaps; ++j)
+      row = __fadd_rn(row, __fmul_rn(wx[j], tap(p, row_in, ix + j, W,
+                                                fillval)));
+    val = r == 0 ? __fmul_rn(wy[0], row)
+                 : __fadd_rn(val, __fmul_rn(wy[r], row));
+  }
+  return val;
+}
+
 // four quantized pixels at element i (i % 4 == 0, base 16-byte aligned)
 template <int OUT>
 __device__ __forceinline__ void store4(void* out, long long i,
@@ -145,23 +211,31 @@ __device__ __forceinline__ void store4(void* out, long long i,
 // tables (B, Tp, 14); cands (B, NC, K) or null (flat: rows 0..Tp-1);
 // src (H, W) shared (src_bstride 0) or (B, H, W) per block, row stride
 // src_stride, real extents src_hw (B, 2) = (h, w) or, where null,
-// (src_h, src_w) for every block; out (B, h, w); covered (B,) bytes.
-template <typename S, int OUT, bool GEO>
+// (src_h, src_w) for every block; out (B, h, w); covered (B,) bytes;
+// lanczos (32, 8) weights (INTERP == kLanczos4) or null.
+template <typename S, int OUT, bool GEO, int INTERP>
 __global__ void __launch_bounds__(kThreads)
 raster(const float* __restrict__ tables, int Tp,
        const int* __restrict__ cands, int K, int ncx,
        const S* __restrict__ src, long long src_bstride, int src_stride,
        const int* __restrict__ src_hw, int src_h, int src_w, float fillval,
        int h, int w, void* __restrict__ out,
-       unsigned char* __restrict__ covered) {
+       unsigned char* __restrict__ covered,
+       const float* __restrict__ lanczos) {
   // surviving rows of the current chunk, ascending
   __shared__ float4 s_l1[kThreads];   // l1x l1y l1c weight
   __shared__ float4 s_l2[kThreads];   // l2x l2y l2c color
   __shared__ float4 s_ax[kThreads];   // axx ayx bx  axy
   __shared__ float2 s_ay[kThreads];   // ayy by
   __shared__ int s_count[kWarps];
+  __shared__ float s_lw[INTERP == kLanczos4 ? kFrac * kLzStride : 1];
 
   const int tid = threadIdx.x;
+  if (INTERP == kLanczos4) {
+    for (int i = tid; i < kFrac * kTaps; i += kThreads)
+      s_lw[(i / kTaps) * kLzStride + i % kTaps] = __ldg(lanczos + i);
+    __syncthreads();
+  }
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int b = blockIdx.z;
@@ -304,6 +378,14 @@ raster(const float* __restrict__ tables, int Tp,
           __fmul_rn(rintf(__fmul_rn(sx[r][i], 32.0f)), 1.0f / 32.0f);
       const float ys =
           __fmul_rn(rintf(__fmul_rn(sy[r][i], 32.0f)), 1.0f / 32.0f);
+      if (INTERP == kLanczos4) {
+        const float val =
+            cov ? lanczos4(sb, src_stride, H, W, xs, ys, s_lw, fillval)
+                : fillval;
+        v[i] = quant<OUT>(val);
+        if (cov && py < h && px0 + i < w) anycov = 1;
+        continue;
+      }
       const bool valid = (xs >= 0.0f) && (ys >= 0.0f) &&
                          (xs <= static_cast<float>(W - 1)) &&
                          (ys <= static_cast<float>(H - 1));
@@ -345,17 +427,55 @@ raster(const float* __restrict__ tables, int Tp,
   if (tid == 0 && blockcov) covered[b] = 1;
 }
 
-template <typename S, int OUT, bool GEO>
+template <typename S, int OUT, bool GEO, int INTERP>
 int launch(const float* tables, int Tp, const int* cands, int K, int ncx,
            const void* src, long long src_bstride, int src_stride,
            const int* src_hw, int src_h, int src_w, float fillval, int B,
            int h, int w, void* out, unsigned char* covered,
-           cudaStream_t stream) {
+           const float* lanczos, cudaStream_t stream) {
   dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, B);
-  raster<S, OUT, GEO><<<grid, kThreads, 0, stream>>>(
+  raster<S, OUT, GEO, INTERP><<<grid, kThreads, 0, stream>>>(
       tables, Tp, cands, K, ncx, static_cast<const S*>(src), src_bstride,
-      src_stride, src_hw, src_h, src_w, fillval, h, w, out, covered);
+      src_stride, src_hw, src_h, src_w, fillval, h, w, out, covered,
+      lanczos);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int INTERP>
+int dispatch(const float* tables, int Tp, const int* cands, int K, int cell,
+             int ncx, const void* src, long long src_bstride, int src_stride,
+             int src_kind, const int* src_hw, int src_h, int src_w,
+             float fillval, int B, int h, int w, int geodesic, int out_kind,
+             void* out, unsigned char* covered, const float* lanczos,
+             cudaStream_t s) {
+  if (cands != nullptr && cell != kTileW)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || h <= 0 || w <= 0 || B > 65535 ||
+      (h + kTileH - 1) / kTileH > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (INTERP == kLanczos4 && lanczos == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(covered, 0, B, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define MESH_RASTER_CASE(SK, ST, OK)                                          \
+  if (src_kind == SK && out_kind == OK)                                       \
+    return geodesic                                                           \
+               ? launch<ST, OK, true, INTERP>(                                \
+                     tables, Tp, cands, K, ncx, src, src_bstride, src_stride, \
+                     src_hw, src_h, src_w, fillval, B, h, w, out, covered,    \
+                     lanczos, s)                                              \
+               : launch<ST, OK, false, INTERP>(                               \
+                     tables, Tp, cands, K, ncx, src, src_bstride, src_stride, \
+                     src_hw, src_h, src_w, fillval, B, h, w, out, covered,    \
+                     lanczos, s);
+  MESH_RASTER_CASE(0, uint8_t, 0)
+  MESH_RASTER_CASE(0, uint8_t, 1)
+  MESH_RASTER_CASE(0, uint8_t, 2)
+  MESH_RASTER_CASE(1, float, 0)
+  MESH_RASTER_CASE(1, float, 1)
+  MESH_RASTER_CASE(1, float, 2)
+#undef MESH_RASTER_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -373,31 +493,27 @@ extern "C" int mesh_raster(const float* tables, int Tp, const int* cands,
                            float fillval, int B, int h, int w, int geodesic,
                            int out_kind, void* out, unsigned char* covered,
                            void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cands != nullptr && cell != kTileW)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0 || h <= 0 || w <= 0 || B > 65535 ||
-      (h + kTileH - 1) / kTileH > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaMemsetAsync(covered, 0, B, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-#define MESH_RASTER_CASE(SK, ST, OK)                                          \
-  if (src_kind == SK && out_kind == OK)                                       \
-    return geodesic                                                           \
-               ? launch<ST, OK, true>(tables, Tp, cands, K, ncx, src,         \
-                                      src_bstride, src_stride, src_hw, src_h, \
-                                      src_w, fillval, B, h, w, out, covered,  \
-                                      s)                                      \
-               : launch<ST, OK, false>(tables, Tp, cands, K, ncx, src,        \
-                                       src_bstride, src_stride, src_hw,       \
-                                       src_h, src_w, fillval, B, h, w, out,   \
-                                       covered, s);
-  MESH_RASTER_CASE(0, uint8_t, 0)
-  MESH_RASTER_CASE(0, uint8_t, 1)
-  MESH_RASTER_CASE(0, uint8_t, 2)
-  MESH_RASTER_CASE(1, float, 0)
-  MESH_RASTER_CASE(1, float, 1)
-  MESH_RASTER_CASE(1, float, 2)
-#undef MESH_RASTER_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<kLinear>(tables, Tp, cands, K, cell, ncx, src, src_bstride,
+                           src_stride, src_kind, src_hw, src_h, src_w,
+                           fillval, B, h, w, geodesic, out_kind, out, covered,
+                           nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// mesh_raster's arguments and, before the stream, the (32, 8) f32 Lanczos-4
+// weights on the card.
+extern "C" int mesh_raster_lanczos4(const float* tables, int Tp,
+                                    const int* cands, int K, int cell,
+                                    int ncx, const void* src,
+                                    long long src_bstride, int src_stride,
+                                    int src_kind, const int* src_hw,
+                                    int src_h, int src_w, float fillval,
+                                    int B, int h, int w, int geodesic,
+                                    int out_kind, void* out,
+                                    unsigned char* covered,
+                                    const float* lanczos, void* stream) {
+  return dispatch<kLanczos4>(tables, Tp, cands, K, cell, ncx, src,
+                             src_bstride, src_stride, src_kind, src_hw, src_h,
+                             src_w, fillval, B, h, w, geodesic, out_kind, out,
+                             covered, lanczos,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -28,7 +28,7 @@ DEVICE_ENV = 'FEABAS_TORCH_DEVICE'
 
 KERNELS = ('dog_filter', 'gaussian_blur', 'mesh_raster', 'peak_detect',
            'lradon_patch', 'lradon_match', 'montage_blend', 'fem_operator',
-           'subpixel_refine')
+           'subpixel_refine', 'mesh_raster_lanczos4')
 
 
 def get_device(name=None):

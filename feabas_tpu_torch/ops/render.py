@@ -12,14 +12,31 @@ On a CUDA tensor ``raster_blocks`` launches the hand-written kernel
 (``csrc/mesh_raster.cu``) once per batch, for flat and cell-binned tables,
 for one shared source or per-block source crops; on a CPU tensor it runs
 ``raster_blocks_plain``, the same arithmetic in plain PyTorch.
-``tile_cull_plain`` states the kernel's per-tile candidate cull. The
-optional mip chain (2x area averages with a Gaussian pre-blur) runs in
-PyTorch after either, its blur through ``ops.dog.gaussian_blur``.
+``tile_cull_plain`` states the kernel's per-tile candidate cull.
+
+Two sampling modes (``INTERPS``): ``'linear'``, the bilinear tap, and
+``'lanczos4'``, OpenCV's ``INTER_LANCZOS4`` (``cv2.remap`` at the
+renderer's ``remap_interp: LANCZOS``): 8 x 8 taps from floor(x) - 3 to
+floor(x) + 4, weighted by ``lanczos4_table``, each tap outside the source's
+real extents reading the fill value (``BORDER_CONSTANT``). Both sample at
+the winning coordinate snapped to 1/32 px, as ``cv2.remap`` snaps its map
+(``INTER_BITS`` 5). Unlike ``cv2.remap``, which sums u8 taps with 15-bit
+fixed-point weights, the Lanczos sum is taken in f32 (each product and
+sum rounded alone, rows of 8 in order, then the 8 rows), then rounded and
+saturated to u8 / u16 (f32 output is not clipped): it differs from
+``cv2.remap`` by at most 1 LSB, on about 0.3% of u8 pixels. Source crops
+reach ``_SRC_HALO`` px past a block's source coordinates, the taps' halo
+and a margin of one. The optional mip chain (2x area averages with a
+Gaussian pre-blur) runs in PyTorch after either, its blur through
+``ops.dog.gaussian_blur``.
 
 ``DeviceRenderEngine`` is the host side: candidate selection, tables,
 source crops or a resident whole-section source, grouping of same-shape
 blocks, taken in order, into batches (``_group_cap``: a rule of block
-size alone).
+size alone). Its candidate and table build runs in the span
+``render.tables``; it counts each block it renders (``render.blocks``),
+those rendered on a CUDA card (``render.device_blocks``) and the output
+px it samples by Lanczos-4 (``render.lanczos_px``).
 """
 
 import ctypes
@@ -27,7 +44,7 @@ import ctypes
 import numpy as np
 import torch
 
-from feabas_tpu_torch import build, state
+from feabas_tpu_torch import build, state, trace
 from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch.ops import dog
 from feabas_tpu_torch.ops.warp import bilinear_sample
@@ -43,6 +60,14 @@ _CELL_MIN_TRIS = 32
 # source / output block dims quantize to these multiples
 _SRC_ALIGN = 256
 _OUT_ALIGN = 512
+# sampling modes; a source crop reaches this far past a block's source
+# coordinates: the last tap after floor(x) (1 bilinear, 4 Lanczos-4) and
+# one px of margin (the snap to 1/32 px), as far before floor(x) as after
+_SRC_HALO = {'linear': 2, 'lanczos4': 5}
+INTERPS = tuple(_SRC_HALO)
+# Lanczos-4: the 1/32 px fractions of a coordinate and the taps an axis
+_FRAC = 32
+_TAPS = 8
 # sources at most this large stay device-resident across blocks
 WHOLE_SRC_CAP = 256 * 1024 * 1024
 # a batch groups blocks until it covers this many output pixels
@@ -53,6 +78,34 @@ _OUT_KINDS = {'u8': (0, torch.uint8), 'u16': (1, torch.uint16),
               'f32': (2, torch.float32)}
 # device -> (library, device index, raw current-stream lookup)
 _LIBS = {}
+# the Lanczos-4 weights: the table and its copy on each device
+_LANCZOS = {}
+
+
+def lanczos4_table():
+    """(32, 8) float32: row f holds the Lanczos-4 weights of the fraction
+    f / 32 px, tap i at distance d = f / 32 + 3 - i from the coordinate:
+    sinc(d) sinc(d / 4), normalised to sum 1 in float64 and rounded to
+    float32; row 0 is the coordinate's own pixel alone (OpenCV's
+    ``interpolateLanczos4``, whose table ``cv2.remap`` indexes by the same
+    1/32 px fraction)."""
+    if 'table' not in _LANCZOS:
+        d = (np.arange(1, _FRAC, dtype=np.float64)[:, None] / _FRAC + 3
+             - np.arange(_TAPS)[None])
+        w = (np.sin(np.pi * d) * np.sin(np.pi * d / 4)
+             / (np.pi ** 2 * d ** 2 / 4))
+        w = np.concatenate([np.eye(_TAPS)[3:4],
+                            w / w.sum(axis=1, keepdims=True)])
+        _LANCZOS['table'] = w.astype(np.float32)
+    return _LANCZOS['table']
+
+
+def _lanczos4_weights(dev):
+    """``lanczos4_table`` as a tensor on ``dev``, made once a device."""
+    key = str(dev)
+    if key not in _LANCZOS:
+        _LANCZOS[key] = torch.from_numpy(lanczos4_table()).to(dev)
+    return _LANCZOS[key]
 
 
 def _group_cap(block_pixels):
@@ -180,14 +233,53 @@ def _quant(x, out_kind):
     return x
 
 
+def _check_interp(interp):
+    if interp not in INTERPS:
+        raise ValueError(f'interp must be one of {INTERPS}, got {interp!r}')
+
+
 def _src_extents(src, B, src_hw):
     if src_hw is not None:
         return [tuple(int(v) for v in hw) for hw in np.asarray(src_hw)]
     return [tuple(src.shape[-2:])] * B
 
 
+def _lanczos4_plain(s, H, W, xs, ys, fillval):
+    """Lanczos-4 samples of the source ``s`` (its real extents (H, W)) at
+    (xs, ys), f32 coordinates on the 1/32 px grid, as the kernel spells
+    them: taps outside (H, W) read ``fillval``, a window wholly outside
+    gives it, every product and sum rounded alone in f32."""
+    f32 = torch.float32
+    fill = torch.as_tensor(float(fillval), dtype=f32, device=xs.device)
+    inside = (xs >= -4) & (xs < W + 3) & (ys >= -4) & (ys < H + 3)
+    xq = torch.where(inside, xs, torch.zeros_like(xs))
+    yq = torch.where(inside, ys, torch.zeros_like(ys))
+    x0 = torch.floor(xq)
+    y0 = torch.floor(yq)
+    lw = _lanczos4_weights(xs.device)
+    wx = lw[((xq - x0) * _FRAC).to(torch.int64)]        # (..., 8)
+    wy = lw[((yq - y0) * _FRAC).to(torch.int64)]
+    ix = x0.to(torch.int64) - 3
+    iy = y0.to(torch.int64) - 3
+    val = None
+    for r in range(_TAPS):
+        yy = iy + r
+        row_in = (yy >= 0) & (yy < H)
+        yc = yy.clamp(0, H - 1)
+        row = None
+        for j in range(_TAPS):
+            xx = ix + j
+            ok = row_in & (xx >= 0) & (xx < W)
+            v = torch.where(ok, s[yc, xx.clamp(0, W - 1)], fill)
+            t = wx[..., j] * v
+            row = t if row is None else row + t
+        t = wy[..., r] * row
+        val = t if val is None else val + t
+    return torch.where(inside, val, fill)
+
+
 def _finish_plain(src, src_hw, score, sx, sy, smask, fillval, geodesic,
-                  out_kind):
+                  out_kind, interp='linear'):
     """Sample the winning coordinates (1/32-px grid) and quantize;
     mirrors _finish_raster up to the mip chain."""
     covered = score != -np.inf
@@ -200,7 +292,11 @@ def _finish_plain(src, src_hw, score, sx, sy, smask, fillval, geodesic,
     out = torch.empty_like(sx)
     for b, (H, W) in enumerate(src_hw):
         s = srcf if shared else src[b].to(torch.float32)
-        out[b] = bilinear_sample(s[:H, :W], sxq[b], syq[b], float(fillval))
+        if interp == 'lanczos4':
+            out[b] = _lanczos4_plain(s, H, W, sxq[b], syq[b], fillval)
+        else:
+            out[b] = bilinear_sample(s[:H, :W], sxq[b], syq[b],
+                                     float(fillval))
     out = torch.where(covered, out, torch.as_tensor(float(fillval),
                                                     device=out.device))
     out = _quant(out, out_kind).to(_OUT_KINDS[out_kind][1])
@@ -226,13 +322,14 @@ def _mip_chain(out, out_kind, n_mips, mip_blur):
 
 def raster_blocks_plain(src, tables, cands, fillval, h, w, geodesic,
                         out_kind, src_hw=None, n_mips=0, mip_blur=0.0,
-                        return_state=False):
+                        return_state=False, interp='linear'):
     """Plain PyTorch version of ``raster_blocks`` (any device). With
     ``return_state`` also returns the raster state (score, sx, sy, smask,
     winning row), each (B, h, w)."""
+    _check_interp(interp)
     state = _raster_state_plain(tables, cands, h, w, geodesic)
     out, cov = _finish_plain(src, _src_extents(src, tables.shape[0], src_hw),
-                             *state[:4], fillval, geodesic, out_kind)
+                             *state[:4], fillval, geodesic, out_kind, interp)
     levels = _mip_chain(out, out_kind, n_mips, mip_blur)
     return (levels, cov, state) if return_state else (levels, cov)
 
@@ -296,6 +393,10 @@ def _lib():
             # out_kind, out, covered, stream
             'mesh_raster': [P, I, P, I, I, I, P, ctypes.c_longlong, I, I, P,
                             I, I, ctypes.c_float, I, I, I, I, I, P, P, P],
+            # the same, the Lanczos-4 weights before the stream
+            'mesh_raster_lanczos4': [P, I, P, I, I, I, P, ctypes.c_longlong,
+                                     I, I, P, I, I, ctypes.c_float, I, I, I,
+                                     I, I, P, P, P, P],
             'mesh_raster_tile_h': []})
     return _LIBS['mesh_raster']
 
@@ -306,10 +407,13 @@ def kernel_tile_h():
     return int(_lib().mesh_raster_tile_h())
 
 
-def _prepare(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw):
+def _prepare(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw,
+             interp='linear'):
     """Check one batch for the kernel. Returns (run, B, out dtype):
     ``run(out, covered)`` enqueues one launch on the current stream into a
-    (B, h, w) tensor of that dtype and a (B,) bool tensor, and counts it."""
+    (B, h, w) tensor of that dtype and a (B,) bool tensor, and counts it
+    (``launch.mesh_raster``, or ``launch.mesh_raster_lanczos4``)."""
+    _check_interp(interp)
     dev = tables.device
     if tables.dtype != torch.float32 or tables.dim() != 3 \
             or tables.shape[-1] != 14 or not tables.is_contiguous() \
@@ -358,6 +462,12 @@ def _prepare(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw):
             0 if src.dtype == torch.uint8 else 1,
             None if hw_t is None else hw_t.data_ptr(), Hs, Ws,
             float(fillval), B, h, w, int(bool(geodesic)), code)
+    kernel, fn, after = 'mesh_raster', lib.mesh_raster, ()
+    weights = None
+    if interp == 'lanczos4':
+        weights = _lanczos4_weights(dev)
+        kernel, fn = 'mesh_raster_lanczos4', lib.mesh_raster_lanczos4
+        after = (weights.data_ptr(),)
 
     def run(out, covered):
         if (out.dtype != dt or tuple(out.shape) != (B, h, w)
@@ -366,19 +476,21 @@ def _prepare(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw):
                 or not out.is_contiguous()):
             raise ValueError('outputs must be a contiguous (B, h, w) '
                              f'{dt} tensor and a (B,) bool tensor on {dev}')
-        err = device_mod.launch_on(index, lib.mesh_raster, *args,
-                                   out.data_ptr(), covered.data_ptr())
+        err = device_mod.launch_on(index, fn, *args, out.data_ptr(),
+                                   covered.data_ptr(), *after)
         if err != 0:
-            raise RuntimeError(f'mesh_raster launch failed: CUDA error {err}')
-        device_mod.count_launch('mesh_raster', (B, h, w))
+            raise RuntimeError(f'{kernel} launch failed: CUDA error {err}')
+        device_mod.count_launch(kernel, (B, h, w))
 
-    run.tensors = (src, tables, cands, hw_t)   # alive as long as ``run`` is
+    # alive as long as ``run`` is
+    run.tensors = (src, tables, cands, hw_t, weights)
     return run, B, dt
 
 
-def _launch(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw):
+def _launch(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw,
+            interp='linear'):
     run, B, dt = _prepare(src, tables, cands, fillval, h, w, geodesic,
-                          out_kind, src_hw)
+                          out_kind, src_hw, interp)
     out = torch.empty((B, h, w), dtype=dt, device=tables.device)
     covered = torch.empty(B, dtype=torch.bool, device=tables.device)
     run(out, covered)
@@ -386,7 +498,7 @@ def _launch(src, tables, cands, fillval, h, w, geodesic, out_kind, src_hw):
 
 
 def raster_blocks(src, tables, cands, fillval, h, w, geodesic, out_kind,
-                  src_hw=None, n_mips=0, mip_blur=0.0):
+                  src_hw=None, n_mips=0, mip_blur=0.0, interp='linear'):
     """Rasterize + warp a batch of B output blocks of (h, w) px.
 
     src: (Hs, Ws) source shared by every block, or (B, Hs, Ws) per-block
@@ -398,15 +510,16 @@ def raster_blocks(src, tables, cands, fillval, h, w, geodesic, out_kind,
     cands: (B, (h/128)*(w/128), K) int32 candidate rows per 128-px cell,
         ascending (padding entries point at an inert row), or None for the
         flat loop over every row.
+    interp: 'linear' (bilinear) or 'lanczos4' (see the module docstring).
     Returns ([mip0 (B, h, w), mip1 (B, h/2, w/2), ...] in the output dtype
     of ``out_kind`` ('u8' | 'u16' | 'f32'), covered (B,) bool).
     """
     if tables.device.type == 'cpu':
         return raster_blocks_plain(src, tables, cands, fillval, h, w,
                                    geodesic, out_kind, src_hw, n_mips,
-                                   mip_blur)
+                                   mip_blur, interp=interp)
     out, cov = _launch(src, tables, cands, fillval, h, w, geodesic,
-                       out_kind, src_hw)
+                       out_kind, src_hw, interp)
     return _mip_chain(out, out_kind, n_mips, mip_blur), cov
 
 
@@ -586,8 +699,9 @@ class DeviceRenderEngine:
 
     def render_blocks(self, blocks, loader, fillval, out_dtype,
                       wts=None, shortcircuit=None, emit_mips=0,
-                      mip_blur=0.0, **crop_kwargs):
-        """Render output blocks [(x0, y0, x1, y1)] through the mesh.
+                      mip_blur=0.0, interp='linear', **crop_kwargs):
+        """Render output blocks [(x0, y0, x1, y1)] through the mesh,
+        sampling the source by ``interp`` (``INTERPS``).
 
         Returns [(array | None)] aligned with ``blocks``; None when the
         block has no mesh coverage. With ``emit_mips`` = k each covered
@@ -595,6 +709,7 @@ class DeviceRenderEngine:
         divide 2**k (or that pad) return mip0 only and the caller finishes
         the chain.
         """
+        _check_interp(interp)
         out_kind = _out_kind(out_dtype)
         if wts is None:
             wts = self._w
@@ -611,22 +726,24 @@ class DeviceRenderEngine:
             hp, wp, nm = key[0], key[1], key[2]
             Tp = max(prepared[i][3].shape[0] for i in idxs)
             Tp = _align_up(1 << int(Tp - 1).bit_length(), _CHUNK, _CHUNK)
-            tabs = np.zeros((len(idxs), Tp, 14), np.float32)
-            tabs[:, :, 2] = -2.0
-            tabs[:, :, 12] = -np.inf
-            tabs[:, :, 13] = -1.0
-            for k, i in enumerate(idxs):
-                t = prepared[i][3]
-                tabs[k, :t.shape[0]] = t
-            cands = None
-            if key[-1] == 'cells':
-                # padding entries point at row Tp-1, inert for every block
-                Kp = max(prepared[i][5].shape[-1] for i in idxs)
-                NC = prepared[idxs[0]][5].shape[0]
-                cands = np.full((len(idxs), NC, Kp), Tp - 1, np.int32)
+            with trace.span('render.tables'):
+                tabs = np.zeros((len(idxs), Tp, 14), np.float32)
+                tabs[:, :, 2] = -2.0
+                tabs[:, :, 12] = -np.inf
+                tabs[:, :, 13] = -1.0
                 for k, i in enumerate(idxs):
-                    c = prepared[i][5]
-                    cands[k, :, :c.shape[-1]] = c
+                    t = prepared[i][3]
+                    tabs[k, :t.shape[0]] = t
+                cands = None
+                if key[-1] == 'cells':
+                    # padding entries point at row Tp-1, inert for every
+                    # block
+                    Kp = max(prepared[i][5].shape[-1] for i in idxs)
+                    NC = prepared[idxs[0]][5].shape[0]
+                    cands = np.full((len(idxs), NC, Kp), Tp - 1, np.int32)
+                    for k, i in enumerate(idxs):
+                        c = prepared[i][5]
+                        cands[k, :, :c.shape[-1]] = c
             src, tabs, cands = state.render_batch_to_device(
                 None if key[3] == 'resident'
                 else [prepared[i][4] for i in idxs],
@@ -635,7 +752,7 @@ class DeviceRenderEngine:
                 src = resident[0]
             levels, cov = raster_blocks(
                 src, tabs, cands, float(fillval), hp, wp, self._geodesic,
-                out_kind, n_mips=nm, mip_blur=mip_blur)
+                out_kind, n_mips=nm, mip_blur=mip_blur, interp=interp)
             launched.append((idxs, key, levels, cov))
 
         def consume(entry):
@@ -657,7 +774,8 @@ class DeviceRenderEngine:
 
         self._render_prepare_dispatch(
             blocks, loader, fillval, out_kind, wts, shortcircuit,
-            resident, prepared, pending, dispatch, crop_kwargs, emit_mips)
+            resident, prepared, pending, dispatch, crop_kwargs, emit_mips,
+            interp)
         for key, idxs in pending.items():
             dispatch(key, idxs)
         for entry in launched:
@@ -667,9 +785,12 @@ class DeviceRenderEngine:
     def _render_prepare_dispatch(self, blocks, loader, fillval, out_kind,
                                  wts, shortcircuit, resident, prepared,
                                  pending, dispatch, crop_kwargs,
-                                 emit_mips=0):
+                                 emit_mips=0, interp='linear'):
         """Host prep: per-block candidate selection, coefficient table,
-        source crop; groups dispatch as soon as they fill."""
+        source crop (reaching ``_SRC_HALO[interp]`` px past the block's
+        source coordinates); groups dispatch as soon as they fill."""
+        halo = _SRC_HALO[interp]
+        on_card = self.device.type == 'cuda'
         for i, bbox in enumerate(blocks):
             x0 = int(np.floor(bbox[0]))
             y0 = int(np.floor(bbox[1]))
@@ -680,10 +801,11 @@ class DeviceRenderEngine:
                 continue
             sc = shortcircuit((x0, y0, x1, y1)) if shortcircuit else None
             if sc is None:
-                tb = self._tb
-                sel = np.nonzero((tb[:, 0] < x1) & (tb[:, 2] > x0) &
-                                 (tb[:, 1] < y1) & (tb[:, 3] > y0) &
-                                 np.isfinite(wts))[0]
+                with trace.span('render.tables'):
+                    tb = self._tb
+                    sel = np.nonzero((tb[:, 0] < x1) & (tb[:, 2] > x0) &
+                                     (tb[:, 1] < y1) & (tb[:, 3] > y0) &
+                                     np.isfinite(wts))[0]
                 if sel.size == 0:
                     continue
             hp = _align_up(h, _OUT_ALIGN, min(_OUT_ALIGN, 64))
@@ -706,10 +828,10 @@ class DeviceRenderEngine:
                     ps = cn @ np.asarray(A) + np.asarray(b)
                 else:
                     ps = self._Psrc[sel].reshape(-1, 2)
-                sx0 = int(np.floor(ps[:, 0].min())) - 2
-                sy0 = int(np.floor(ps[:, 1].min())) - 2
-                sx1 = int(np.ceil(ps[:, 0].max())) + 2
-                sy1 = int(np.ceil(ps[:, 1].max())) + 2
+                sx0 = int(np.floor(ps[:, 0].min())) - halo
+                sy0 = int(np.floor(ps[:, 1].min())) - halo
+                sx1 = int(np.ceil(ps[:, 0].max())) + halo
+                sy1 = int(np.ceil(ps[:, 1].max())) + halo
                 sw = _align_up(sx1 - sx0, _SRC_ALIGN, _SRC_ALIGN)
                 sh = _align_up(sy1 - sy0, _SRC_ALIGN, _SRC_ALIGN)
                 src = loader.crop((sx0, sy0, sx0 + sw, sy0 + sh),
@@ -722,14 +844,22 @@ class DeviceRenderEngine:
                 key = (hp, wp, nm, src.shape, src.dtype.name)
                 src_origin = (sx0, sy0)
             cand = None
-            if sc is not None:
-                tab = self._table_affine(sc[0], sc[1], (x0, y0), src_origin)
-            else:
-                tab = self._table_for_block(sel, (x0, y0), src_origin, wts)
-                if sel.size > _CELL_MIN_TRIS:
-                    cand = self._cells_for_block(sel, (x0, y0), hp, wp)
+            with trace.span('render.tables'):
+                if sc is not None:
+                    tab = self._table_affine(sc[0], sc[1], (x0, y0),
+                                             src_origin)
+                else:
+                    tab = self._table_for_block(sel, (x0, y0), src_origin,
+                                                wts)
+                    if sel.size > _CELL_MIN_TRIS:
+                        cand = self._cells_for_block(sel, (x0, y0), hp, wp)
             key = key + (('cells',) if cand is not None else ('flat',))
             prepared[i] = (h, w, key, tab, src, cand)
+            trace.count('render.blocks')
+            if on_card:
+                trace.count('render.device_blocks')
+            if interp == 'lanczos4':
+                trace.count('render.lanczos_px', h * w)
             grp = pending.setdefault(key, [])
             grp.append(i)
             if len(grp) >= _group_cap(key[0] * key[1]):

@@ -4,20 +4,26 @@
 output pixels live in the mesh's MOVING world frame; each pixel finds its
 triangle (scanline rasterization of the deformed mesh), and the triangle's
 affine map sends it back to INITIAL-frame source coordinates, which are
-sampled bilinearly. The host path (rasterize, field, cv2 remap, affine
-short-circuit) is the JAX package's host code; the device path renders on
-a torch device through ``ops.render.DeviceRenderEngine`` (the mesh-raster
-kernel on CUDA). The compute device picks the path
+sampled bilinearly or by Lanczos-4. The host path (rasterize, field, cv2
+remap, affine short-circuit) is the JAX package's host code; the device
+path renders on a torch device through ``ops.render.DeviceRenderEngine``
+(the mesh-raster kernel on CUDA, at ``INTER_LINEAR`` and
+``INTER_LANCZOS4``). The compute device picks the path
 (``resolve_device_render``), then what the engine can take
-(``MeshRenderer._device_render_ok``). ``VolumeRenderer``
+(``MeshRenderer._device_render_ok``). Either path renders inside the span
+``render.raster`` (the device path from a wave's first dispatch to its
+last fetch, the host path's ``render_by_subregions``); the host path
+counts its blocks (``render.blocks``) and the px it samples by Lanczos-4
+(``render.lanczos_px``), as the engine does. ``VolumeRenderer``
 renders aligned sections into a chunked volume (``dal.TensorStoreWriter``);
 it renders on the device in this process, and fans chunks out to process
 workers only on the host path.
 """
 
+import cv2
 import numpy as np
 
-from feabas_tpu_torch import common, storage
+from feabas_tpu_torch import common, storage, trace
 from feabas_tpu_torch import constant as const
 from feabas_tpu_torch import device as device_mod
 from feabas_tpu_torch.common import (interp_from_name, render_by_subregions,
@@ -62,10 +68,26 @@ def resolve_device_render(flag, device):
     return bool(flag)
 
 
+# cv2 interpolation flag -> the device raster's sampling mode
+_DEVICE_INTERPS = {cv2.INTER_LINEAR: 'linear',
+                   cv2.INTER_LANCZOS4: 'lanczos4'}
+
+
+def _render_on_host(map_x, map_y, mask, loader, **kwargs):
+    """``render_by_subregions`` inside the span ``render.raster``, its
+    blocks (of ``block_size``, 4096 by default) and Lanczos-4 px counted."""
+    h, w = map_x.shape
+    bs = int(kwargs.get('block_size', 4096))
+    trace.count('render.blocks', -(-h // bs) * -(-w // bs))
+    if kwargs.get('interpolation', cv2.INTER_LINEAR) == cv2.INTER_LANCZOS4:
+        trace.count('render.lanczos_px', h * w)
+    with trace.span('render.raster'):
+        return render_by_subregions(map_x, map_y, mask, loader, **kwargs)
+
+
 def _mip_down_host(img, mip_blur):
     """One host 2x mip step, matching mipmap.mip_one_level: optional
     Gaussian anti-alias then INTER_AREA."""
-    import cv2
     src = img
     if mip_blur and mip_blur > 0:
         src = cv2.GaussianBlur(np.asarray(img, np.float32), (0, 0),
@@ -456,13 +478,14 @@ class MeshRenderer:
                                      self.device)
 
     def _device_render_ok(self, loader, kwargs):
-        """The device raster covers single-channel sources, LINEAR
-        interpolation and u8/u16/f32 output without a host-side DoG."""
-        import cv2
+        """The device raster covers single-channel sources, LINEAR and
+        LANCZOS4 interpolation and u8/u16/f32 output without a host-side
+        DoG (CUBIC and NEAREST render on the host)."""
         from feabas_tpu_torch.ops.render import _out_kind
         if kwargs.get('log_sigma', 0):
             return False
-        if kwargs.get('interpolation', cv2.INTER_LINEAR) != cv2.INTER_LINEAR:
+        if kwargs.get('interpolation', cv2.INTER_LINEAR) \
+                not in _DEVICE_INTERPS:
             return False
         nc = getattr(loader, 'number_of_channels', None)
         if nc and nc > 1:
@@ -498,6 +521,8 @@ class MeshRenderer:
         render->mip pipeline.
         """
         eng = self._get_device_engine()
+        interp = _DEVICE_INTERPS[kwargs.get('interpolation',
+                                            cv2.INTER_LINEAR)]
         thr = kwargs.get('render_weight_threshold', None)
         wts = None
         if thr:
@@ -535,9 +560,11 @@ class MeshRenderer:
                     'interpolation', 'log_sigma', 'device_remap',
                     'emit_mips', 'mip_blur')
         crop_kwargs = {k: v for k, v in kwargs.items() if k not in _managed}
-        res = eng.render_blocks(flat, loader, float(fillval), dtype_out,
-                                wts=wts, shortcircuit=sc, emit_mips=emit_mips,
-                                mip_blur=mip_blur, **crop_kwargs)
+        with trace.span('render.raster'):
+            res = eng.render_blocks(flat, loader, float(fillval), dtype_out,
+                                    wts=wts, shortcircuit=sc,
+                                    emit_mips=emit_mips, mip_blur=mip_blur,
+                                    interp=interp, **crop_kwargs)
         if emit_mips:
             res = [None if r is None else
                    _complete_mip_tuple(r, emit_mips, mip_blur) for r in res]
@@ -574,7 +601,7 @@ class MeshRenderer:
             if kwargs.get('return_empty', False):
                 return None
             return self._filled(mask.shape, loader, kwargs)
-        img = render_by_subregions(map_x, map_y, mask, loader, **kwargs)
+        img = _render_on_host(map_x, map_y, mask, loader, **kwargs)
         return self._apply_log(img, mask, kwargs)
 
     @staticmethod
@@ -614,7 +641,7 @@ class MeshRenderer:
             if not mk.any():
                 return [None if kwargs.get('return_empty', False) else
                         self._filled(mk.shape, loader, kwargs)]
-            img = render_by_subregions(mx, my, mk, loader, **kwargs)
+            img = _render_on_host(mx, my, mk, loader, **kwargs)
             return [self._apply_log(img, mk, kwargs)]
         wmax = max(f[0].shape[1] for f in fields)
 
@@ -629,7 +656,7 @@ class MeshRenderer:
         MY = np.concatenate([padw(f[1], np.nan) for f in fields])
         MK = np.concatenate([padw(f[2], False) for f in fields])
         if MK.any():
-            big = render_by_subregions(MX, MY, MK, loader, **kwargs)
+            big = _render_on_host(MX, MY, MK, loader, **kwargs)
         else:
             big = None
         out = []

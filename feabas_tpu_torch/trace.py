@@ -42,6 +42,13 @@ Spans and counters in the port:
   ``thumbnail.ransac_calls``, ``thumbnail.ransac_trials``,
   ``thumbnail.coarse_matches``, ``thumbnail.refined_matches``: the
   thumbnail matcher's stages and what they kept (``thumbnail.py``);
+- ``render.raster``, ``render.tables`` (spans), ``render.blocks``,
+  ``render.device_blocks``, ``render.lanczos_px``: the mesh renderer's
+  raster of a crop wave, on the card route from the engine's first
+  dispatch to its last fetch, on the host route ``render_by_subregions``;
+  the engine's candidate and table build; the blocks rendered, those
+  rendered on a CUDA card, and the output px sampled by Lanczos-4
+  (``renderer.py``, ``ops/render.DeviceRenderEngine``);
 - ``<cli>.<mode>`` and ``<cli>.<mode>.<unit>``: the CLI drivers' stages
   and their per-section or per-pair work (``logging.stage_timer``);
 - ``launch``: each kernel launch made through ``device.launch_on``.

@@ -263,6 +263,51 @@ def test_device_crops_match_host(workdir, tmp_path):
              max_mismatch_frac=0.02)
 
 
+def _near_lanczos(want, got):
+    """``test_torch_render_lanczos.test_card_route_matches_the_host_route``'s
+    tolerance: the host route crops its source 2 px past a block's source
+    coordinates and reads the fill beyond, so a 4 px border is left out;
+    inside it, over 1 LSB only on a thin band of triangle edges."""
+    assert want.shape == got.shape and want.dtype == got.dtype
+    d = np.abs(want.astype(np.int32) - got.astype(np.int32))[4:-4, 4:-4]
+    return bool((d > 1).mean() <= 2e-3 and d.mean() < 0.05)
+
+
+@pytest.mark.parametrize('call', ['crop', 'crop_multiple'])
+def test_lanczos_card_route_matches_the_jax_package(call, workdir,
+                                                    monkeypatch):
+    """The port's card route at LANCZOS (the plain raster on the CPU)
+    against the JAX package's render of the same mesh and image at LANCZOS
+    (``crop_field`` in f64, then ``cv2.remap``): one bbox through ``crop``,
+    two overlapping ones through ``crop_multiple``. The port's host route is
+    barred, so a pass is the card route's (measured: over 1 LSB on 1e-5 of
+    the px, 0.0024 LSB on average). LINEAR in LANCZOS's place fails the
+    same tolerance (over 1 LSB on 43% of the px, 1.56 LSB on average)."""
+    import cv2
+    from feabas_tpu_torch import renderer as prenderer
+
+    def no_host(*a, **k):
+        raise AssertionError('the host route rendered a block')
+    monkeypatch.setattr(prenderer, 'render_by_subregions', no_host)
+    m = _smooth_mesh()
+    img = _world()
+    jr = HostRenderer.from_mesh(m, image_loader=JStreamLoader(img))
+    pr = MeshRenderer.from_mesh(_p(m), image_loader=StreamLoader(img),
+                                device='cpu')
+    bboxes = ([(16, 16, 496, 480)] if call == 'crop' else
+              [(16, 16, 272, 300), (200, 160, 496, 480)])
+
+    def render(r, interp, **kw):
+        if call == 'crop':
+            return [r.crop(bboxes[0], interpolation=interp, **kw)]
+        return r.crop_multiple(bboxes, interpolation=interp, **kw)
+    want = render(jr, cv2.INTER_LANCZOS4)
+    got = render(pr, cv2.INTER_LANCZOS4, device_render=True)
+    assert all(_near_lanczos(w, g) for w, g in zip(want, got))
+    linear = render(pr, cv2.INTER_LINEAR, device_render=True)
+    assert not any(_near_lanczos(w, g) for w, g in zip(want, linear))
+
+
 @pytest.mark.parametrize('cap', [1, 4])
 def test_render_blocks_matches_jax_engine(cap, workdir, monkeypatch):
     """The port's engine against the JAX engine, over flat and cells
@@ -610,16 +655,18 @@ def _card_case(case, dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('interp', render.INTERPS)
 @pytest.mark.parametrize('case', [
     'mesh_flat_chunks', 'mesh_cells', 'mesh_hole', 'mesh_f32_source',
     'fold_flat', 'fold_cells', 'flat_1x1_u16', 'flat_3x5_f32',
     'flat_130x70_u16', 'flat_130x70_f32', 'flat_corner_tile', 'cells_k4'])
-def test_raster_kernel_matches_plain_on_card(case):
+def test_raster_kernel_matches_plain_on_card(case, interp):
     """The kernel is bit-equal to the plain version, coverage flags
-    included, at the edges of its design: a flat table walked in chunks
-    (more than 256 rows), cells with K = 64 and K = 4, a cell with only
-    padding candidates, an f32 source, the geodesic mask, ragged flat
-    blocks with u16 and f32 outputs, and real rows in one corner tile."""
+    included, in both sampling modes, at the edges of its design: a flat
+    table walked in chunks (more than 256 rows), cells with K = 64 and
+    K = 4, a cell with only padding candidates, an f32 source, the geodesic
+    mask, ragged flat blocks with u16 and f32 outputs, and real rows in one
+    corner tile (its Lanczos-4 taps reaching past the source's edge)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA GPU')
     dev = device_mod.get_device('cuda')
@@ -629,8 +676,8 @@ def test_raster_kernel_matches_plain_on_card(case):
     if case == 'mesh_cells':
         assert cands.shape[-1] == 64
     got, cov = render.raster_blocks(src, tabs, cands, 7.0, h, w, geodesic,
-                                    kind)
+                                    kind, interp=interp)
     want, pcov = render.raster_blocks_plain(src, tabs, cands, 7.0, h, w,
-                                            geodesic, kind)
+                                            geodesic, kind, interp=interp)
     assert got[0].dtype == want[0].dtype and cov.dtype == torch.bool
     assert torch.equal(got[0], want[0]) and torch.equal(cov, pcov)
