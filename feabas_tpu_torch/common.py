@@ -13,6 +13,7 @@ import json
 import struct
 import zlib
 from collections import namedtuple
+from concurrent import futures
 
 import cv2
 import numpy as np
@@ -116,6 +117,56 @@ def imwrite(path, img, **kwargs):
             storage.makedirs(d)
         if not cv2.imwrite(path, img):
             raise RuntimeError(f'failed to write image {path}')
+    trace.count('blender.encodes')
+
+
+def imwrite_many(items):
+    """Write each ``(path, img)`` of items as ``imwrite(path, img)`` would,
+    side by side where the process has the cores for it.
+
+    The width is the loaders' decode width (``dal._decode_width``): as many
+    files as there are, up to the cores; one in a process that
+    multiprocessing started, and then this is ``imwrite`` in a loop.
+    Wider, the calling thread writes the first file itself while the
+    others go to the decode pool (``cv2.imwrite`` releases the GIL), at
+    most width - 1 of them in flight there. Every write goes through the
+    module's ``imwrite``, so a wrapper put on it wraps each. The first
+    exception reaches the caller once every write in flight has ended;
+    no file after it is started."""
+    from feabas_tpu_torch import dal
+    items = list(items)
+    width = dal._decode_width(len(items))
+    if width < 2:
+        for path, img in items:
+            imwrite(path, img)
+        return
+    trace.count('render.encode_batches')
+    pool = dal.decode_pool()
+    rest = iter(items[1:])
+    inflight = set()
+
+    def submit():
+        item = next(rest, None)
+        if item is not None:
+            inflight.add(pool.submit(imwrite, *item))
+    with trace.span('render.encode_batch'):
+        try:
+            for _ in range(width - 1):
+                submit()
+            imwrite(*items[0])
+            trace.count('render.batched_encodes')
+            while inflight:
+                done, _ = futures.wait(inflight,
+                                       return_when=futures.FIRST_COMPLETED)
+                for f in done:
+                    inflight.discard(f)
+                    f.result()
+                    trace.count('render.batched_encodes')
+                    submit()
+        finally:
+            for f in inflight:
+                f.cancel()
+            futures.wait(inflight)
 
 
 # ------------------------------ masks & filters ------------------------------ #

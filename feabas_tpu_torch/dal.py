@@ -44,12 +44,13 @@ def _cores():
 
 
 def decode_pool():
-    """The process's one thread pool of tile decodes, made at first use,
-    one thread a core the process may run on. ``cv2.imread`` releases the
-    GIL, so the threads decode side by side; every loader and every
-    thread of a threaded fan-out shares the pool, so the process never
-    decodes on more threads than it has cores. A task on the pool never
-    submits to it."""
+    """The process's one thread pool of tile decodes and encodes, made at
+    first use, one thread a core the process may run on. ``cv2.imread``
+    and ``cv2.imwrite`` release the GIL, so the threads decode (and
+    ``common.imwrite_many``'s files encode) side by side; every loader and
+    every thread of a threaded fan-out shares the pool, so the process
+    never runs its codecs on more threads than it has cores. A task on
+    the pool never submits to it."""
     global _POOL
     with _POOL_LOCK:
         if _POOL is None:

@@ -739,17 +739,21 @@ def render_whole_mesh(mesh, image_loader, prefix, **kwargs):
     on_device = resolve_device_render(kwargs.get('device_render', None), dev)
     out = {}
 
+    def files(fname, blk):
+        """[(path, image)] of a tile: mip0 (+ fused mip levels when
+        requested)."""
+        if not emit_mips:
+            return [(fname, blk)]
+        mips = (blk if isinstance(blk, tuple)
+                else _host_mip_tuple(blk, emit_mips, mip_blur))
+        base = storage.base_name(fname)
+        return [(fname, mips[0])] + [
+            (storage.join_paths(str(d), base), mips[lvl])
+            for lvl, d in enumerate(mip_dirs, start=1)]
+
     def emit(fname, bbox, blk):
-        """Write mip0 (+ fused mip levels when requested)."""
-        if emit_mips:
-            mips = (blk if isinstance(blk, tuple)
-                    else _host_mip_tuple(blk, emit_mips, mip_blur))
-            common.imwrite(fname, mips[0])
-            base = storage.base_name(fname)
-            for lvl, d in enumerate(mip_dirs, start=1):
-                common.imwrite(storage.join_paths(str(d), base), mips[lvl])
-        else:
-            common.imwrite(fname, blk)
+        for path, img in files(fname, blk):
+            common.imwrite(path, img)
         out[fname] = bbox
 
     loader_spec = None
@@ -780,9 +784,12 @@ def render_whole_mesh(mesh, image_loader, prefix, **kwargs):
             grp = jobs[i0:i0 + wave]
             blks = renderer.crop_multiple([b for _, b in grp],
                                           return_empty=True, **kwargs)
-            for (fname, bbox), blk in zip(grp, blks):
-                if blk is not None:
-                    emit(fname, bbox, blk)
+            kept = [(fname, bbox, blk) for (fname, bbox), blk
+                    in zip(grp, blks) if blk is not None]
+            common.imwrite_many([f for fname, _, blk in kept
+                                 for f in files(fname, blk)])
+            for fname, bbox, _ in kept:
+                out[fname] = bbox
         _write_mip_metadata(out, mip_dirs, image_loader)
         return out
     for fname, bbox in jobs:

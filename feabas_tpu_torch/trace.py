@@ -31,7 +31,14 @@ Spans and counters in the port:
 - ``loader.resize``: the align loader's area downscale to the working mip;
 - ``loader.cache_lookups``, ``loader.cache_hits``: the image loaders'
   cache gets (whole images and border bands);
-- ``blender.encode``: each image file encoded (``common.imwrite``);
+- ``blender.encode`` (span), ``blender.encodes``: each image file
+  encoded and written (``common.imwrite``);
+- ``render.encode_batch`` (span), ``render.encode_batches``,
+  ``render.batched_encodes``: a list of files written side by side on
+  the decode pool (``common.imwrite_many``, the mesh renderer's card
+  route writes a wave's tiles so), on the calling thread from the
+  first submit to the last write's end, and the files it wrote, the
+  calling thread's own included;
 - ``matcher.seed``: the align matcher's global translation seed;
 - ``io.h5``: mesh, match and stitcher H5 reads and writes;
 - ``solver.cg_calls``, ``solver.cg_iters``: each CG solve and the loop

@@ -105,8 +105,9 @@ def test_a_traced_run_reads_the_cells_span_and_counter_metrics():
              and render_proof.CELL in m.get('workloads', [])]
     assert sorted(names) == ['loader.batched_decode_pct',
                              'loader.cache_hit_pct', 'loader.meta_decode_pct',
-                             'loader.s_mpx', 'render.device_pct',
-                             'render.encode_s_mpx', 'render.raster_s_mpx']
+                             'loader.s_mpx', 'render.batched_encode_pct',
+                             'render.device_pct', 'render.encode_s_mpx',
+                             'render.raster_s_mpx']
     for n in names:
         assert isinstance(r['metrics'][n]['value'], float), (n, r['metrics'])
     assert r['metrics']['render.device_pct']['value'] == 0.0

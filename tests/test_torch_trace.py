@@ -70,7 +70,8 @@ def test_imread_counts_one_decode_and_its_pixels(tmp_path, shape):
     img = np.random.default_rng(0).integers(0, 255, shape, dtype=np.uint8)
     path = str(tmp_path / 'a.png')
     common.imwrite(path, img)
-    assert trace.counters() == {}
+    assert trace.counters() == {'blender.encodes': 1}
+    trace.reset_counters()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         got = common.imread(path)
     np.testing.assert_array_equal(got, img)
@@ -87,6 +88,7 @@ def test_imwrite_opens_the_encode_span(tmp_path):
         common.imwrite(str(tmp_path / 'b.png'), img)
     assert len(_ranges(prof)['blender.encode']) == 1
     assert 'loader.decode' not in _ranges(prof)
+    assert trace.counters()['blender.encodes'] == 1
 
 
 def _tile_loader(tmp_path, **kwargs):
