@@ -900,6 +900,17 @@ class TensorStoreWriter:
         """Drop the handle; next access reopens (reference: dal.py:1207)."""
         self._dataset = None
 
+    def _count_write(self, box):
+        """Count one store write of ``box`` [(lo, hi)] over (x, y, z), and
+        whether it covers part of a storage chunk's extent (a store
+        read-modify-writes such a chunk)."""
+        trace.count('volume.chunk_writes')
+        for (lo, hi), c, n in zip(box, self.chunk_shape, self.size):
+            if lo % c or (hi % c and hi != n):
+                trace.count('volume.partial_writes')
+                return
+
+    @trace.spanned('volume.write')
     def write_single_chunk(self, bbox, z, img, txn=None, ts_retry=None):
         """Write one (y, x) image block at world bbox into section z, with
         timeout/reconnect retries (reference: dal.py:1372,1207)."""
@@ -908,6 +919,7 @@ class TensorStoreWriter:
         b = int(bbox[1] - y0)
         c = a + img.shape[1]
         d = b + img.shape[0]
+        self._count_write([(a, c), (b, d), (int(z), int(z) + 1)])
         blk = np.ascontiguousarray(np.swapaxes(img, 0, 1))
 
         def write():
@@ -924,6 +936,7 @@ class TensorStoreWriter:
             return
         _ts_retrying(write, self.reconnect, retries=ts_retry)
 
+    @trace.spanned('volume.write')
     def write_chunks_w_transaction(self, bboxes, z, imgs, ts_retry=None):
         """Atomically write several chunks in one transaction, retried with
         reconnect on transient failure (reference: dal.py:1429)."""
@@ -950,20 +963,23 @@ class TensorStoreWriter:
         raise TimeoutError(f'transactional write failed after '
                            f'{retries + 1} attempts: {err!r}')
 
+    @trace.spanned('volume.write')
     def write_slab(self, bbox, z0, stack, ts_retry=None):
-        """Write a full-depth slab block in ONE write.
+        """Write a slab block in ONE write.
 
         ``stack`` is (dz, H, W): the same xy chunk across consecutive
         sections z0..z0+dz. Writing whole-depth slabs means each
         (chunk-depth-deep) storage chunk is touched exactly once instead
         of read-modify-written per section (reference plan_one_slab:
-        renderer.py:1009-1103)."""
+        renderer.py:1009-1103); a stack over part of a chunk's depth
+        leaves its other layers as stored."""
         x0, y0 = self.offset
         a = int(bbox[0] - x0)
         b = int(bbox[1] - y0)
         c = a + stack.shape[2]
         d = b + stack.shape[1]
         z1 = int(z0) + stack.shape[0]
+        self._count_write([(a, c), (b, d), (int(z0), z1)])
         blk = np.ascontiguousarray(np.transpose(stack, (2, 1, 0)))
 
         def write():

@@ -979,6 +979,7 @@ class VolumeRenderer:
                     for bbox, blk in zip(group, blks):
                         if blk is not None:
                             self.writer.write_single_chunk(bbox, z, blk)
+                            _count_layer(blk)
                             n_written += 1
                         done.add((int(bbox[0]), int(bbox[1])))
                         flush()
@@ -992,8 +993,14 @@ class VolumeRenderer:
 
         Sections whose z falls in [z0, z0+depth) render together; each xy
         chunk's blocks stack into a (dz, H, W) slab written in one write.
-        Per-slab flag JSONs record completed xy chunks for resume
-        (reference plan_one_slab: renderer.py:1009-1103)."""
+        A call whose sections fill only part of a slab writes only their
+        layers (a contiguous run of them in one write), leaving the
+        chunk's other layers as stored. Per-slab flag JSONs record, for
+        resume and for later calls over the slab's other sections, the xy
+        chunks done for every layer of the slab (``done``, as the JAX
+        package writes them) and the single layers done of the rest
+        (``layers``: [x, y, z]) (reference plan_one_slab:
+        renderer.py:1009-1103)."""
         import json as _json
         import time as _time
         from feabas_tpu_torch.mesh import Mesh
@@ -1004,30 +1011,52 @@ class VolumeRenderer:
             slabs.setdefault(z0, []).append((int(z), name, mesh_src))
         n_written = 0
         for z0 in sorted(slabs):
-            entries = sorted(slabs[z0], key=lambda e: e[0])
+            dz = min(depth, int(self.writer.size[2]) - z0)
+            entries = [e for e in sorted(slabs[z0], key=lambda e: e[0])
+                       if e[0] < z0 + dz]
+            if not entries:
+                continue
             meshes = [m if not isinstance(m, str) else Mesh.from_h5(m)
                       for _, _, m in entries]
             flags_path = storage.join_paths(
                 self.flag_dir, f'slab{z0:05d}_flags.json') \
                 if self.flag_dir else None
-            done = set()
+            done, layers = set(), set()
             if flags_path and storage.file_exists(flags_path):
                 with storage.File(flags_path, 'r') as f:
-                    done = set(tuple(c) for c in _json.load(f).get('done', []))
+                    flags = _json.load(f)
+                done = set(tuple(c) for c in flags.get('done', []))
+                layers = set(tuple(c) for c in flags.get('layers', []))
             bounds = np.asarray(
                 [m.bbox(gear=const.MESH_GEAR_MOVING) for m in meshes])
             union = (bounds[:, 0].min(), bounds[:, 1].min(),
                      bounds[:, 2].max(), bounds[:, 3].max())
-            chunks = [b for b in self.writer.plan_chunks(union)
-                      if (int(b[0]), int(b[1])) not in done]
+            chunks, pending = [], {}
+            for b in self.writer.plan_chunks(union):
+                key = (int(b[0]), int(b[1]))
+                if key in done:
+                    continue
+                zs = [e[0] for e in entries if key + (e[0],) not in layers]
+                if zs:
+                    chunks.append(b)
+                    pending[key] = zs
             last_flush = _time.time()
+
+            def finished(key):
+                """Record the pending layers of chunk ``key`` done."""
+                layers.update(key + (z,) for z in pending[key])
+                if all(key + (z,) in layers for z in range(z0, z0 + dz)):
+                    done.add(key)
+                    layers.difference_update(
+                        key + (z,) for z in range(z0, z0 + dz))
 
             def flush(force=False):
                 nonlocal last_flush
                 if flags_path and (force or _time.time() - last_flush
                                    > CHECKPOINT_TIME_INTERVAL):
                     with storage.File(flags_path, 'w') as f:
-                        _json.dump({'done': sorted(done)}, f)
+                        _json.dump({'done': sorted(done),
+                                    'layers': sorted(layers)}, f)
                     last_flush = _time.time()
 
             # per-entry loader spec for worker fan-out (host path only:
@@ -1052,13 +1081,15 @@ class VolumeRenderer:
                 from feabas_tpu_torch.concurrent import submit_to_workers
                 batches = [chunks[i:i + chunks_per_job]
                            for i in range(0, len(chunks), chunks_per_job)]
-                args = [(entry_specs, self.writer, batch, z0, depth,
-                         self._interp, False)
+                args = [(entry_specs, self.writer, batch, z0, dz,
+                         self._interp, False,
+                         [pending[(int(b[0]), int(b[1]))] for b in batch])
                         for batch in batches]
                 for keys, wrote in submit_to_workers(
                         subprocess_render_volume_slab, args,
                         num_workers=num_workers):
-                    done.update(tuple(k) for k in keys)
+                    for k in keys:
+                        finished(tuple(k))
                     n_written += wrote
                     flush()
             else:
@@ -1068,11 +1099,12 @@ class VolumeRenderer:
                         mesh, image_loader=self._get_loader(name),
                         device=self.device)))
                 for bbox in chunks:
-                    wrote = _render_one_slab_chunk(
-                        renderers, self.writer, bbox, z0, depth,
-                        interp=self._interp, device_render=dev)
-                    n_written += wrote
-                    done.add((int(bbox[0]), int(bbox[1])))
+                    key = (int(bbox[0]), int(bbox[1]))
+                    n_written += _render_one_slab_chunk(
+                        [(z, r) for z, r in renderers if z in pending[key]],
+                        self.writer, bbox, z0, dz, interp=self._interp,
+                        device_render=dev)
+                    finished(key)
                     flush()
             flush(force=True)
             if self.logger:
@@ -1081,29 +1113,54 @@ class VolumeRenderer:
         return n_written
 
 
-def _render_one_slab_chunk(renderers, writer, bbox, z0, depth,
+def _count_layer(blk):
+    """Count one section layer rendered into a written chunk."""
+    trace.count('volume.layers')
+    trace.count('volume.layer_px', blk.shape[0] * blk.shape[1])
+
+
+def _runs(ks):
+    """Sorted integers ``ks`` cut into runs of consecutive values:
+    [(first, last)]."""
+    out = []
+    for k in sorted(ks):
+        if out and k == out[-1][1] + 1:
+            out[-1][1] = k
+        else:
+            out.append([k, k])
+    return out
+
+
+def _render_one_slab_chunk(renderers, writer, bbox, z0, dz,
                            interp='LINEAR', device_render=None):
-    """Render one xy chunk across a slab's sections and write it once.
-    ``renderers``: [(z, MeshRenderer)]. Returns 1 if written, else 0."""
-    layers = {}
-    dtype = None
-    for z, r in renderers:
-        blk = r.crop(bbox, return_empty=True,
-                     interpolation=interp_from_name(interp),
-                     device_render=device_render)
-        if blk is not None:
-            layers[z - z0] = blk
-            dtype = blk.dtype
-    if not layers:
-        return 0
-    H, W = next(iter(layers.values())).shape[:2]
-    dz = min(depth, writer.size[2] - z0)
-    stack = np.zeros((dz, H, W), dtype)
-    for k, blk in layers.items():
-        if 0 <= k < dz:
-            stack[k] = blk
-    writer.write_slab(bbox, z0, stack)
-    return 1
+    """Render one xy chunk across the sections ``renderers`` ([(z,
+    MeshRenderer)]) of the slab [z0, z0 + dz) and write their layers: one
+    write for each run of consecutive z, a layer no block covers at the
+    store's fill (0). Nothing is written where no layer has a block.
+    Returns the writes issued."""
+    with trace.span('volume.chunk'):
+        layers = {}
+        for z, r in renderers:
+            blk = r.crop(bbox, return_empty=True,
+                         interpolation=interp_from_name(interp),
+                         device_render=device_render)
+            if blk is not None:
+                layers[z - z0] = blk
+        if not layers:
+            return 0
+        first = next(iter(layers.values()))
+        H, W = first.shape[:2]
+        for blk in layers.values():
+            _count_layer(blk)
+        trace.count('volume.empty_layers', len(renderers) - len(layers))
+        runs = _runs(z - z0 for z, _ in renderers)
+        for k0, k1 in runs:
+            stack = np.zeros((k1 - k0 + 1, H, W), first.dtype)
+            for k in range(k0, k1 + 1):
+                if k in layers:
+                    stack[k - k0] = layers[k]
+            writer.write_slab(bbox, z0 + k0, stack)
+        return len(runs)
 
 
 def _worker_renderer(mesh_init, loader_spec, union):
@@ -1129,23 +1186,23 @@ def _bbox_union(chunk_bboxes):
 
 
 def subprocess_render_volume_slab(entry_specs, writer, chunk_bboxes, z0,
-                                  depth, interp='LINEAR',
-                                  device_render=False):
-    """Worker: render a batch of slab chunks (all sections of one slab) on
-    the host (reference subprocess_render_partial_ts_slab:
+                                  dz, interp, device_render, chunk_zs):
+    """Worker: render a batch of chunks of the slab [z0, z0 + dz) on the
+    host (reference subprocess_render_partial_ts_slab:
     renderer.py:1385).
 
-    ``entry_specs``: [(z, mesh_init_dict, loader_spec)]. Meshes submesh to
-    the batch union so huge sections don't fully load per job. Returns
+    ``entry_specs``: [(z, mesh_init_dict, loader_spec)]; ``chunk_zs``, a
+    list of z for each chunk, the sections to render there. Meshes submesh
+    to the batch union so huge sections don't fully load per job. Returns
     (done_keys, num_written)."""
     union = _bbox_union(chunk_bboxes)
     renderers = [(int(z), _worker_renderer(mesh_init, loader_spec, union))
                  for z, mesh_init, loader_spec in entry_specs]
     keys, wrote = [], 0
-    for bbox in chunk_bboxes:
-        wrote += _render_one_slab_chunk(renderers, writer, bbox, z0, depth,
-                                        interp=interp,
-                                        device_render=device_render)
+    for bbox, zs in zip(chunk_bboxes, chunk_zs):
+        wrote += _render_one_slab_chunk(
+            [(z, r) for z, r in renderers if z in zs], writer, bbox,
+            z0, dz, interp=interp, device_render=device_render)
         keys.append((int(bbox[0]), int(bbox[1])))
     return keys, wrote
 
@@ -1169,6 +1226,7 @@ def subprocess_render_volume_chunks(mesh_init, loader_spec, writer,
                             device_render=device_render)
         if blk is not None:
             writer.write_single_chunk(bbox, z, blk)
+            _count_layer(blk)
             wrote += 1
         keys.append((int(bbox[0]), int(bbox[1])))
     return keys, wrote

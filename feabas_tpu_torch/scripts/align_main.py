@@ -454,7 +454,9 @@ def render_main(args, conf, logger):
 def tsr_main(args, conf, logger):
     """Render the aligned stack into a chunked volume (reference:
     align_main.py:477); with ``--filter`` an isolated sub-volume of the
-    matching sections under ``<out_dir>/<filter>``, z renumbered from 0."""
+    matching sections under ``<out_dir>/<filter>``, z renumbered from 0.
+    ``--start/--stop/--step`` render part of the stack into the volume of
+    the whole: the chunk layers of the other sections stay as stored."""
     from feabas_tpu_torch.mesh import Mesh
     from feabas_tpu_torch.dal import TensorStoreWriter
     from feabas_tpu_torch.renderer import VolumeRenderer
@@ -472,7 +474,7 @@ def tsr_main(args, conf, logger):
         out_dir = join_paths(out_dir, args.filter)
     tform_list = []
     boxes = []
-    loaders = {}
+    metas = {}
     for name, meta in sections:
         t = join_paths(tform_dir, name + '.h5')
         if not storage.file_exists(t):
@@ -480,7 +482,7 @@ def tsr_main(args, conf, logger):
         mesh = Mesh.from_h5(t)
         boxes.append(mesh.bbox(gear='MOVING'))
         tform_list.append((zmap[name], name, mesh))
-        loaders[name] = meta
+        metas[name] = meta
     if not tform_list:
         logger.warning('tsr: no aligned sections found')
         return
@@ -504,7 +506,11 @@ def tsr_main(args, conf, logger):
         resolution=config.montage_resolution(),
         thickness=config.section_thickness(),
         jpeg_compression=tconf.get('jpeg_compression', False))
-    vr = VolumeRenderer(tform_list[z_lo:z_hi:args.step], loaders, writer,
+    chosen = tform_list[z_lo:z_hi:args.step]
+    loader_config = tconf.get('loader_config') or {}
+    loaders = {name: section_loader(metas[name], **loader_config)
+               for _, name, _ in chosen}
+    vr = VolumeRenderer(chosen, loaders, writer,
                         flag_dir=join_paths(out_dir, 'render_flags'),
                         logger=logger,
                         remap_interp=tconf.get('remap_interp', 'LINEAR'),

@@ -56,6 +56,16 @@ Spans and counters in the port:
   the engine's candidate and table build; the blocks rendered, those
   rendered on a CUDA card, and the output px sampled by Lanczos-4
   (``renderer.py``, ``ops/render.DeviceRenderEngine``);
+- ``volume.chunk`` (span): one xy chunk of a volume slab, its layers'
+  crops, the stack and the write (``renderer._render_one_slab_chunk``);
+  ``volume.write`` (span): the volume writer's transpose and store write
+  (``dal.TensorStoreWriter``); ``volume.chunk_writes``,
+  ``volume.partial_writes``: the writer's store writes, and those that
+  cover part of a storage chunk's extent (the store read-modify-writes
+  that chunk); ``volume.layers``, ``volume.layer_px``: the section layers
+  rendered into written chunks and their H x W; ``volume.empty_layers``:
+  layers of a written slab chunk that no block covered, left at the
+  store's fill (``renderer.py``);
 - ``<cli>.<mode>`` and ``<cli>.<mode>.<unit>``: the CLI drivers' stages
   and their per-section or per-pair work (``logging.stage_timer``);
 - ``launch``: each kernel launch made through ``device.launch_on``.

@@ -38,6 +38,7 @@ from feabas_tpu_torch import config as pconfig
 from feabas_tpu_torch import dal as pdal
 from feabas_tpu_torch import mipmap as pmipmap
 from feabas_tpu_torch import renderer as prenderer
+from feabas_tpu_torch import trace as ptrace
 from feabas_tpu_torch.common import imread
 from feabas_tpu_torch.mesh import Mesh as PMesh
 
@@ -278,6 +279,181 @@ def test_volume_slab_single_write_per_chunk(tile_volume, tmp_path,
                                 device_render=False).render_volume()
         assert calls['slab'] == n == len(writer.plan_chunks()) == 9
     _assert_within_one_lsb(_read_all(vols['port']), _read_all(vols['jax']))
+
+
+def _render_calls(tform_list, loaders, writer, parts, flag_dir=None):
+    """``VolumeRenderer`` calls over the sections ``parts`` (slices of
+    ``tform_list``) on the host, one after another: [(writes, counters)]
+    of each call."""
+    out = []
+    for part in parts:
+        ptrace.reset_counters()
+        n = prenderer.VolumeRenderer(tform_list[part], dict(loaders), writer,
+                                     flag_dir=flag_dir,
+                                     device_render=False).render_volume()
+        out.append((n, ptrace.counters()))
+    return out
+
+
+@pytest.mark.parametrize('flags', [False, True])
+def test_split_calls_over_a_slab_write_the_whole_calls_volume(
+        tile_volume, tmp_path, backend, flags):
+    """Calls over sections [0, 2) and [2, 4) of a 4-deep-chunk volume
+    write the volume one call over [0, 4) writes, with a flag dir and
+    without: each call writes only its own sections' layers of each chunk,
+    in writes over part of a chunk's depth (``volume.partial_writes``),
+    and the other layers stay as stored; the whole call writes each chunk
+    once, whole. With flags, a call over [0, 4) after the call over
+    [0, 2) renders only sections 2 and 3, and a resumed call writes
+    nothing."""
+    tform_list, loaders, (w, h) = tile_volume
+
+    def volume(name, parts):
+        out = str(tmp_path / name)
+        writer = pdal.TensorStoreWriter.create(
+            out, (0, 0, w + 20, h + 20), 4,
+            driver='neuroglancer_precomputed', chunk_shape=[64, 64, 4])
+        calls = _render_calls(tform_list, loaders, writer, parts,
+                              str(tmp_path / f'{name}_flags') if flags
+                              else None)
+        return _read_all(out), calls
+
+    whole, [(n, c)] = volume('whole', [slice(0, 4)])
+    assert n == c['volume.chunk_writes'] == 9
+    assert 'volume.partial_writes' not in c
+    assert c['volume.layers'] == 36
+    split, calls = volume('split', [slice(0, 2), slice(2, 4)])
+    for n, c in calls:
+        assert n == c['volume.chunk_writes'] == c['volume.partial_writes'] == 9
+        assert c['volume.layers'] == 18
+    assert whole[..., 2:].any() and np.array_equal(split, whole)
+    if not flags:
+        return
+    later, calls = volume('later', [slice(0, 2), slice(0, 4), slice(0, 4)])
+    assert np.array_equal(later, whole)
+    (_, first), (n, c), (again, resumed) = calls
+    assert n == c['volume.partial_writes'] == 9
+    assert c['volume.layers'] == 18              # sections 2 and 3 alone
+    assert again == 0 and 'volume.chunk_writes' not in resumed
+    with open(tmp_path / 'later_flags' / 'slab00000_flags.json') as f:
+        saved = json.load(f)
+    assert len(saved['done']) == 9 and saved['layers'] == []
+
+
+def test_a_call_over_noncontiguous_sections_writes_each_run(
+        tile_volume, tmp_path, backend):
+    """Sections 0 and 2 of a 4-deep-chunk slab: one write of each, the
+    layers of 1 and 3 left as stored; the flags then hold the single
+    layers done, and a call over the other two completes the volume."""
+    tform_list, loaders, (w, h) = tile_volume
+    vols = {}
+    for name, parts in (('whole', [slice(0, 4)]),
+                        ('steps', [slice(0, 4, 2), slice(1, 4, 2)])):
+        out = str(tmp_path / name)
+        writer = pdal.TensorStoreWriter.create(
+            out, (0, 0, w + 20, h + 20), 4,
+            driver='neuroglancer_precomputed', chunk_shape=[64, 64, 4])
+        calls = _render_calls(tform_list, loaders, writer, parts,
+                              str(tmp_path / f'{name}_flags'))
+        vols[name] = _read_all(out)
+        if name == 'steps':
+            n, c = calls[0]
+            assert n == c['volume.chunk_writes'] == 18
+            assert c['volume.partial_writes'] == 18
+    assert np.array_equal(vols['steps'], vols['whole'])
+
+
+def test_volume_spans_and_counters(tmp_path, workdir, rng):
+    """One slab call records the chunk and write spans, counts each layer
+    rendered into a written chunk, its px and the layers no block covered;
+    a later call over one section counts its write over part of a chunk's
+    depth. Section 1 covers only the first chunk."""
+    from torch.profiler import ProfilerActivity, profile
+    img = texture(rng, 160, 160).astype(np.uint8)
+    tform_list, loaders = [], {}
+    for z, side in enumerate((160, 60)):
+        loaders[f's{z}'] = pdal.StreamLoader(img[:side, :side])
+        tform_list.append((z, f's{z}', PMesh.from_bbox(
+            (0, 0, side, side), cartesian=True, mesh_size=40, uid=z)))
+    writer = pdal.TensorStoreWriter.create(
+        str(tmp_path / 'v'), (0, 0, 160, 160), 2, chunk_shape=[64, 64, 2])
+    ptrace.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert prenderer.VolumeRenderer(tform_list, dict(loaders), writer,
+                                        device_render=False
+                                        ).render_volume() == 9
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert {'feabas.volume.chunk', 'feabas.volume.write'} <= names
+    assert ptrace.counters() == {**ptrace.counters(),
+                                 'volume.chunk_writes': 9,
+                                 'volume.layers': 10,
+                                 'volume.layer_px': 160 * 160 + 64 * 64,
+                                 'volume.empty_layers': 8}
+    assert 'volume.partial_writes' not in ptrace.counters()
+    (n, c), = _render_calls(tform_list, loaders, writer, [slice(1, 2)])
+    assert n == c['volume.chunk_writes'] == c['volume.partial_writes'] == 1
+    assert c['volume.layers'] == 1 and c['volume.empty_layers'] == 0
+
+
+def _tsr_workdir(workdir, tile_volume, **tsr):
+    """``tile_volume``'s sections and transforms laid out in ``workdir`` as
+    the align driver reads them, and its tensorstore_rendering overrides:
+    the host route, chunks 4 sections deep, and ``tsr``."""
+    import shutil
+    tform_list, loaders, (w, h) = tile_volume
+    for _, name, mesh_path in tform_list:
+        sec = workdir / 'stitched_sections' / 'mip0' / name
+        sec.mkdir(parents=True, exist_ok=True)
+        shutil.copy(loaders[name], sec / 'metadata.txt')
+        (workdir / 'align' / 'tform').mkdir(parents=True, exist_ok=True)
+        shutil.copy(mesh_path, workdir / 'align' / 'tform' / (name + '.h5'))
+    (workdir / 'configs').mkdir(exist_ok=True)
+    conf = {'chunk_shape': [64, 64, 4], 'canvas_bbox': [0, 0, w + 20, h + 20],
+            'device_render': False}
+    conf.update(tsr)
+    (workdir / 'configs' / 'alignment_configs.yaml').write_text(
+        json.dumps({'tensorstore_rendering': conf}))
+    pconfig.clear_config_caches()
+
+
+def test_tsr_start_stop_split_writes_the_whole_stacks_volume(
+        tile_volume, workdir, tmp_path, backend):
+    """``align_main --mode tsr --stop 2`` then ``--start 2`` write the
+    volume one call over the stack writes."""
+    from feabas_tpu_torch.scripts import align_main
+    vols = {}
+    for name, calls in (('whole', [[]]),
+                        ('split', [['--stop', '2'], ['--start', '2']])):
+        vols[name] = str(tmp_path / name)
+        _tsr_workdir(workdir, tile_volume, out_dir=vols[name])
+        for extra in calls:
+            align_main.main(['--mode', 'tsr'] + extra)
+    whole = _read_all(vols['whole'])
+    assert whole.shape[2] == 4 and whole[..., 3].any()
+    assert np.array_equal(_read_all(vols['split']), whole)
+
+
+def test_tsr_loaders_take_the_tsr_loader_config(tile_volume, workdir,
+                                                tmp_path, monkeypatch):
+    """``tensorstore_rendering.loader_config`` reaches the loaders that
+    ``VolumeRenderer`` renders from, as ``rendering.loader_config`` does
+    the rendering stage's."""
+    from feabas_tpu_torch.scripts import align_main
+    seen = []
+    orig = prenderer.VolumeRenderer.__init__
+
+    def spy(self, tform_list, loaders, writer, **kwargs):
+        seen.append(loaders)
+        orig(self, tform_list, loaders, writer, **kwargs)
+    monkeypatch.setattr(prenderer.VolumeRenderer, '__init__', spy)
+    _tsr_workdir(workdir, tile_volume, out_dir=str(tmp_path / 'v'),
+                 loader_config={'fillval': 7, 'cache_size': 3})
+    align_main.main(['--mode', 'tsr', '--stop', '2'])
+    (loaders,), = seen,
+    assert sorted(loaders) == ['s0', 's1']
+    for ld in loaders.values():
+        d = ld.to_dict()
+        assert (d['fillval'], d['cache_size']) == (7, 3)
 
 
 def _shaded(rng, h=512, w=512):
